@@ -1,0 +1,95 @@
+// Flash attention for the ViT towers and the encoder's "flash" path, for
+// Hopper (sm_90a).
+//
+// Replaces marqo_tpu/ops/fused_attention.py `fused_attention` (`_mha_nomask`
+// and `_mha_segments`), which runs JAX's library Pallas TPU flash kernel:
+// tiled attention with an online softmax, scale 1/sqrt(D) applied inside,
+// fp32 scores, softmax and accumulation, output in the input dtype. Two
+// modes:
+//   no mask:  every key in range is allowed (the ViT image towers);
+//   segment:  key j is allowed iff seg[i] == seg[j], id 0 included (packed
+//             rows; a padding mask arrives as ids {0, 1}, so pad rows attend
+//             to each other).
+// A query always sees at least its own key, so no row is fully masked and
+// every output row is defined; disallowed scores get -1e9 and keys past the
+// ragged edge of S get -inf.
+//
+// What bounds it on this card: the TPU kernel tiles S by up to 512 and
+// holds (512, 512) fp32 score blocks in VMEM; a Hopper block has 227 KB of
+// shared memory. The tile loop of attention_tile.cuh owns a 64-row query
+// tile per block and walks 64-key tiles, so any S fits (577 for
+// ViT-L/14@336, 730 for ViT-H-14-378) and the last tile masks its own
+// ragged edge, with no padding of the token axis. Head dims are any
+// multiple of 8 up to 128 (64 for the B and L towers; 80, 88 and 104 for the
+// open_clip H, g and bigG towers): shared memory grows with D to 113 KB at
+// D = 128. The arithmetic is plain fp32 FMA from shared memory (no tensor
+// cores yet), so at ViT shapes the kernel is bound by shared-memory
+// bandwidth and the FMA issue rate, not by device memory.
+
+#include "attention_tile.cuh"
+
+namespace {
+
+using marqo_attention::launch_attention;
+
+struct NoMask {
+  static constexpr bool kUsesIds = false;
+  static __device__ __forceinline__ bool allowed(int, int) { return true; }
+};
+
+struct SegmentMask {
+  static constexpr bool kUsesIds = true;
+  static __device__ __forceinline__ bool allowed(int query, int key) {
+    return key == query;
+  }
+};
+
+constexpr int kMaxHeadDim = 128;
+
+template <typename T, typename Mask, int D = 8>
+cudaError_t launch_head_dim(int head_dim, const void* q, const void* k,
+                            const void* v, const void* ids, void* out,
+                            int batch, int heads, int seq_len, float scale,
+                            cudaStream_t stream) {
+  if (head_dim == D)
+    return launch_attention<T, D, Mask>(q, k, v, ids, out, batch, heads,
+                                        seq_len, scale, stream);
+  if constexpr (D < kMaxHeadDim)
+    return launch_head_dim<T, Mask, D + 8>(head_dim, q, k, v, ids, out, batch,
+                                           heads, seq_len, scale, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t launch_mode(const void* q, const void* k, const void* v,
+                        const void* segment_ids, void* out, int batch,
+                        int heads, int seq_len, int head_dim, float scale,
+                        cudaStream_t stream) {
+  return segment_ids
+             ? launch_head_dim<T, SegmentMask>(head_dim, q, k, v, segment_ids,
+                                               out, batch, heads, seq_len,
+                                               scale, stream)
+             : launch_head_dim<T, NoMask>(head_dim, q, k, v, nullptr, out,
+                                          batch, heads, seq_len, scale,
+                                          stream);
+}
+
+}  // namespace
+
+// q, k, v, out: (batch, heads, seq_len, head_dim), contiguous, fp32 or bf16
+// (bf16 != 0), head_dim a multiple of 8 up to 128; segment_ids: (batch,
+// seq_len) int32, or null for no mask. Returns the cudaError_t of the launch
+// (0 on success); the kernel runs asynchronously on `stream`.
+extern "C" int marqo_fused_attention(const void* q, const void* k,
+                                     const void* v, const void* segment_ids,
+                                     void* out, int batch, int heads,
+                                     int seq_len, int head_dim, int bf16,
+                                     float scale, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      bf16 ? launch_mode<__nv_bfloat16>(q, k, v, segment_ids, out, batch,
+                                        heads, seq_len, head_dim, scale, s)
+           : launch_mode<float>(q, k, v, segment_ids, out, batch, heads,
+                                seq_len, head_dim, scale, s);
+  return static_cast<int>(err);
+}

@@ -13,224 +13,44 @@
 //
 // What bounds it on this card: the TPU kernel gave one program the whole
 // S x S score tile, which at S = 512 in fp32 is 1 MB, far over the 227 KB of
-// shared memory a block may use. Here one block owns one (batch, head,
-// 64-row query tile) and loops over 64-row K/V tiles with an online softmax
-// (running max and sum per row in fp32), so shared memory is bounded by the
-// tile size (68 KB at D = 64) whatever S is, and the (S, S) scores never
-// reach device memory. The mask row is read once per block. Masked tiles
+// shared memory a block may use. The tile loop of attention_tile.cuh owns a
+// 64-row query tile per block and walks 64-key tiles with an online
+// softmax, so shared memory is 68 KB at D = 64 whatever S is. Masked tiles
 // are not skipped: computing -1e9 scores keeps the uniform-row result of
 // the TPU kernel exact with no special case. Arithmetic is plain fp32 FMA
 // from shared memory (no tensor cores yet), so at the encoder's shapes the
 // kernel is bound by shared-memory bandwidth and FMA issue rate.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "attention_tile.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;    // query rows per block
-constexpr int kBlockK = 64;    // keys per inner tile
-constexpr int kThreads = 256;  // 16 x 16; thread (ty, tx) owns rows ty + 16i
-                               // and key/output columns tx + 16j
-constexpr float kMaskedScore = -1e9f;
+using marqo_attention::launch_attention;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* dst, float x) { *dst = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* dst, float x) {
-  *dst = __float2bfloat16(x);
-}
-
-template <int D>
-struct Layout {
-  // +1 pads break shared-memory bank conflicts on column-wise reads
-  static constexpr int kQStride = D + 1;
-  static constexpr int kKStride = D + 1;
-  static constexpr int kVStride = D;
-  static constexpr int kPStride = kBlockK + 1;
-  static constexpr int kFloats = kBlockQ * kQStride + kBlockK * kKStride +
-                                 kBlockK * kVStride + kBlockQ * kPStride;
+struct PaddingMask {
+  static constexpr bool kUsesIds = true;
+  static __device__ __forceinline__ bool allowed(int, int key) {
+    return key > 0;
+  }
 };
 
-template <typename T, int D, bool kSegment>
-__global__ void __launch_bounds__(kThreads)
-masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const int* __restrict__ mask,
-                        T* __restrict__ out, int num_heads, int seq_len,
-                        float scale) {
-  using L = Layout<D>;
-  constexpr int kCols = (D + 15) / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = qs + kBlockQ * L::kQStride;
-  float* vs = ks + kBlockK * L::kKStride;
-  float* ps = vs + kBlockK * L::kVStride;
-  int* ms = reinterpret_cast<int*>(ps + kBlockQ * L::kPStride);  // (seq_len,)
-
-  const int q0 = blockIdx.x * kBlockQ;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const size_t head_offset =
-      ((size_t)blockIdx.z * num_heads + blockIdx.y) * (size_t)seq_len * D;
-  const T* qh = q + head_offset;
-  const T* kh = k + head_offset;
-  const T* vh = v + head_offset;
-  T* oh = out + head_offset;
-  const int* mrow = mask + (size_t)blockIdx.z * seq_len;
-
-  for (int i = tid; i < seq_len; i += kThreads) ms[i] = mrow[i];
-  for (int e = tid; e < kBlockQ * D; e += kThreads) {
-    const int r = e / D, c = e % D, row = q0 + r;
-    qs[r * L::kQStride + c] =
-        row < seq_len ? to_float(qh[(size_t)row * D + c]) : 0.f;
+struct SegmentMask {
+  static constexpr bool kUsesIds = true;
+  static __device__ __forceinline__ bool allowed(int query, int key) {
+    return key > 0 && key == query;
   }
-  __syncthreads();
-
-  float acc[4][kCols];
-  float row_max[4], row_sum[4];
-  int row_seg[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    row_max[i] = -INFINITY;
-    row_sum[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
-    const int row = q0 + ty + 16 * i;
-    row_seg[i] = row < seq_len ? ms[row] : 0;
-  }
-
-  for (int k0 = 0; k0 < seq_len; k0 += kBlockK) {
-    for (int e = tid; e < kBlockK * D; e += kThreads) {
-      const int r = e / D, c = e % D, row = k0 + r;
-      const bool in = row < seq_len;
-      ks[r * L::kKStride + c] = in ? to_float(kh[(size_t)row * D + c]) : 0.f;
-      vs[r * L::kVStride + c] = in ? to_float(vh[(size_t)row * D + c]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty + 16 * i) * L::kQStride + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * L::kKStride + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-    // mask: keys past the ragged edge drop out entirely (-inf); disallowed
-    // keys in range get the TPU kernel's finite fill
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int key = k0 + tx + 16 * j;
-      const int key_seg = key < seq_len ? ms[key] : 0;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const bool allowed =
-            kSegment ? (key_seg > 0 && key_seg == row_seg[i]) : key_seg > 0;
-        s[i][j] = key >= seq_len ? -INFINITY
-                  : allowed      ? s[i][j] * scale
-                                 : kMaskedScore;
-      }
-    }
-
-    // online softmax; the 16 threads of a row are one half-warp
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float tile_max = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, off));
-      // every tile holds at least one in-range key, so new_max is finite
-      const float new_max = fmaxf(row_max[i], tile_max);
-      const float alpha = expf(row_max[i] - new_max);
-      float tile_sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - new_max);
-        tile_sum += s[i][j];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        tile_sum += __shfl_xor_sync(0xffffffffu, tile_sum, off);
-      row_sum[i] = row_sum[i] * alpha + tile_sum;
-      row_max[i] = new_max;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ps[(ty + 16 * i) * L::kPStride + tx + 16 * j] = s[i][j];
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kBlockK; ++kk) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * L::kPStride + kk];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = tx + 16 * j;
-        const float vv = c < D ? vs[kk * L::kVStride + c] : 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= seq_len) continue;
-    const float inv = 1.f / row_sum[i];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int c = tx + 16 * j;
-      if (c < D) store(&oh[(size_t)row * D + c], acc[i][j] * inv);
-    }
-  }
-}
-
-template <typename T, int D, bool kSegment>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* mask, void* out, int batch, int heads,
-                   int seq_len, float scale, cudaStream_t stream) {
-  auto kernel = masked_attention_kernel<T, D, kSegment>;
-  const size_t smem =
-      Layout<D>::kFloats * sizeof(float) + (size_t)seq_len * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((seq_len + kBlockQ - 1) / kBlockQ, heads, batch);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(mask),
-      static_cast<T*>(out), heads, seq_len, scale);
-  return cudaGetLastError();
-}
+};
 
 template <typename T, int D>
 cudaError_t launch_mode(const void* q, const void* k, const void* v,
                         const void* mask, void* out, int batch, int heads,
                         int seq_len, int segment, float scale,
                         cudaStream_t stream) {
-  return segment ? launch<T, D, true>(q, k, v, mask, out, batch, heads,
-                                      seq_len, scale, stream)
-                 : launch<T, D, false>(q, k, v, mask, out, batch, heads,
-                                       seq_len, scale, stream);
+  return segment ? launch_attention<T, D, SegmentMask>(
+                       q, k, v, mask, out, batch, heads, seq_len, scale, stream)
+                 : launch_attention<T, D, PaddingMask>(
+                       q, k, v, mask, out, batch, heads, seq_len, scale,
+                       stream);
 }
 
 template <typename T>

@@ -9,7 +9,8 @@ Every model exposes:
 
 One device per model: the multi-device serving mesh of marqo_tpu is not
 ported yet (ROADMAP A10). Model families other than the BERT-family text
-encoder raise ModelLoadError until their slice lands.
+encoder and the ViT CLIP towers (models/clip.py) raise ModelLoadError
+until their slice lands.
 """
 
 import hashlib
@@ -449,8 +450,29 @@ def resolve_model_class(model_name: str, properties: dict):
         return NoModel
     if model_type == "hf_stella":
         _not_ported(model_name, "hf_stella", "A6")
-    if model_type in ("clip", "open_clip", "fp16_clip", "multilingual_clip"):
-        _not_ported(model_name, model_type, "A5-A7")
+    if model_type == "multilingual_clip":
+        # M-CLIP: XLM-R text tower + linear projection (models/hf_clip.py)
+        _not_ported(model_name, "multilingual_clip", "A6")
+    if model_type in ("clip", "open_clip", "fp16_clip"):
+        name = str(properties.get("name", model_name))
+        lowered = name.lower()
+        if "coca_" in lowered:
+            _not_ported(model_name, "CoCa", "A7")
+        if "nllb" in lowered:
+            _not_ported(model_name, "NLLB-SigLIP", "A7")
+        if "siglip" in lowered:
+            _not_ported(model_name, "SigLIP", "A7")
+        if any(t in name for t in ("RN50", "RN101")):
+            _not_ported(model_name, "ResNet-CLIP", "A7")
+        if "convnext" in lowered:
+            _not_ported(model_name, "ConvNeXt-CLIP", "A7")
+        if "roberta" in lowered:
+            # roberta/xlm-roberta text tower + ViT composites
+            _not_ported(model_name, "roberta CLIP composite", "A6")
+        if "eva02" in lowered:
+            _not_ported(model_name, "EVA02-CLIP", "A7")
+        from marqo_tpu_torch.models.clip import TorchCLIPModel
+        return TorchCLIPModel
     if model_type == "languagebind":
         _not_ported(model_name, "languagebind", "A8")
     raise InvalidArgumentError(

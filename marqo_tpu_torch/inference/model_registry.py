@@ -10,7 +10,10 @@ the reference (``name``, ``dimensions``, ``tokens``, ``type``, ``notes``,
 Loader ``type`` values map to model classes in
 marqo_tpu_torch.inference.loaders (vs. reference's torch/open_clip/onnx classes):
   hf | sbert        → TorchHFTextModel (BERT/RoBERTa-family, models/bert.py)
-  hf_stella, clip | open_clip | fp16_clip, multilingual_clip, languagebind
+  clip | open_clip | fp16_clip → TorchCLIPModel (ViT towers, models/clip.py),
+                    except coca_*, *SigLIP*, nllb-*, RN50*/RN101*,
+                    convnext_*, *roberta* and EVA02* names
+  those, hf_stella, multilingual_clip, languagebind
                     → not yet ported: loading raises ModelLoadError
   random            → RandomModel (deterministic, tests)
   test              → TestModel (tiny real torch encoder + WordPiece)

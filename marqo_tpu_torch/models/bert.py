@@ -8,8 +8,9 @@ cls/mean pooling and L2 normalization.
 
 The encoder is an ``nn.Module`` whose dtype is the compute dtype (bf16 when
 serving); LayerNorm, softmax and pooling statistics run in fp32
-(ops/common.py). Attention goes through ops/flash_attention.py: the
-hand-written CUDA kernel on a CUDA device, its plain twin on the CPU. The
+(ops/common.py). Attention goes through ops/flash_attention.py (or, with
+``attention_impl="flash"``, ops/fused_attention.py): the hand-written CUDA
+kernel on a CUDA device, its plain twin on the CPU. The
 linear layers are plain ``nn.Linear`` matmuls. It only serves: no autograd.
 """
 
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from marqo_tpu_torch.ops import flash_attention
+from marqo_tpu_torch.ops import flash_attention, fused_attention
 from marqo_tpu_torch.ops.common import (ACTIVATIONS, cls_pool, l2_normalize,
                                         layer_norm, masked_mean_pool)
 
@@ -40,8 +41,9 @@ class TextEncoderConfig:
     normalize: bool = True
     # XLM-R/RoBERTa offset position ids by pad_token_id+1 (padding_idx=1)
     position_offset: int = 0
-    # "kernel": ops/flash_attention.py wrappers (CUDA kernel on a CUDA
-    # device, plain twin on the CPU); "plain": always the plain twin
+    # "kernel": ops/flash_attention.py wrappers (CUDA kernel B1 on a CUDA
+    # device, plain twin on the CPU); "flash": ops/fused_attention.py (CUDA
+    # kernel B2; pad rows attend to each other); "plain": always B1's twin
     attention_impl: str = "kernel"
     # W8A8 int8 linear layers: not ported yet
     quantize: bool = False
@@ -56,6 +58,10 @@ _ATTENTION = {
     ("kernel", "segment"): flash_attention.attention_segment,
     ("plain", "padding"): flash_attention.attention_padding_reference,
     ("plain", "segment"): flash_attention.attention_segment_reference,
+    ("flash", "padding"): lambda q, k, v, mask:
+        fused_attention.fused_attention(q, k, v, pad_mask=mask),
+    ("flash", "segment"): lambda q, k, v, segment_ids:
+        fused_attention.fused_attention(q, k, v, segment_ids=segment_ids),
 }
 
 
@@ -94,7 +100,7 @@ class EncoderLayer(nn.Module):
     def forward(self, x: torch.Tensor, attend,
                 mask_data: torch.Tensor) -> torch.Tensor:
         """x: (B, S, H); ``attend(q, k, v, mask_data)`` is one of the
-        ops/flash_attention.py entry points for ``mask_data``'s mode."""
+        ``_ATTENTION`` entries for ``mask_data``'s mode."""
         config = self.config
         B, S, H = x.shape
         N, D = config.num_heads, config.head_dim
@@ -147,12 +153,13 @@ def _empty_encoder(config: TextEncoderConfig, dtype,
 
 
 @torch.no_grad()
-def _fill(encoder: TextEncoder, values: dict) -> TextEncoder:
-    """Copy ``values`` (name → array or tensor) into every parameter."""
-    params = dict(encoder.named_parameters())
+def fill_parameters(module: nn.Module, values: dict) -> nn.Module:
+    """Copy ``values`` (name → array or tensor) into every parameter of
+    ``module``; raise if one is missing or has another shape."""
+    params = dict(module.named_parameters())
     missing = set(params) - set(values)
     if missing:
-        raise KeyError(f"encoder weights missing: {sorted(missing)}")
+        raise KeyError(f"weights missing: {sorted(missing)}")
     for name, param in params.items():
         value = values[name]
         value = value.float() if torch.is_tensor(value) else \
@@ -161,7 +168,7 @@ def _fill(encoder: TextEncoder, values: dict) -> TextEncoder:
             raise ValueError(f"{name}: expected {tuple(param.shape)}, got "
                              f"{tuple(value.shape)}")
         param.copy_(value)
-    return encoder
+    return module
 
 
 def init_encoder(config: TextEncoderConfig, generator: torch.Generator,
@@ -310,7 +317,7 @@ def params_from_torch_state_dict(state_dict, config: TextEncoderConfig,
                 values[f"layers.{i}.{name}.{kind}"] = \
                     sd[f"encoder.layer.{i}.{hf}.{kind}"]
     config = _with_type_vocab(config, values["embeddings.token_type.weight"])
-    return _fill(_empty_encoder(config, dtype, device), values)
+    return fill_parameters(_empty_encoder(config, dtype, device), values)
 
 
 # this module's per-layer parameter names ← marqo_tpu stacked pytree keys
@@ -342,7 +349,7 @@ def params_from_jax(params_numpy: dict, config: TextEncoderConfig,
             values[f"layers.{i}.{name}.weight"] = np.asarray(layers[w][i]).T
             values[f"layers.{i}.{name}.bias"] = layers[b][i]
     config = _with_type_vocab(config, values["embeddings.token_type.weight"])
-    return _fill(_empty_encoder(config, dtype, device), values)
+    return fill_parameters(_empty_encoder(config, dtype, device), values)
 
 
 def _with_type_vocab(config: TextEncoderConfig, table) -> TextEncoderConfig:

@@ -1,9 +1,10 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
 The sources in ``marqo_tpu_torch/csrc/`` have a plain C interface, so
-``nvcc`` compiles them in seconds into one shared library (no PyTorch
-headers). The library goes to ``build/marqo_tpu_torch_kernels/`` beside the
-package, named by a hash of the sources and flags, so an edited source
+``nvcc`` compiles them in seconds (no PyTorch headers): one ``nvcc -c`` per
+``.cu`` file, all started together, then one link into a shared library.
+The library goes to ``build/marqo_tpu_torch_kernels/`` beside the package,
+named by a hash of the sources, headers and flags, so an edited source
 rebuilds and an unchanged one is loaded as it is. A failed build raises.
 """
 
@@ -20,7 +21,7 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[2] / "build" /
              "marqo_tpu_torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -45,10 +46,26 @@ def _sources():
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libmarqo_tpu_torch_kernels-{digest.hexdigest()[:16]}.so"
+
+
+def _run_all(commands) -> None:
+    """Run the commands in parallel; raise with the output of each that
+    failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in commands]
+    failures = []
+    for cmd, proc in procs:
+        output, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed ({proc.returncode}): "
+                            f"{' '.join(cmd)}\n{output}")
+    if failures:
+        raise RuntimeError("\n".join(failures))
 
 
 def build() -> Path:
@@ -57,14 +74,18 @@ def build() -> Path:
     if target.is_file():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.parent / f"{target.name}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, target)
+    stem = f"{target.name}.tmp{os.getpid()}"
+    nvcc = _nvcc()
+    objects = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in _sources()]
+    try:
+        _run_all([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                 for src, obj in zip(_sources(), objects))
+        tmp = BUILD_DIR / stem
+        _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objects)]])
+        os.replace(tmp, target)
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     return target
 
 
@@ -74,9 +95,13 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            fn = lib.marqo_masked_attention
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+            masked = lib.marqo_masked_attention
+            masked.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
                 ctypes.c_float, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+            masked.restype = ctypes.c_int
+            fused = lib.marqo_fused_attention
+            fused.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+                ctypes.c_float, ctypes.c_void_p]
+            fused.restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -112,10 +112,14 @@ def _launch(q, k, v, mask, mode: str) -> torch.Tensor:
 
 # --- plain twin ---------------------------------------------------------------
 
-def _masked_softmax_attention(q, k, v, allowed) -> torch.Tensor:
+def softmax_attention(q, k, v, allowed=None) -> torch.Tensor:
+    """softmax(q.k^T / sqrt(D)) v with fp32 scores and softmax; keys where
+    the boolean ``allowed`` (broadcast to the scores) is False get -1e9.
+    The plain twin of this module's kernel and of ops/fused_attention.py's."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    scores = scores.masked_fill(~allowed, _MASKED_SCORE)
+    if allowed is not None:
+        scores = scores.masked_fill(~allowed, _MASKED_SCORE)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.matmul(probs, v)
 
@@ -123,11 +127,11 @@ def _masked_softmax_attention(q, k, v, allowed) -> torch.Tensor:
 def attention_padding_reference(q, k, v, pad_mask) -> torch.Tensor:
     """Plain PyTorch twin of the padding-mode kernel."""
     allowed = (pad_mask > 0)[:, None, None, :]
-    return _masked_softmax_attention(q, k, v, allowed)
+    return softmax_attention(q, k, v, allowed)
 
 
 def attention_segment_reference(q, k, v, segment_ids) -> torch.Tensor:
     """Plain PyTorch twin of the segment-mode kernel."""
     seg = segment_ids
     allowed = (seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] > 0)
-    return _masked_softmax_attention(q, k, v, allowed[:, None])
+    return softmax_attention(q, k, v, allowed[:, None])

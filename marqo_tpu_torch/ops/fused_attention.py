@@ -1,0 +1,125 @@
+"""Flash attention for the ViT towers and the encoder's "flash" path: the
+hand-written CUDA kernel (``csrc/fused_attention.cu``) and its plain
+PyTorch twin.
+
+Port of marqo_tpu/ops/fused_attention.py, whose ``fused_attention`` runs
+JAX's library Pallas TPU flash kernel. Two modes:
+
+  - no mask: every key is allowed (the ViT image towers), any S;
+  - segment ids (B, S): key j is allowed iff seg[i] == seg[j], with 0 a
+    segment like any other. A ``pad_mask`` (B, S) becomes ids {0, 1}, so
+    pad rows attend to each other; callers discard them.
+
+q is unscaled: 1/sqrt(D) is applied inside, scores, softmax and the P.V
+accumulation run in fp32, and the output is in the input dtype. Every query
+sees at least its own key, so every output row is defined.
+
+Not ported: the ``interpret`` argument, ``supports()`` (its S % 128 rule is
+a TPU tiling limit; the CUDA kernel masks its own ragged edge) and
+``flash_enabled()`` (the MARQO_TPU_FUSED_ATTENTION gate): on a CUDA device
+the kernel is the ViT towers' attention.
+
+Routing: a tensor on the CPU takes the plain twin; a tensor on a CUDA
+device launches the kernel or raises. ``LAUNCHES`` counts kernel launches
+per mode (a ``pad_mask`` runs the segment mode).
+"""
+
+import math
+import threading
+from typing import Optional
+
+import torch
+
+from marqo_tpu_torch.ops import _build
+from marqo_tpu_torch.ops.flash_attention import softmax_attention
+
+HEAD_DIMS = tuple(range(8, 129, 8))
+DTYPES = (torch.float32, torch.bfloat16)
+
+# kernel launches per mode (plain ints; the twin never counts); serving
+# threads launch concurrently, so increments take the lock
+LAUNCHES = {"nomask": 0, "segment": 0}
+_launches_lock = threading.Lock()
+
+
+def _segment_ids(pad_mask, segment_ids) -> Optional[torch.Tensor]:
+    if segment_ids is not None:
+        return segment_ids
+    if pad_mask is not None:
+        # padding is segment masking with ids {0, 1}
+        return (pad_mask > 0).to(torch.int32)
+    return None
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    pad_mask: Optional[torch.Tensor] = None,
+                    segment_ids: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """q, k, v: (B, N, S, D), q unscaled. At most one of pad_mask (B, S)
+    0/1 and segment_ids (B, S) int; segment_ids wins if both are given."""
+    if q.device.type == "cpu":
+        return fused_attention_reference(q, k, v, pad_mask, segment_ids)
+    return _launch(q, k, v, _segment_ids(pad_mask, segment_ids))
+
+
+def check_kernel_inputs(q, k, v, segment_ids=None) -> None:
+    """Raise ValueError unless the kernel takes these tensors (device
+    aside): fp32/bf16 q, k, v of one contiguous (B, N, S, D) shape with
+    S >= 1 and D in HEAD_DIMS, and (B, S) segment ids if any."""
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"fused attention: q, k, v must all be fp32 or "
+                         f"bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"fused attention: q, k, v must share one "
+                         f"(B, N, S, D) shape, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, _, S, D = q.shape
+    if S < 1 or D not in HEAD_DIMS:
+        raise ValueError(f"fused attention: S={S} (at least 1), D={D} (a "
+                         f"multiple of 8 up to 128) not supported")
+    if segment_ids is not None and tuple(segment_ids.shape) != (B, S):
+        raise ValueError(f"fused attention: segment ids must be {(B, S)}, "
+                         f"got {tuple(segment_ids.shape)}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("fused attention: q, k, v must be contiguous")
+
+
+def _launch(q, k, v, ids) -> torch.Tensor:
+    if q.device.type != "cuda":
+        raise ValueError(f"fused attention: unsupported device {q.device}")
+    if any(t.device != q.device for t in (k, v) + (() if ids is None
+                                                   else (ids,))):
+        raise ValueError("fused attention: q, k, v and segment ids must "
+                         "share a device")
+    check_kernel_inputs(q, k, v, ids)
+    if ids is not None:
+        ids = ids.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    B, N, S, D = q.shape
+    lib = _build.load_library()
+    with torch.cuda.device(q.device):
+        err = lib.marqo_fused_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if ids is None else ids.data_ptr(), out.data_ptr(),
+            B, N, S, D, int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(D),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused attention kernel launch failed: CUDA "
+                           f"error {err}")
+    with _launches_lock:
+        LAUNCHES["nomask" if ids is None else "segment"] += 1
+    return out
+
+
+# --- plain twin --------------------------------------------------------------
+
+def fused_attention_reference(q, k, v, pad_mask=None,
+                              segment_ids=None) -> torch.Tensor:
+    """Plain PyTorch twin of the kernel, with fused_attention's signature."""
+    ids = _segment_ids(pad_mask, segment_ids)
+    if ids is None:
+        return softmax_attention(q, k, v)
+    allowed = ids[:, :, None] == ids[:, None, :]
+    return softmax_attention(q, k, v, allowed[:, None])

@@ -167,6 +167,7 @@ def compute_query_vector(index: MarqoIndex,
         from marqo_tpu_torch.tensor_search.add_docs import (fetch_content,
                                                       infer_modality,
                                                       is_media_pointer)
+        from marqo_tpu_torch.ops.image_ops import host_decode
         treat_images = getattr(index, "treat_urls_and_pointers_as_images",
                                False)
         treat_media = getattr(index, "treat_urls_and_pointers_as_media",
@@ -206,7 +207,6 @@ def compute_query_vector(index: MarqoIndex,
         for modality, items in by_modality.items():
             try:
                 if modality == Modality.IMAGE:
-                    from marqo_tpu_torch.ops.image_ops import host_decode
                     contents = [host_decode(fetch_content(
                         q, media_download_headers)) for q, _ in items]
                 elif modality == Modality.AUDIO:

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Where the device time of marqo_tpu_torch's text encoder goes, on a CUDA
-card: an e5-base-v2-width random-init encoder (bf16) runs a padded ingest
-batch and a packed one under torch.profiler, and the script prints one JSON
+"""Where the device time of marqo_tpu_torch's encoders goes, on a CUDA
+card: an e5-base-v2-width random-init text encoder (bf16) runs a padded
+ingest batch and a packed one, and the ViT-L/14 image tower (bf16, random
+init) a batch of images, under torch.profiler. The script prints one JSON
 line per batch with the device time by kernel family (attention kernel,
 matmuls, the rest), the top kernels, and the device's busy share of the
 wall time.
 
     python3 scripts/profile_torch_encoder.py [--batch 256] [--seq 128]
+                                             [--images 16]
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -24,8 +26,17 @@ E5_BASE = {"vocab_size": 30522, "hidden_size": 768, "num_layers": 12,
            "num_heads": 12, "intermediate_size": 3072}
 
 
+# ViT-L/14 (bench.py:209-213)
+VIT_L14_TEXT = {"hidden_size": 768, "num_layers": 12, "num_heads": 12,
+                "intermediate_size": 3072, "projection_dim": 768}
+VIT_L14_VISION = {"image_size": 224, "patch_size": 14, "hidden_size": 1024,
+                  "num_layers": 24, "num_heads": 16, "intermediate_size": 4096,
+                  "projection_dim": 768}
+
+
 def family(name: str) -> str:
-    if "masked_attention" in name:
+    # both attention kernels (B1, B2) instantiate csrc/attention_tile.cuh
+    if "attention_tile_kernel" in name:
         return "attention_kernel"
     if any(t in name.lower() for t in ("gemm", "cutlass", "sm90_xmma",
                                        "cublas", "nvjet")):
@@ -63,6 +74,7 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--batch", type=int, default=256)
     parser.add_argument("--seq", type=int, default=128)
+    parser.add_argument("--images", type=int, default=16)
     parser.add_argument("--steps", type=int, default=5)
     args = parser.parse_args()
 
@@ -99,12 +111,28 @@ def main() -> int:
             encode_tokens_packed(encoder, dev["pids"], dev["seg"],
                                  dev["pos"], dev["idx"], packed.n_sequences)
 
+    from marqo_tpu_torch.models.clip import (CLIPTextConfig,
+                                             CLIPVisionConfig,
+                                             encode_clip_image,
+                                             init_clip_params)
+    clip_model = init_clip_params(
+        CLIPTextConfig(**VIT_L14_TEXT), CLIPVisionConfig(**VIT_L14_VISION),
+        torch.Generator("cuda").manual_seed(0), dtype=torch.bfloat16,
+        device="cuda")
+    pixels = torch.from_numpy(rng.integers(
+        0, 256, (args.images, 224, 224, 3), dtype=np.uint8)).cuda()
+
+    def images():
+        with torch.inference_mode():
+            encode_clip_image(clip_model, pixels)
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    for name, fn, rows in (("padded", padded, B),
-                           ("packed", packed_run,
-                            int(packed.input_ids.shape[0]))):
+    for name, fn, docs, rows, seq in (
+            ("padded", padded, B, B, S),
+            ("packed", packed_run, B, int(packed.input_ids.shape[0]), S),
+            ("vit_l14_images", images, args.images, args.images, 257)):
         kernels, wall_ms = profile(fn, args.steps)
         total_us = sum(kernels.values())
         by_family = {}
@@ -112,7 +140,7 @@ def main() -> int:
             by_family[family(key)] = by_family.get(family(key), 0.0) + us
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
         print(json.dumps({
-            "batch": name, "docs": B, "rows": rows, "seq": S,
+            "batch": name, "docs": docs, "rows": rows, "seq": seq,
             "device_ms_per_step": total_us / 1000 / args.steps,
             "wall_ms_per_step": wall_ms / args.steps,
             "device_busy_share": total_us / 1000 / wall_ms,

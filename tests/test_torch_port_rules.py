@@ -20,9 +20,10 @@ PORT = os.path.join(REPO, "marqo_tpu_torch")
 
 # rewritten in torch: compared against the JAX package by the parity tests
 PORTED = {
-    "ops/common.py", "ops/flash_attention.py", "ops/_build.py",
-    "models/bert.py", "inference/types.py", "inference/batching.py",
-    "inference/loaders.py", "engine/torch_scorer.py",
+    "ops/common.py", "ops/flash_attention.py", "ops/fused_attention.py",
+    "ops/image_ops.py", "ops/_build.py", "models/bert.py", "models/clip.py",
+    "inference/types.py", "inference/batching.py", "inference/loaders.py",
+    "engine/torch_scorer.py",
 }
 
 # copies with deliberate edits, and why
@@ -39,9 +40,6 @@ DELIBERATE_EDITS = {
                                    "JAX models: not yet ported (ROADMAP A9)",
     "inference/rerank.py": "the cross-encoder and OWL-ViT rerankers run JAX "
                            "models: not yet ported (ROADMAP A6, A9)",
-    "tensor_search/tensor_search.py": "the image_ops import moved into the "
-                                      "image-query branch, so text queries "
-                                      "do not reach the unported module",
 }
 
 

@@ -17,30 +17,49 @@ phases and prints one JSON object per phase:
                    (4, 16, S, D) for the ViT towers' (tokens, head dim),
                    and at the main path's own shapes: (16, 16, 257, 64)
                    with no mask, (16, 12, 128, 64) padded and packed
-  5. encoder       e5-base-v2-width encoder on the same random weights:
+  5. quant_kernel  B3, the fused W8A8 linear layer, against its plain
+                   twin, fp32 and bf16: M in 1/32/37/4096/17408 over the
+                   registry's BERT (K, N) widths, then the main path's own
+                   shapes (M = 32768 padded ingest, 17408 packed, 32 for
+                   a query, by (768, 768), (768, 3072), (3072, 768))
+  6. encoder       e5-base-v2-width encoder on the same random weights:
                    B1 ("kernel") and B2 ("flash") paths against the twin
                    path, padded and packed
-  6. clip_encoder  the ViT-L/14 towers at full width and depth, random
+  7. int8_encoder  the same width with quantize=True: the B3 path against
+                   the twin path, padded and packed; the int8 encoder
+                   against the bf16 one on the same weights
+  8. clip_encoder  the ViT-L/14 towers at full width and depth, random
                    weights: the vision tower on B2 against the twin, batch 16
-  7. serve         the in-process HTTP server: an e5-base-v2-width
+  9. serve         the in-process HTTP server: an e5-base-v2-width
                    random-init index, 256 documents of mixed lengths,
                    TENSOR and HYBRID searches and an embed; both B1 modes
                    must have run
-  8. clip_serve    the same server: an open_clip ViT-L/14 random-init index
+ 10. clip_serve    the same server: an open_clip ViT-L/14 random-init index
                    with treatUrlsAndPointersAsImages, 64 documents with an
                    image file, a caption and a multimodal_combination
                    field; TENSOR searches by text, by an image path and
                    weighted, and an image embed; B2's no-mask mode must
                    have run during the adds and the image search
-  9. timing        kernel and twin times, ViT-L/14 images per second on
-                   the kernel and twin paths, add throughput and search
-                   latency (information only)
+ 11. int8_serve    the serve phase's index with quantize: true; B3 must
+                   have run during the adds and during the searches, B1 too
+ 12. rerank        tensor_search.search on the serve phase's index with a
+                   cross-encoder reranker at ms-marco-MiniLM-L-6 width: hits
+                   re-sorted by the cross-encoder's scores, B1 padding ran
+ 13. stella_serve  an hf_stella random-init index at stella_en_400M_v5
+                   width, 64 documents and the searches; B1 ran
+ 14. hf_clip_serve an xlm-roberta-base-ViT-B-32 random-init image index:
+                   search by text and by image; B1 and B2 no-mask ran
+ 15. timing        kernel, twin and library-call times, B3 against the bf16
+                   F.linear it replaces, the int8 against the bf16 e5
+                   encoder, ViT-L/14 images per second on the kernel and
+                   twin paths, add throughput and search latency
+                   (information only)
 
 then the card's name and power limit as nvidia-smi gives them, a
 {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. Every kernel launch counter is set to 0 just
-before each path (encoder, clip_encoder, serve, clip_serve) and read just
-after it. Any failed check raises and the script exits non-zero. Without a
+before each path (the encoders and the serve phases) and read just after
+it. Any failed check raises and the script exits non-zero. Without a
 CUDA device, or outside a checkout, it exits non-zero before printing
 anything. JAX is never imported.
 """
@@ -81,6 +100,42 @@ FUSED_CASES = tuple((4, 16, S, D, FUSED_MODES) for S, D in (
     (16, 16, 257, 64, ("nomask",)),
     (16, 12, 128, 64, ("pad_mask", "segment_ids")))
 CLIP_DOCS = 64
+# cross-encoder/ms-marco-MiniLM-L-6-v2 (head dim 32)
+MINILM_L6 = {"vocab_size": 30522, "hidden_size": 384, "num_layers": 6,
+             "num_heads": 12, "intermediate_size": 1536}
+# dunzhang/stella_en_400M_v5 (models/stella.py stella_400m_config)
+STELLA_400M = {"vocab_size": 30528, "hidden_size": 1024, "num_layers": 24,
+               "num_heads": 16, "intermediate_size": 4096,
+               "rope_theta": 160000.0}
+STELLA_DIMS = 1024
+STELLA_DOCS = 64
+# open_clip xlm-roberta-base-ViT-B-32: XLM-R base text tower, ViT-B/32
+XLMR_VIT_B32 = {"vocab_size": 250002, "text_hidden_size": 768,
+                "text_layers": 12, "text_heads": 12,
+                "text_intermediate": 3072, "patch_size": 32,
+                "vision_hidden_size": 768, "vision_layers": 12,
+                "vision_heads": 12, "vision_intermediate": 3072}
+XLMR_VIT_B32_DIMS = 512
+HF_CLIP_DOCS = 32
+# B3's (K, N) grid: the registry's BERT widths (hidden 384, 768, 1024 with
+# FFN 1536, 3072, 4096) in each of the encoder's linear shapes
+W8A8_WIDTHS = ((768, 768), (768, 3072), (3072, 768), (384, 1536),
+               (1024, 4096))
+# B3 against its twin: fp32 max error over max |ref|, bf16 in ulps of ref
+W8A8_TOLERANCE = {"float32": 1e-5, "bfloat16": 1.0}
+W8A8_GRID_M = (1, 32, 37, 4096, 17408)
+# the rows B3 gets on the main path: the e5-base padded ingest batch (256
+# documents x 128 tokens), the packed batch (136 rows x 128) and a batch-1
+# query (32 tokens), each through the encoder's three linear shapes
+W8A8_PATH_M = (256 * 128, 136 * 128, 32)
+W8A8_PATH_WIDTHS = ((768, 768), (768, 3072), (3072, 768))
+B3_SOURCE = "marqo_tpu_torch/csrc/w8a8_matmul.cu"
+B3_REPLACES = "marqo_tpu/ops/quant_matmul.py:36"
+# one NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet, dense):
+# bf16 tensor cores, int8 tensor cores, HBM3
+PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
+PEAK_BYTES_PER_S = 3.35e12
 
 
 class SmokeFailure(RuntimeError):
@@ -128,12 +183,37 @@ def paired_ms(kernel, plain, iters: int) -> dict:
             "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2]}
 
 
+def bound(bytes_moved: float, operations: float, peak_ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate for their type."""
+    memory_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    compute_ms = operations / peak_ops * 1e3
+    return {"bound_ms": max(memory_ms, compute_ms),
+            "bound_by": "bytes" if memory_ms >= compute_ms else "operations"}
+
+
+def attention_bound(B, N, S, D, mask_ints: int) -> dict:
+    """q, k, v read and the output written once in bf16, plus the int32
+    mask or ids; Q.K^T and P.V at 2 operations per multiply-add, on the
+    bf16 tensor-core peak."""
+    return bound(4 * B * N * S * D * 2 + 4 * mask_ints, 4 * B * N * S * S * D,
+                 PEAK_BF16_FLOPS)
+
+
+def w8a8_bound(M, K, N) -> dict:
+    """bf16 x read, int8 w_q and fp32 w_scale and bias read, bf16 out
+    written once; 2 M K N int8 operations on the int8 tensor-core peak."""
+    return bound(M * K * 2 + N * K + N * 8 + M * N * 2, 2 * M * K * N,
+                 PEAK_INT8_OPS)
+
+
 # --- launch counters ---------------------------------------------------------
 
 def _counter_modules():
-    from marqo_tpu_torch.ops import flash_attention, fused_attention
+    from marqo_tpu_torch.ops import (flash_attention, fused_attention,
+                                     quant_matmul)
     return {"masked_attention": flash_attention, "fused_attention":
-            fused_attention}
+            fused_attention, "w8a8_matmul": quant_matmul}
 
 
 def reset_counts() -> None:
@@ -143,7 +223,8 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    return {f"{name}_{mode}": count
+    """{kernel}_{mode} for the attention kernels, w8a8_matmul for B3."""
+    return {name if len(module.LAUNCHES) == 1 else f"{name}_{mode}": count
             for name, module in _counter_modules().items()
             for mode, count in module.LAUNCHES.items()}
 
@@ -179,6 +260,47 @@ def attention_inputs(B, N, S, D, dtype, seed):
             pos, sid = pos + n, sid + 1
     return (q, k, v, torch.from_numpy(pad).to(DEVICE),
             torch.from_numpy(seg).to(DEVICE))
+
+
+def w8a8_inputs(M, K, N, dtype, seed):
+    """Inputs for B3, on the card: x (M, K) ~ N(0, 1) with rows scaled over
+    four decades, an all-zero row (its scale is the 1e-8 floor) and one row
+    holding a single outlier; w_q (N, K) int8 and w_scale (N,) from
+    quantize_weight of 0.05*N(0, 1) weights; bias (N,) ~ N(0, 1), fp32."""
+    import numpy as np
+    import torch
+
+    from marqo_tpu_torch.ops.quant import quantize_weight
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((M, K), dtype=np.float32)
+    x *= (10.0 ** rng.uniform(-2, 2, (M, 1))).astype(np.float32)
+    x[0] = 0
+    if M > 1:
+        x[1, K // 2] = 1000.0
+    w = 0.05 * rng.standard_normal((N, K), dtype=np.float32)
+    w_q, w_scale = quantize_weight(torch.from_numpy(w))
+    bias = torch.from_numpy(rng.standard_normal(N, dtype=np.float32))
+    return (torch.from_numpy(x).to(DEVICE, dtype), w_q.to(DEVICE),
+            w_scale.to(DEVICE), bias.to(DEVICE))
+
+
+def bf16_ulp(t):
+    """The spacing of bf16 values at |t| (8 significant bits), elementwise."""
+    import torch
+    tiny = torch.finfo(torch.bfloat16).tiny
+    return torch.exp2(torch.floor(torch.log2(t.float().abs().clamp_min(tiny)))
+                      - 7)
+
+
+def w8a8_error(out, ref) -> float:
+    """B3's error against its twin in the units of its tolerance: fp32
+    max |out - ref| / max |ref| (at most 1e-5), bf16 max |out - ref| in bf16
+    ulps of ref (at most 1)."""
+    import torch
+    diff = (out.float() - ref.float()).abs()
+    if out.dtype == torch.bfloat16:
+        return float((diff / bf16_ulp(ref)).max())
+    return float(diff.max() / ref.float().abs().max().clamp_min(1e-30))
 
 
 def write_images(directory: str, n: int, seed: int) -> list:
@@ -269,6 +391,108 @@ def phase_fused_kernel(fused, torch):
                 errors[mode] = max(errors[mode], err)
     emit("fused_kernel", ok=True, atol=ATOL, results=results)
     return errors
+
+
+def phase_quant_kernel(qm, torch):
+    """B3 against its twin over the test grid and at the main path's own
+    shapes; returns the largest absolute error at the main path's shapes
+    per dtype."""
+    results, path_errors = [], {"float32": 0.0, "bfloat16": 0.0}
+    cases = [(M, K, N, False) for M in W8A8_GRID_M for K, N in W8A8_WIDTHS]
+    cases += [(M, K, N, True) for M in W8A8_PATH_M
+              for K, N in W8A8_PATH_WIDTHS]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for M, K, N, on_path in cases:
+            x, w_q, w_scale, bias = w8a8_inputs(M, K, N, dtype,
+                                                seed=M + K + N)
+            out = qm.w8a8_matmul(x, w_q, w_scale, bias)
+            torch.cuda.synchronize()
+            ref = qm.w8a8_matmul_reference(x, w_q, w_scale, bias)
+            check(out.dtype == dtype and tuple(out.shape) == (M, N),
+                  f"w8a8 output {out.dtype} {tuple(out.shape)}")
+            check(bool(torch.isfinite(out).all()),
+                  f"non-finite w8a8 output ({dname}, {M}, {K}, {N})")
+            err = w8a8_error(out, ref)
+            abs_err = float((out.float() - ref.float()).abs().max())
+            results.append({"dtype": dname, "shape": [M, K, N],
+                            "main_path": on_path, "error": err,
+                            "max_abs_err": abs_err})
+            check(err <= W8A8_TOLERANCE[dname],
+                  f"w8a8 kernel vs twin ({dname}, {M}, {K}, {N}): error "
+                  f"{err} > {W8A8_TOLERANCE[dname]}")
+            if on_path:
+                path_errors[dname] = max(path_errors[dname], abs_err)
+    emit("quant_kernel", ok=True, tolerance=W8A8_TOLERANCE,
+         tolerance_units={"float32": "max |out - ref| / max |ref|",
+                          "bfloat16": "bf16 ulps of ref"},
+         checks=len(results), results=results)
+    return path_errors
+
+
+def phase_int8_encoder(torch):
+    """An e5-base-width encoder with quantize=True on random weights: the
+    B3 path against the twin path, padded and packed; then the same weights
+    unquantized in bf16. Returns both encoders for the timing phase."""
+    import copy
+    from dataclasses import replace
+
+    from marqo_tpu_torch.models.bert import (TextEncoderConfig,
+                                             encode_tokens,
+                                             encode_tokens_packed,
+                                             init_encoder, quantize_encoder)
+    from marqo_tpu_torch.ops.packing import pack_sequences
+    config = TextEncoderConfig(**E5_BASE)
+    generator = torch.Generator(device=DEVICE).manual_seed(7)
+    float_encoder = init_encoder(config, generator, dtype=torch.bfloat16,
+                                 device=DEVICE)
+    encoder = quantize_encoder(copy.deepcopy(float_encoder))
+    int8_config = encoder.config
+    rng = torch.Generator().manual_seed(8)
+    B, S = 16, 128
+    lengths = torch.randint(4, S + 1, (B,), generator=rng)
+    ids = torch.randint(5, config.vocab_size, (B, S), generator=rng,
+                        dtype=torch.int32)
+    mask = (torch.arange(S)[None] < lengths[:, None]).int()
+    ids = ids * mask
+    packed = pack_sequences([ids[i, :lengths[i]].numpy() for i in range(B)],
+                            seq_len=S, pad_id=0)
+    on = {name: torch.from_numpy(getattr(packed, name)).to(DEVICE)
+          for name in ("input_ids", "segment_ids", "positions", "seq_index")}
+
+    def run(model, linear_impl="kernel"):
+        model.config = replace(model.config, linear_impl=linear_impl)
+        with torch.inference_mode():
+            padded = encode_tokens(model, ids.to(DEVICE), mask.to(DEVICE))
+            pk = encode_tokens_packed(model, on["input_ids"],
+                                      on["segment_ids"], on["positions"],
+                                      on["seq_index"], packed.n_sequences)
+        return padded, pk
+
+    reset_counts()
+    plain_padded, plain_packed = run(encoder, "plain")
+    padded, packed_out = run(encoder)
+    launches = read_counts()
+    encoder.config = int8_config
+    bf16_padded, _ = run(float_encoder)
+    cos = {"padded_kernel_vs_plain": min_cos(padded, plain_padded),
+           "packed_kernel_vs_plain": min_cos(packed_out, plain_packed),
+           "padded_int8_vs_bf16": min_cos(padded, bf16_padded)}
+    for name in ("padded_kernel_vs_plain", "packed_kernel_vs_plain"):
+        check(cos[name] > 1 - 1e-3, f"int8 encoder {name}: cosine "
+              f"{cos[name]}")
+    check(cos["padded_int8_vs_bf16"] > 0.99,
+          f"int8 encoder against bf16: cosine {cos['padded_int8_vs_bf16']}")
+    check(padded.shape == (B, E5_BASE["hidden_size"]) and
+          bool(torch.isfinite(padded).all()),
+          "int8 encoder output shape/finiteness")
+    # six linear layers per block, padded and packed
+    expected = 2 * 6 * config.num_layers
+    check(launches["w8a8_matmul"] == expected,
+          f"int8 encoder: expected {expected} B3 launches: {launches}")
+    emit("int8_encoder", ok=True, shape=[B, S], packed_rows=int(
+        packed.input_ids.shape[0]), min_cosine=cos, launches=launches)
+    return encoder, float_encoder
 
 
 def phase_encoder(torch):
@@ -385,9 +609,9 @@ class HttpServer:
         from marqo_tpu_torch.api.app import (build_app, generate_config,
                                              on_start)
         from marqo_tpu_torch.api.http_framework import serve
-        config = generate_config()
-        on_start(config)
-        self.server = serve(build_app(config), host="127.0.0.1", port=0,
+        self.config = generate_config()
+        on_start(self.config)
+        self.server = serve(build_app(self.config), host="127.0.0.1", port=0,
                             background=True)
         self.port = self.server.server_address[1]
 
@@ -405,23 +629,29 @@ class HttpServer:
         self.server.server_close()
 
 
-def _model_devices(model_type) -> set:
+def _loaded_models(model_type) -> list:
     from marqo_tpu_torch.inference import vectorise
-    return {str(p.device.type)
-            for entry in vectorise._available_models.values()
-            if isinstance(entry["model"], model_type)
-            for p in entry["model"].encoder.parameters()}
+    return [entry["model"] for entry in vectorise._available_models.values()
+            if isinstance(entry["model"], model_type)]
 
 
-def phase_serve(server, torch):
-    from marqo_tpu_torch.inference.loaders import TorchHFTextModel
+def _model_devices(model_type) -> set:
+    """Devices of every parameter and buffer (the int8 weights are
+    buffers) of the loaded models of ``model_type``."""
+    return {str(t.device.type) for model in _loaded_models(model_type)
+            for t in (*model.encoder.parameters(), *model.encoder.buffers())}
+
+
+def serve_text_index(server, torch, index: str, props: dict, n_docs: int,
+                     dims: int) -> dict:
+    """Drive one text index through HTTP: create it, add ``n_docs``
+    documents of mixed lengths (a one-document add first loads the model),
+    run 8 TENSOR and 8 HYBRID searches, query a document's own text and
+    embed. Launch counts are set to 0 before the first add; returns them
+    after the adds, over the searches and at the end."""
     req = server.req
-    props = {"name": "smoke-e5-base-v2", "type": "hf",
-             "random_init": True, "pooling_method": "mean",
-             "tokens": 128, "dimensions": E5_BASE["hidden_size"],
-             "architecture": E5_BASE}
-    req("POST", "/indexes/smoke",
-        {"model": "smoke-e5-base-v2", "modelProperties": props})
+    req("POST", f"/indexes/{index}",
+        {"model": props["name"], "modelProperties": props})
     rng = torch.Generator().manual_seed(3)
     words = ["alpha", "bravo", "charlie", "delta", "echo", "foxtrot",
              "golf", "hotel", "india", "juliet", "kilo", "lima", "mike",
@@ -433,58 +663,236 @@ def phase_serve(server, torch):
 
     docs = [{"_id": f"d{i}", "title": text(2 + i % 5),
              "body": text(int(torch.randint(3, 60, (1,), generator=rng)))}
-            for i in range(256)]
+            for i in range(n_docs)]
+    fields = {"tensorFields": ["title", "body"]}
     reset_counts()
     # the first add loads the model onto the card: keep it out of the
     # timed adds
-    res = req("POST", "/indexes/smoke/documents",
+    res = req("POST", f"/indexes/{index}/documents",
               {"documents": [{"_id": "warm", "title": text(4),
-                              "body": text(30)}],
-               "tensorFields": ["title", "body"]})
-    check(res["errors"] is False, f"add_documents errors: {res}")
+                              "body": text(30)}], **fields})
+    check(res["errors"] is False, f"{index} add_documents errors: {res}")
     start = time.perf_counter()
     for b in range(0, len(docs), 64):
-        res = req("POST", "/indexes/smoke/documents",
-                  {"documents": docs[b:b + 64],
-                   "tensorFields": ["title", "body"]})
-        check(res["errors"] is False, f"add_documents errors: {res}")
+        res = req("POST", f"/indexes/{index}/documents",
+                  {"documents": docs[b:b + 64], **fields})
+        check(res["errors"] is False, f"{index} add_documents errors: {res}")
     add_seconds = time.perf_counter() - start
     add_launches = read_counts()
     latencies = []
     for i in range(8):
         for method in ("TENSOR", "HYBRID"):
             t0 = time.perf_counter()
-            res = req("POST", "/indexes/smoke/search",
+            res = req("POST", f"/indexes/{index}/search",
                       {"q": text(3 + i), "searchMethod": method,
                        "limit": 5})
             latencies.append((time.perf_counter() - t0) * 1000)
-            check(len(res["hits"]) > 0, f"{method} search: no hits")
+            check(len(res["hits"]) > 0, f"{index} {method} search: no hits")
     # a document's own text finds that document first
     probe = max(docs, key=lambda d: len(d["body"]))
-    res = req("POST", "/indexes/smoke/search",
+    res = req("POST", f"/indexes/{index}/search",
               {"q": probe["body"], "searchMethod": "TENSOR", "limit": 3})
     check(res["hits"][0]["_id"] == probe["_id"],
-          f"own-text query: top hit {res['hits'][0]['_id']}, expected "
-          f"{probe['_id']}")
-    emb = req("POST", "/indexes/smoke/embed",
+          f"{index} own-text query: top hit {res['hits'][0]['_id']}, "
+          f"expected {probe['_id']}")
+    search_launches = count_delta(add_launches, read_counts())
+    emb = req("POST", f"/indexes/{index}/embed",
               {"content": ["alpha bravo charlie"]})["embeddings"]
     norm = float(torch.tensor(emb[0]).norm()) if len(emb) == 1 else 0.0
-    check(len(emb) == 1 and len(emb[0]) == E5_BASE["hidden_size"] and
-          abs(norm - 1) < 1e-3,
-          f"embed: expected one finite unit 768-d vector (norm {norm})")
+    check(len(emb) == 1 and len(emb[0]) == dims and abs(norm - 1) < 1e-3,
+          f"{index} embed: expected one unit {dims}-d vector (norm {norm})")
     launches = read_counts()
-    stats = req("GET", "/indexes/smoke/stats")
+    stats = req("GET", f"/indexes/{index}/stats")
+    check(stats.get("numberOfDocuments") == n_docs + 1,
+          f"{index} documents: {stats}")
+    return {"docs": n_docs + 1, "add_seconds": add_seconds,
+            "latencies": latencies, "launches": launches,
+            "add_launches": add_launches,
+            "search_launches": search_launches,
+            "documents_in_index": stats.get("numberOfDocuments"),
+            "vectors_in_index": stats.get("numberOfVectors"),
+            "own_text_top_hit": res["hits"][0]["_id"]}
+
+
+def phase_serve(server, torch):
+    from marqo_tpu_torch.inference.loaders import TorchHFTextModel
+    props = {"name": "smoke-e5-base-v2", "type": "hf",
+             "random_init": True, "pooling_method": "mean",
+             "tokens": 128, "dimensions": E5_BASE["hidden_size"],
+             "architecture": E5_BASE}
+    run = serve_text_index(server, torch, "smoke", props, 256,
+                           E5_BASE["hidden_size"])
+    launches = run["launches"]
     devices = _model_devices(TorchHFTextModel)
     check(devices == {DEVICE}, f"model parameters on {devices}")
     check(launches["masked_attention_padding"] > 0 and
           launches["masked_attention_segment"] > 0,
           f"serve phase did not run both kernel modes: {launches}")
-    emit("serve", ok=True, docs=len(docs) + 1,
+    emit("serve", ok=True, docs=run["docs"],
+         documents_in_index=run["documents_in_index"],
+         vectors_in_index=run["vectors_in_index"],
+         searches=len(run["latencies"]), launches=launches,
+         launches_during_add=run["add_launches"],
+         model_devices=sorted(devices))
+    return run
+
+
+def phase_int8_serve(server, torch):
+    """The serve phase's e5-base-width index with ``quantize: true``: every
+    linear layer of the encoder runs B3, in the adds and in the searches."""
+    from marqo_tpu_torch.inference.loaders import TorchHFTextModel
+    props = {"name": "smoke-e5-base-v2-int8", "type": "hf",
+             "random_init": True, "pooling_method": "mean",
+             "tokens": 128, "dimensions": E5_BASE["hidden_size"],
+             "architecture": E5_BASE, "quantize": True}
+    run = serve_text_index(server, torch, "smoke-int8", props, 256,
+                           E5_BASE["hidden_size"])
+    models = [m for m in _loaded_models(TorchHFTextModel)
+              if m.model_name == props["name"]]
+    check(len(models) == 1 and models[0].config.quantize,
+          "int8 serve: the index's model is not the quantized encoder")
+    devices = {str(t.device.type) for t in models[0].encoder.buffers()}
+    check(devices == {DEVICE}, f"int8 buffers on {devices}")
+    for window, counts in (("adds", run["add_launches"]),
+                           ("searches", run["search_launches"])):
+        check(counts["w8a8_matmul"] > 0,
+              f"B3 did not run during the int8 {window}: {counts}")
+    check(run["launches"]["masked_attention_padding"] > 0,
+          f"int8 serve did not run B1: {run['launches']}")
+    emit("int8_serve", ok=True, docs=run["docs"],
+         documents_in_index=run["documents_in_index"],
+         vectors_in_index=run["vectors_in_index"],
+         searches=len(run["latencies"]), launches=run["launches"],
+         launches_during_add=run["add_launches"],
+         launches_during_search=run["search_launches"],
+         buffer_devices=sorted(devices),
+         memory_bytes=models[0].memory_bytes())
+    return run
+
+
+def phase_rerank(server, torch):
+    """tensor_search.search on the serve phase's index with a cross-encoder
+    reranker at ms-marco-MiniLM-L-6 width (random init): the hits come back
+    re-sorted by the cross-encoder's scores, which B1's padding mode
+    computed."""
+    from marqo_tpu_torch.inference import rerank
+    from marqo_tpu_torch.inference.types import Device
+    from marqo_tpu_torch.tensor_search import tensor_search
+    name = "smoke-ms-marco-MiniLM-L-6-v2"
+    properties = {"random_init": True, "architecture": MINILM_L6}
+    queries = ["alpha bravo charlie", "delta echo", "kilo lima mike oscar"]
+    reset_counts()
+    results = [tensor_search.search(
+        server.config, "smoke", text=q, searchable_attributes=["title",
+                                                               "body"],
+        reranker=name, reranker_properties=properties, limit=10)
+        for q in queries]
+    launches = read_counts()
+    # the reranker the searches loaded, on the device they served on
+    model = rerank._get_reranker(name, Device.normalize(None), properties)
+    check(str(model.model.encoder.embeddings.word.weight.device.type) ==
+          DEVICE, "reranker is not on the card")
+    for query, result in zip(queries, results):
+        hits = result["hits"]
+        scores = [h["_score"] for h in hits]
+        check(len(hits) == 10 and scores == sorted(scores, reverse=True),
+              f"rerank: hits not sorted by the new score: {scores}")
+        texts = [f"{h['title']} {h['body']}" for h in hits]
+        direct = model.score(query, texts)
+        gap = float(abs(direct - torch.tensor(scores).numpy()).max())
+        check(gap < 1e-3, f"rerank: scores differ from the cross-encoder's "
+              f"by {gap}")
+    check(launches["masked_attention_padding"] > 0,
+          f"rerank did not run B1 padding mode: {launches}")
+    emit("rerank", ok=True, queries=len(queries), hits=10,
+         top_scores=[r["hits"][0]["_score"] for r in results],
+         launches=launches, model_device=DEVICE)
+    return launches
+
+
+def phase_stella_serve(server, torch):
+    """An hf_stella random-init index at stella_en_400M_v5 width: RoPE,
+    gated MLP, the 1024-d projection head; attention in B1's padding
+    mode."""
+    from marqo_tpu_torch.inference.loaders import TorchStellaModel
+    props = {"name": "smoke-stella-en-400m-v5", "type": "hf_stella",
+             "random_init": True, "dimensions": STELLA_DIMS, "tokens": 512,
+             "architecture": STELLA_400M}
+    run = serve_text_index(server, torch, "stella", props, STELLA_DOCS,
+                           STELLA_DIMS)
+    devices = _model_devices(TorchStellaModel)
+    check(devices == {DEVICE}, f"Stella parameters on {devices}")
+    check(run["launches"]["masked_attention_padding"] > 0,
+          f"stella serve did not run B1: {run['launches']}")
+    emit("stella_serve", ok=True, docs=run["docs"],
+         documents_in_index=run["documents_in_index"],
+         vectors_in_index=run["vectors_in_index"],
+         searches=len(run["latencies"]), launches=run["launches"],
+         launches_during_add=run["add_launches"],
+         model_devices=sorted(devices))
+    return run
+
+
+def phase_hf_clip_serve(server, torch):
+    """An xlm-roberta-base-ViT-B-32 random-init index with
+    treatUrlsAndPointersAsImages: the XLM-R text tower (B1 padding mode)
+    and the ViT-B/32 tower (B2 no-mask mode); search by text and by
+    image."""
+    from marqo_tpu_torch.models.hf_clip import TorchHFCLIPModel
+    req = server.req
+    name = "smoke-xlm-roberta-base-ViT-B-32"
+    props = {"name": name, "type": "open_clip", "random_init": True,
+             "dimensions": XLMR_VIT_B32_DIMS, "image_size": 224,
+             "architecture": XLMR_VIT_B32}
+    req("POST", "/indexes/hfclip", {"model": name, "modelProperties": props,
+                                    "treatUrlsAndPointersAsImages": True})
+    colours = ["rouge", "vert", "bleu", "jaune", "violet", "orange", "gris",
+               "blanc"]
+    fields = {"tensorFields": ["image", "caption"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_images(tmp, HF_CLIP_DOCS + 1, seed=11)
+        docs = [{"_id": f"img{i}", "image": paths[i],
+                 "caption": f"une photo {colours[i % 8]}, numéro {i}"}
+                for i in range(HF_CLIP_DOCS)]
+        reset_counts()
+        # the first add loads the model onto the card
+        res = req("POST", "/indexes/hfclip/documents", {
+            "documents": [{"_id": "warm", "image": paths[-1],
+                           "caption": "une photo"}], **fields})
+        check(res["errors"] is False, f"hfclip add_documents errors: {res}")
+        start = time.perf_counter()
+        for b in range(0, HF_CLIP_DOCS, 16):
+            res = req("POST", "/indexes/hfclip/documents",
+                      {"documents": docs[b:b + 16], **fields})
+            check(res["errors"] is False,
+                  f"hfclip add_documents errors: {res}")
+        add_seconds = time.perf_counter() - start
+        add_launches = read_counts()
+        res = req("POST", "/indexes/hfclip/search",
+                  {"q": "une photo rouge", "searchMethod": "TENSOR",
+                   "limit": 5})
+        check(len(res["hits"]) > 0, "hfclip text search: no hits")
+        probe = HF_CLIP_DOCS // 3
+        res = req("POST", "/indexes/hfclip/search",
+                  {"q": paths[probe], "searchMethod": "TENSOR", "limit": 3})
+        check(res["hits"][0]["_id"] == f"img{probe}",
+              f"hfclip image query: top hit {res['hits'][0]['_id']}, "
+              f"expected img{probe}")
+    launches = read_counts()
+    stats = req("GET", "/indexes/hfclip/stats")
+    check(stats.get("numberOfDocuments") == HF_CLIP_DOCS + 1,
+          f"hfclip index documents: {stats}")
+    devices = _model_devices(TorchHFCLIPModel)
+    check(devices == {DEVICE}, f"HF-CLIP parameters on {devices}")
+    check(launches["masked_attention_padding"] > 0 and
+          launches["fused_attention_nomask"] > 0,
+          f"hfclip serve did not run B1 padding and B2 no-mask: {launches}")
+    emit("hf_clip_serve", ok=True, docs=HF_CLIP_DOCS + 1,
          documents_in_index=stats.get("numberOfDocuments"),
          vectors_in_index=stats.get("numberOfVectors"),
-         searches=len(latencies), launches=launches,
+         image_query_top_hit=res["hits"][0]["_id"], launches=launches,
          launches_during_add=add_launches, model_devices=sorted(devices))
-    return launches, add_seconds, len(docs), latencies
+    return add_seconds
 
 
 def phase_clip_serve(server, torch):
@@ -575,35 +983,96 @@ def phase_clip_serve(server, torch):
     return launches, add_seconds
 
 
-def phase_timing(fa, fused, torch, clip_model, pixels):
+def _sdpa(torch, q, k, v, allowed):
+    """The library yardstick of the attention kernels: one
+    scaled_dot_product_attention call with an additive -1e9 mask made
+    beforehand from the kernel's compact mask (None: no mask)."""
+    import torch.nn.functional as F
+    if allowed is None:
+        return lambda: F.scaled_dot_product_attention(q, k, v)
+    bias = torch.zeros(allowed.shape, dtype=q.dtype, device=q.device)
+    bias = bias.masked_fill(~allowed, -1e9)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+
+
+def _int8_yardstick(torch, qm, x, w_q, w_scale, bias):
+    """The library yardstick of B3 (never on the path): plain torch row
+    quantization, then torch._int_mm (int8 x int8 -> int32), then the
+    epilogue."""
+    w_t = w_q.t()
+
+    def run():
+        x_q, x_scale = qm.quantize_rows(x.float())
+        acc = torch._int_mm(x_q, w_t)
+        return (acc.float() * x_scale * w_scale + bias).to(x.dtype)
+    return run
+
+
+def phase_timing(fa, fused, qm, torch, clip_model, pixels, int8_encoder,
+                 bf16_encoder):
     from dataclasses import replace
 
+    import torch.nn.functional as F
+
+    from marqo_tpu_torch.models.bert import encode_tokens
     from marqo_tpu_torch.models.clip import encode_clip_image
     rows = []
     for B, S in ((256, 128), (1, 32)):
         q, k, v, pad, seg = attention_inputs(B, 12, S, 64, torch.bfloat16,
                                              seed=B)
-        for mode, mask, kernel, plain in (
+        for mode, mask, kernel, plain, allowed in (
                 ("padding", pad, fa.attention_padding,
-                 fa.attention_padding_reference),
+                 fa.attention_padding_reference,
+                 (pad > 0)[:, None, None, :]),
                 ("segment", seg, fa.attention_segment,
-                 fa.attention_segment_reference)):
+                 fa.attention_segment_reference,
+                 ((seg[:, :, None] == seg[:, None, :]) &
+                  (seg[:, None, :] > 0))[:, None])):
+            iters = 20 if B > 1 else 200
             rows.append({"kernel": "masked_attention", "mode": mode,
                          "shape": [B, 12, S, 64], "dtype": "bfloat16",
                          **paired_ms(lambda: kernel(q, k, v, mask),
-                                     lambda: plain(q, k, v, mask),
-                                     20 if B > 1 else 200)})
+                                     lambda: plain(q, k, v, mask), iters),
+                         "library_ms": cuda_ms(_sdpa(torch, q, k, v, allowed),
+                                               iters)})
     for B, N, S in ((16, 16, 257), (1, 16, 257), (256, 12, 128)):
         q, k, v, _, seg = attention_inputs(B, N, S, 64, torch.bfloat16,
                                            seed=B)
-        for mode, mask in (("nomask", {}), ("segment", {"segment_ids": seg})):
+        for mode, mask, allowed in (
+                ("nomask", {}, None),
+                ("segment", {"segment_ids": seg},
+                 (seg[:, :, None] == seg[:, None, :])[:, None])):
+            iters = 20 if B > 1 else 200
             rows.append({"kernel": "fused_attention", "mode": mode,
                          "shape": [B, N, S, 64], "dtype": "bfloat16",
                          **paired_ms(
                              lambda: fused.fused_attention(q, k, v, **mask),
                              lambda: fused.fused_attention_reference(
-                                 q, k, v, **mask),
-                             20 if B > 1 else 200)})
+                                 q, k, v, **mask), iters),
+                         "library_ms": cuda_ms(_sdpa(torch, q, k, v, allowed),
+                                               iters)})
+    # B3 at the padded ingest batch's three linear shapes and at a batch-1
+    # query; beside it the bf16 F.linear that the int8 path replaces, and
+    # the library yardstick (and torch._int_mm alone)
+    for M, K, N in ((32768, 768, 768), (32768, 768, 3072),
+                    (32768, 3072, 768), (32, 768, 3072)):
+        x, w_q, w_scale, bias = w8a8_inputs(M, K, N, torch.bfloat16, seed=M)
+        weight = (0.05 * torch.randn(N, K, device=DEVICE)).to(torch.bfloat16)
+        bias16 = bias.to(torch.bfloat16)
+        x_q = qm.quantize_rows(x.float())[0]
+        iters = 20 if M > 32 else 200
+        rows.append({"kernel": "w8a8_matmul", "mode": "w8a8",
+                     "shape": [M, K, N], "dtype": "bfloat16",
+                     **paired_ms(
+                         lambda: qm.w8a8_matmul(x, w_q, w_scale, bias),
+                         lambda: qm.w8a8_matmul_reference(x, w_q, w_scale,
+                                                          bias), iters),
+                     "library_ms": cuda_ms(_int8_yardstick(
+                         torch, qm, x, w_q, w_scale, bias), iters),
+                     "int_mm_ms": cuda_ms(lambda: torch._int_mm(x_q, w_q.t()),
+                                          iters),
+                     "bf16_linear_ms": cuda_ms(
+                         lambda: F.linear(x, weight, bias16), iters)})
     config = clip_model.vision.config
     plain_config = replace(config, attention_impl="plain")
 
@@ -620,7 +1089,23 @@ def phase_timing(fa, fused, torch, clip_model, pixels):
     vit_row = {"batch": batch, "images_per_s": batch * 1000 / vit_ms["ms"],
                "plain_images_per_s": batch * 1000 / vit_ms["plain_ms"],
                **vit_ms}
-    return rows, vit_row
+    # the int8 encoder against the bf16 encoder on the same weights, one
+    # padded e5 ingest batch (256 x 128, all tokens real)
+    ids = torch.randint(5, E5_BASE["vocab_size"], (256, 128), device=DEVICE,
+                        dtype=torch.int32)
+    mask = torch.ones_like(ids)
+
+    def encode(model):
+        def run():
+            with torch.inference_mode():
+                encode_tokens(model, ids, mask)
+        return run
+
+    enc = paired_ms(encode(int8_encoder), encode(bf16_encoder), 5)
+    encoder_row = {"batch": [256, 128], "int8_ms": enc["ms"],
+                   "bf16_ms": enc["plain_ms"], "int8_ms_runs": enc["ms_runs"],
+                   "bf16_ms_runs": enc["plain_ms_runs"]}
+    return rows, vit_row, encoder_row
 
 
 def main() -> int:
@@ -658,6 +1143,7 @@ def main() -> int:
     from marqo_tpu_torch.ops import _build
     from marqo_tpu_torch.ops import flash_attention as fa
     from marqo_tpu_torch.ops import fused_attention as fused
+    from marqo_tpu_torch.ops import quant_matmul as qm
     prebuilt = _build.library_path().is_file()
     start = time.perf_counter()
     library = _build.load_library()
@@ -667,21 +1153,36 @@ def main() -> int:
 
     errors = phase_kernel(fa, torch)
     fused_errors = phase_fused_kernel(fused, torch)
+    w8a8_errors = phase_quant_kernel(qm, torch)
     encoder_launches = phase_encoder(torch)
+    int8_encoder, bf16_encoder = phase_int8_encoder(torch)
     clip_model, pixels = phase_clip_encoder(torch)
     server = HttpServer()
     try:
-        launches, add_seconds, n_docs, latencies = phase_serve(server, torch)
+        serve = phase_serve(server, torch)
         clip_launches, clip_add_seconds = phase_clip_serve(server, torch)
+        int8 = phase_int8_serve(server, torch)
+        phase_rerank(server, torch)
+        stella = phase_stella_serve(server, torch)
+        hf_clip_add_seconds = phase_hf_clip_serve(server, torch)
     finally:
         server.close()
 
-    timing, vit = phase_timing(fa, fused, torch, clip_model, pixels)
+    timing, vit, encoder_times = phase_timing(
+        fa, fused, qm, torch, clip_model, pixels, int8_encoder, bf16_encoder)
+    latencies = serve["latencies"]
     emit("timing", device=torch.cuda.get_device_name(0), nvidia_smi=smi,
-         kernel_vs_twin=timing, vit_l14=vit,
-         add_docs_per_s=n_docs / add_seconds, add_seconds=add_seconds,
+         kernel_vs_twin=timing, vit_l14=vit, e5_encoder=encoder_times,
+         add_docs_per_s=(serve["docs"] - 1) / serve["add_seconds"],
+         add_seconds=serve["add_seconds"],
+         int8_add_docs_per_s=(int8["docs"] - 1) / int8["add_seconds"],
+         int8_add_seconds=int8["add_seconds"],
+         int8_search_median_ms=statistics.median(int8["latencies"]),
          clip_add_docs_per_s=CLIP_DOCS / clip_add_seconds,
          clip_add_seconds=clip_add_seconds,
+         stella_add_docs_per_s=(stella["docs"] - 1) / stella["add_seconds"],
+         stella_search_median_ms=statistics.median(stella["latencies"]),
+         hf_clip_add_docs_per_s=HF_CLIP_DOCS / hf_clip_add_seconds,
          search_median_ms=statistics.median(latencies), search_ms=latencies,
          note="information only")
 
@@ -689,28 +1190,38 @@ def main() -> int:
         return next(row for row in timing if row["kernel"] == kernel and
                     row["mode"] == mode and row["shape"] == shape)
 
-    kernels = []
-    for mode in ("padding", "segment"):
-        row = timed("masked_attention", mode, [256, 12, 128, 64])
-        kernels.append({
-            "name": f"masked_attention_{mode}", "route": "cuda",
-            "source": B1_SOURCE, "replaces": B1_REPLACES,
-            "launches": launches[f"masked_attention_{mode}"],
-            "max_abs_err": errors[mode], "ms": row["ms"],
-            "plain_ms": row["plain_ms"]})
+    def entry(name, source, replaces, launches, max_abs_err, row, bounds):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max_abs_err, "ms": row["ms"],
+                "plain_ms": row["plain_ms"], **bounds,
+                "library_ms": row["library_ms"]}
+
+    B, N, S, D = 256, 12, 128, 64
+    kernels = [entry(f"masked_attention_{mode}", B1_SOURCE, B1_REPLACES,
+                     serve["launches"][f"masked_attention_{mode}"],
+                     errors[mode], timed("masked_attention", mode,
+                                         [B, N, S, D]),
+                     attention_bound(B, N, S, D, B * S))
+               for mode in ("padding", "segment")]
     # B2's no-mask mode at the ViT-L/14 shape, launched by the CLIP serve
     # path; its segment mode at the encoder's ingest shape, launched by the
     # encoder's "flash" path
-    for mode, shape, counts in (
-            ("nomask", [16, 16, 257, 64], clip_launches),
-            ("segment", [256, 12, 128, 64], encoder_launches)):
-        row = timed("fused_attention", mode, shape)
-        kernels.append({
-            "name": f"fused_attention_{mode}", "route": "cuda",
-            "source": B2_SOURCE, "replaces": B2_REPLACES,
-            "launches": counts[f"fused_attention_{mode}"],
-            "max_abs_err": fused_errors[mode], "ms": row["ms"],
-            "plain_ms": row["plain_ms"]})
+    for mode, shape, counts, ids in (
+            ("nomask", [16, 16, 257, 64], clip_launches, 0),
+            ("segment", [B, N, S, D], encoder_launches, B * S)):
+        kernels.append(entry(
+            f"fused_attention_{mode}", B2_SOURCE, B2_REPLACES,
+            counts[f"fused_attention_{mode}"], fused_errors[mode],
+            timed("fused_attention", mode, shape),
+            attention_bound(*shape, ids)))
+    # B3 at the padded ingest batch's FFN shape, launched by the int8 serve
+    # path
+    kernels.append(entry(
+        "w8a8_matmul", B3_SOURCE, B3_REPLACES,
+        int8["launches"]["w8a8_matmul"], max(w8a8_errors.values()),
+        timed("w8a8_matmul", "w8a8", [32768, 768, 3072]),
+        w8a8_bound(32768, 768, 3072)))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -481,6 +481,15 @@ def generate_config() -> Config:
 
 def on_start(config: Config) -> None:
     """Startup bootstrap chain (reference on_start_script.py:28-45)."""
+    # 0. the device to serve on, before anything starts: a
+    #    MARQO_BEST_AVAILABLE_DEVICE already set is kept; otherwise it is
+    #    CUDA, and startup fails without a CUDA device (no silent CPU
+    #    fallback; set MARQO_BEST_AVAILABLE_DEVICE=cpu to serve on the CPU)
+    best = configs.read_env_vars_and_defaults("MARQO_BEST_AVAILABLE_DEVICE")
+    if not best:
+        best = Device.best_available().value
+        os.environ["MARQO_BEST_AVAILABLE_DEVICE"] = best
+    logger.info(f"Best available device: {best}")
     # 1. restore persisted engine documents BEFORE bootstrap — bootstrap
     #    re-creates any missing engine indexes from settings, and restore
     #    skips indexes that already exist (role of Vespa's durable store)
@@ -496,11 +505,7 @@ def on_start(config: Config) -> None:
     # 3. populate + start the index-cache refresh daemon
     config.index_meta_cache.populate()
     config.index_meta_cache.start_refresh_thread()
-    # 4. best available device env var (reference SetBestAvailableDevice)
-    best = Device.best_available().value
-    os.environ["MARQO_BEST_AVAILABLE_DEVICE"] = best
-    logger.info(f"Best available device: {best}")
-    # 5. model + patch-model pre-warming (reference CacheModels /
+    # 4. model + patch-model pre-warming (reference CacheModels /
     #    CachePatchModels, on_start_script.py:122-230)
     from marqo_tpu_torch.api.on_start_script import CacheModels, CachePatchModels
     CacheModels().run()

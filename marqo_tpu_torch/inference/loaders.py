@@ -8,9 +8,10 @@ Every model exposes:
   memory_bytes()               — device footprint for cache eviction
 
 One device per model: the multi-device serving mesh of marqo_tpu is not
-ported yet (ROADMAP A10). Model families other than the BERT-family text
-encoder and the ViT CLIP towers (models/clip.py) raise ModelLoadError
-until their slice lands.
+ported yet (ROADMAP A10). Served: the BERT-family text encoder (bf16, or
+int8 W8A8 with ``quantize``), Stella (``hf_stella``), the ViT CLIP towers
+(models/clip.py) and the HF-text CLIP composites (models/hf_clip.py). Other
+families raise ModelLoadError until their slice lands.
 """
 
 import hashlib
@@ -156,8 +157,7 @@ class TorchHFTextModel(EmbeddingModel):
                     f"model_properties.localpath or a model_location.",
                     cause=e)
         self.loaded = True
-        self._param_bytes = sum(p.numel() * p.element_size()
-                                for p in self.encoder.parameters())
+        self._param_bytes = module_bytes(self.encoder)
 
     def _pooling(self) -> str:
         return str(self.properties.get("pooling_method", "mean")).lower()
@@ -207,8 +207,9 @@ class TorchHFTextModel(EmbeddingModel):
 
     def _use_quantization(self) -> bool:
         """int8 W8A8 opt-in: model_properties.quantize or
-        MARQO_TPU_QUANTIZE=int8; the encoder refuses it until the int8
-        path is ported."""
+        MARQO_TPU_QUANTIZE=int8 (ops/quant.py, kernel B3). The builders
+        quantize the encoder after its cast to the compute dtype, at every
+        load path, when the config says so."""
         if "quantize" in self.properties:
             return bool(self.properties["quantize"])
         from marqo_tpu_torch.api import configs
@@ -337,7 +338,8 @@ class TorchHFTextModel(EmbeddingModel):
         return self._param_bytes
 
     def warmup(self, shapes: Optional[List[List[int]]] = None) -> int:
-        """Run the hot (batch, seq) buckets once so serving latency never
+        """Run the hot (batch, seq) buckets once through ``_forward`` (the
+        int8 path too, when quantized) so serving latency never
         pays first-use costs (kernel build, library handles; reference
         CacheModels runs timed warmup vectorise at startup,
         on_start_script.py:124-195). Returns #shapes run."""
@@ -359,6 +361,78 @@ class TorchHFTextModel(EmbeddingModel):
             self._forward(ids, mask)[:1, :1].cpu()
             count += 1
         return count
+
+
+class TorchStellaModel(TorchHFTextModel):
+    """Stella (GTE-v1.5 "NewModel" arch) text encoder — reference type
+    `hf_stella` (HuggingFaceStellaModel, trust_remote_code). The arch
+    lives in models/stella.py; weights load from a local checkpoint dir
+    (`model_properties.localpath`, remote code can't be fetched offline)
+    or random-init for tests. Packing is disabled: RoPE + the projection
+    head use the plain padded path."""
+
+    PACKING_THRESHOLD = -1.0  # never pack
+
+    def load(self) -> None:
+        from marqo_tpu_torch.models.stella import (
+            StellaConfig, init_stella, params_from_torch_state_dict,
+            stella_400m_config)
+        max_len = int(self.properties.get("tokens", 512))
+        arch = self.properties.get("architecture", {})
+        proj = int(self.properties.get("dimensions", 1024))
+        if arch:
+            self.config = StellaConfig(
+                vocab_size=int(arch.get("vocab_size", 30528)),
+                hidden_size=int(arch.get("hidden_size", 1024)),
+                num_layers=int(arch.get("num_layers", 24)),
+                num_heads=int(arch.get("num_heads", 16)),
+                intermediate_size=int(arch.get("intermediate_size", 4096)),
+                rope_theta=float(arch.get("rope_theta", 160000.0)),
+                projection_dim=proj, normalize=False)
+        else:
+            from dataclasses import replace
+            self.config = replace(stella_400m_config(proj), normalize=False)
+        localpath = self.properties.get("localpath")
+        if localpath:
+            state_dict = _load_state_dict(localpath)
+            head = None
+            head_path = os.path.join(localpath, f"2_Dense_{proj}")
+            if os.path.isdir(head_path):
+                head_sd = _load_state_dict(head_path)
+                head = {"weight": head_sd.get("linear.weight",
+                                              head_sd.get("weight")),
+                        "bias": head_sd.get("linear.bias",
+                                            head_sd.get("bias"))}
+            self.encoder = params_from_torch_state_dict(
+                state_dict, self.config, dtype=self.compute_dtype,
+                device=self._device, vector_linear=head)
+            self.tokenizer = TextTokenizer.from_pretrained(
+                localpath, max_length=max_len)
+        elif self.properties.get("random_init"):
+            seed = int.from_bytes(
+                hashlib.sha256(self.model_name.encode()).digest()[:4],
+                "little")
+            generator = torch.Generator(device=self._device).manual_seed(seed)
+            self.encoder = init_stella(self.config, generator,
+                                       dtype=self.compute_dtype,
+                                       device=self._device)
+            self.tokenizer = TextTokenizer.build_test_wordpiece(
+                max_length=max_len)
+        else:
+            raise ModelLoadError(
+                f"Stella model `{self.model_name}` needs its checkpoint on "
+                "disk: the architecture ships as hub remote code, which "
+                "cannot be fetched in this offline environment. Provide "
+                "model_properties.localpath (HF checkpoint directory, "
+                "optionally with the 2_Dense_<dims> head).")
+        self.loaded = True
+        self._param_bytes = module_bytes(self.encoder)
+
+    def _forward(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
+        from marqo_tpu_torch.models.stella import encode_tokens as stella
+        with torch.inference_mode():
+            return stella(self.encoder, self._to_device(ids),
+                          self._to_device(mask))
 
 
 class TestModel(TorchHFTextModel):
@@ -414,6 +488,14 @@ class NoModel(EmbeddingModel):
             "only. If vectorisation is needed, please use a different model ")
 
 
+def module_bytes(module: torch.nn.Module) -> int:
+    """Device footprint of a module: parameters and buffers (the int8
+    weights and scales of a quantized encoder are buffers); the model cache
+    evicts by it."""
+    return sum(t.numel() * t.element_size()
+               for t in (*module.parameters(), *module.buffers()))
+
+
 def _load_state_dict(path: str) -> dict:
     """Load torch weights from an HF-format directory (.safetensors or .bin)."""
     st_path = os.path.join(path, "model.safetensors")
@@ -449,10 +531,12 @@ def resolve_model_class(model_name: str, properties: dict):
     if model_type == "no_model":
         return NoModel
     if model_type == "hf_stella":
-        _not_ported(model_name, "hf_stella", "A6")
+        return TorchStellaModel
     if model_type == "multilingual_clip":
-        # M-CLIP: XLM-R text tower + linear projection (models/hf_clip.py)
-        _not_ported(model_name, "multilingual_clip", "A6")
+        # M-CLIP: XLM-R text tower + linear projection, paired with an
+        # openai CLIP image tower (models/hf_clip.py)
+        from marqo_tpu_torch.models.hf_clip import TorchHFCLIPModel
+        return TorchHFCLIPModel
     if model_type in ("clip", "open_clip", "fp16_clip"):
         name = str(properties.get("name", model_name))
         lowered = name.lower()
@@ -468,7 +552,9 @@ def resolve_model_class(model_name: str, properties: dict):
             _not_ported(model_name, "ConvNeXt-CLIP", "A7")
         if "roberta" in lowered:
             # roberta/xlm-roberta text tower + ViT composites
-            _not_ported(model_name, "roberta CLIP composite", "A6")
+            # (open_clip custom-text models) — models/hf_clip.py
+            from marqo_tpu_torch.models.hf_clip import TorchHFCLIPModel
+            return TorchHFCLIPModel
         if "eva02" in lowered:
             _not_ported(model_name, "EVA02-CLIP", "A7")
         from marqo_tpu_torch.models.clip import TorchCLIPModel

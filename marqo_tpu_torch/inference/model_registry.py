@@ -10,10 +10,13 @@ the reference (``name``, ``dimensions``, ``tokens``, ``type``, ``notes``,
 Loader ``type`` values map to model classes in
 marqo_tpu_torch.inference.loaders (vs. reference's torch/open_clip/onnx classes):
   hf | sbert        → TorchHFTextModel (BERT/RoBERTa-family, models/bert.py)
+  hf_stella         → TorchStellaModel (models/stella.py)
   clip | open_clip | fp16_clip → TorchCLIPModel (ViT towers, models/clip.py),
-                    except coca_*, *SigLIP*, nllb-*, RN50*/RN101*,
-                    convnext_*, *roberta* and EVA02* names
-  those, hf_stella, multilingual_clip, languagebind
+                    except *roberta* names → TorchHFCLIPModel
+                    (models/hf_clip.py), and coca_*, *SigLIP*, nllb-*,
+                    RN50*/RN101*, convnext_* and EVA02* names
+  multilingual_clip → TorchHFCLIPModel (XLM-R + LinearTransformation)
+  the other CLIP families named above, languagebind
                     → not yet ported: loading raises ModelLoadError
   random            → RandomModel (deterministic, tests)
   test              → TestModel (tiny real torch encoder + WordPiece)
@@ -120,7 +123,8 @@ def _hf_models() -> Dict[str, dict]:
             "Snowflake/snowflake-arctic-embed-m-v1.5", 768, 512, pooling="cls",
             query_prefix="Represent this sentence for searching relevant passages: "),
         # custom arch loaded with trust_remote_code in the reference
-        # (model_registry.py:898-904, type hf_stella); not yet ported
+        # (model_registry.py:898-904, type hf_stella); arch in
+        # models/stella.py
         "Marqo/dunzhang-stella_en_400M_v5": _hf(
             "Marqo/dunzhang-stella_en_400M_v5", 1024, 512, pooling="mean",
             model_type="hf_stella", trustRemoteCode=True),

@@ -8,17 +8,21 @@ names containing 'owl' dispatch to the OWL-ViT IMAGE reranker
 (cross_encoders.py:341-461 ReRankerOwl): the named attribute must hold an
 image pointer, each hit is re-scored by its best query-matching box, and
 the highlight becomes that box's corners in original-image pixels.
-Everything else goes to the text cross-encoder. Neither reranker model is
-ported to this package yet: loading one raises ModelLoadError.
+Everything else goes to the text cross-encoder. Reranker model cache
+mirrors the embedding-model cache keying. The OWL-ViT model is not ported
+to this package yet: loading it raises ModelLoadError.
 """
 
+import threading
 from typing import Dict, List, Optional
 
 from marqo_tpu_torch.core.exceptions import (InvalidArgumentError, ModelLoadError,
                                        RerankerError, RerankerNameError)
 from marqo_tpu_torch.inference.types import Device
+from marqo_tpu_torch.models.cross_encoder import TorchCrossEncoder
 
 _rerankers: Dict[str, object] = {}
+_lock = threading.Lock()
 
 # reference registers the ms-marco cross-encoder family
 KNOWN_RERANKERS = {
@@ -42,15 +46,17 @@ OWL_MODEL_MAP = {
 
 def _get_reranker(model_name: str, device: Device,
                   properties: Optional[dict] = None):
-    """Neither reranker (the OWL-ViT image reranker, the text
-    cross-encoder) has its model in this package yet."""
     if "owl" in model_name.lower():
-        kind, item = "OWL-ViT image reranker", "A9"
-    else:
-        kind, item = "Cross-encoder reranker", "A6"
-    raise ModelLoadError(
-        f"{kind} `{model_name}` is not yet ported to marqo_tpu_torch "
-        f"(ROADMAP {item})")
+        raise ModelLoadError(
+            f"OWL-ViT image reranker `{model_name}` is not yet ported to "
+            f"marqo_tpu_torch (ROADMAP A9)")
+    key = f"{model_name}||{device.value}"
+    with _lock:
+        if key not in _rerankers:
+            model = TorchCrossEncoder(model_name, device, properties)
+            model.load()
+            _rerankers[key] = model
+        return _rerankers[key]
 
 
 def clear_rerankers() -> None:

@@ -32,5 +32,14 @@ class Device(str, Enum):
 
     @classmethod
     def best_available(cls) -> "Device":
+        """CUDA when PyTorch sees a CUDA device. Without one this raises: a
+        host whose CUDA is broken must not serve on the CPU unnoticed.
+        Serving on the CPU is asked for by name, with
+        MARQO_BEST_AVAILABLE_DEVICE=cpu or a request's device "cpu"."""
         import torch
-        return cls.CUDA if torch.cuda.is_available() else cls.CPU
+        if not torch.cuda.is_available():
+            from marqo_tpu_torch.core.exceptions import DeviceError
+            raise DeviceError(
+                "No CUDA device is available to PyTorch. To serve on the CPU "
+                "on purpose, set MARQO_BEST_AVAILABLE_DEVICE=cpu")
+        return cls.CUDA

@@ -10,12 +10,18 @@ The encoder is an ``nn.Module`` whose dtype is the compute dtype (bf16 when
 serving); LayerNorm, softmax and pooling statistics run in fp32
 (ops/common.py). Attention goes through ops/flash_attention.py (or, with
 ``attention_impl="flash"``, ops/fused_attention.py): the hand-written CUDA
-kernel on a CUDA device, its plain twin on the CPU. The
-linear layers are plain ``nn.Linear`` matmuls. It only serves: no autograd.
+kernel on a CUDA device, its plain twin on the CPU. The linear layers are
+plain ``nn.Linear`` matmuls, or, with ``quantize=True``, ``Int8Linear``
+(W8A8, ops/quant.py: CUDA kernel B3 on a CUDA device, its plain twin on the
+CPU). It only serves: no autograd.
+
+The builders (``init_encoder``, ``params_from_torch_state_dict``,
+``params_from_jax``) put the encoder on the card unless the caller names
+another device, and return it quantized when ``config.quantize`` is set.
 """
 
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, replace
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -24,6 +30,8 @@ import torch.nn as nn
 from marqo_tpu_torch.ops import flash_attention, fused_attention
 from marqo_tpu_torch.ops.common import (ACTIVATIONS, cls_pool, l2_normalize,
                                         layer_norm, masked_mean_pool)
+from marqo_tpu_torch.ops.quant import (int8_linear, int8_linear_reference,
+                                       quantize_weight)
 
 
 @dataclass(frozen=True)
@@ -45,8 +53,11 @@ class TextEncoderConfig:
     # device, plain twin on the CPU); "flash": ops/fused_attention.py (CUDA
     # kernel B2; pad rows attend to each other); "plain": always B1's twin
     attention_impl: str = "kernel"
-    # W8A8 int8 linear layers: not ported yet
+    # W8A8 int8 linear layers (ops/quant.py, kernel B3): opt-in
     quantize: bool = False
+    # with quantize: "kernel" runs int8_linear (CUDA kernel B3 on a CUDA
+    # device, its plain twin on the CPU); "plain" always B3's twin
+    linear_impl: str = "kernel"
 
     @property
     def head_dim(self) -> int:
@@ -81,6 +92,46 @@ class Embeddings(nn.Module):
         return layer_norm(x, self.ln.weight, self.ln.bias, self.eps)
 
 
+class Int8Linear(nn.Module):
+    """A W8A8 linear layer: int8 weights in ``nn.Linear``'s (out, in)
+    layout with per-output-channel fp32 scales, and the bias in the compute
+    dtype (buffers: nothing here trains). ``forward`` is
+    ops/quant.py ``int8_linear`` (``impl="plain"``: its twin), so the
+    output is in the input's dtype."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.register_buffer(
+            "weight_q", torch.empty(out_features, in_features,
+                                    dtype=torch.int8))
+        self.register_buffer("weight_scale",
+                             torch.empty(out_features, dtype=torch.float32))
+        self.register_buffer("bias", torch.empty(out_features))
+
+    @classmethod
+    @torch.no_grad()
+    def from_linear(cls, linear: nn.Linear) -> "Int8Linear":
+        """Quantize ``linear``'s weight as it is held (in the compute dtype,
+        as the JAX loader quantizes after its cast); keep its bias."""
+        out_features, in_features = linear.weight.shape
+        with torch.device("meta"):
+            module = cls(in_features, out_features)
+        weight_q, weight_scale = quantize_weight(linear.weight)
+        module.weight_q = weight_q
+        module.weight_scale = weight_scale
+        module.bias = linear.bias.detach().clone()
+        return module
+
+    def forward(self, x: torch.Tensor, impl: str = "kernel") -> torch.Tensor:
+        linear = int8_linear if impl == "kernel" else int8_linear_reference
+        return linear(x, self.weight_q, self.weight_scale, self.bias)
+
+
+# the six linear layers of a block, which quantize=True makes Int8Linear
+QUANTIZED_LINEARS = ("query", "key", "value", "attn_out", "ffn_in",
+                     "ffn_out")
+
+
 class EncoderLayer(nn.Module):
     """One post-LN transformer block (marqo_tpu bert.py `_encoder_layer`)."""
 
@@ -88,36 +139,44 @@ class EncoderLayer(nn.Module):
         super().__init__()
         H, I = config.hidden_size, config.intermediate_size
         self.config = config
-        self.query = nn.Linear(H, H)
-        self.key = nn.Linear(H, H)
-        self.value = nn.Linear(H, H)
-        self.attn_out = nn.Linear(H, H)
+        linear = Int8Linear if config.quantize else nn.Linear
+        self.query = linear(H, H)
+        self.key = linear(H, H)
+        self.value = linear(H, H)
+        self.attn_out = linear(H, H)
         self.attn_ln = nn.LayerNorm(H)
-        self.ffn_in = nn.Linear(H, I)
-        self.ffn_out = nn.Linear(I, H)
+        self.ffn_in = linear(H, I)
+        self.ffn_out = linear(I, H)
         self.ffn_ln = nn.LayerNorm(H)
 
-    def forward(self, x: torch.Tensor, attend,
-                mask_data: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attend, mask_data: torch.Tensor,
+                linear_impl: str = "kernel") -> torch.Tensor:
         """x: (B, S, H); ``attend(q, k, v, mask_data)`` is one of the
-        ``_ATTENTION`` entries for ``mask_data``'s mode."""
+        ``_ATTENTION`` entries for ``mask_data``'s mode; ``linear_impl``
+        picks the int8 layers' kernel or twin when quantized."""
         config = self.config
         B, S, H = x.shape
         N, D = config.num_heads, config.head_dim
 
+        def linear(name, t):
+            module = getattr(self, name)
+            if isinstance(module, Int8Linear):
+                return module(t, linear_impl)
+            return module(t)
+
         def heads(t):
             return t.view(B, S, N, D).transpose(1, 2).contiguous()
 
-        q = heads(self.query(x))
-        k = heads(self.key(x))
-        v = heads(self.value(x))
+        q = heads(linear("query", x))
+        k = heads(linear("key", x))
+        v = heads(linear("value", x))
         ctx = attend(q, k, v, mask_data)
         ctx = ctx.transpose(1, 2).reshape(B, S, H)
         eps = config.layer_norm_eps
-        x = layer_norm(x + self.attn_out(ctx), self.attn_ln.weight,
+        x = layer_norm(x + linear("attn_out", ctx), self.attn_ln.weight,
                        self.attn_ln.bias, eps)
-        h = ACTIVATIONS[config.hidden_act](self.ffn_in(x))
-        return layer_norm(x + self.ffn_out(h), self.ffn_ln.weight,
+        h = ACTIVATIONS[config.hidden_act](linear("ffn_in", x))
+        return layer_norm(x + linear("ffn_out", h), self.ffn_ln.weight,
                           self.ffn_ln.bias, eps)
 
 
@@ -126,8 +185,6 @@ class TextEncoder(nn.Module):
 
     def __init__(self, config: TextEncoderConfig):
         super().__init__()
-        if config.quantize:
-            raise NotImplementedError("int8 path: ROADMAP A4")
         self.config = config
         self.embeddings = Embeddings(config)
         self.layers = nn.ModuleList(
@@ -139,53 +196,119 @@ class TextEncoder(nn.Module):
         segment ids (0 = padding)."""
         attend = _ATTENTION[(self.config.attention_impl, mode)]
         for layer in self.layers:
-            x = layer(x, attend, mask_data)
+            x = layer(x, attend, mask_data, self.config.linear_impl)
         return x
+
+
+def empty_module(build: Callable[[], nn.Module], dtype,
+                 device) -> nn.Module:
+    """``build()`` with uninitialised storage on ``device`` in ``dtype``,
+    in eval mode and without gradients (no random init work: every caller
+    fills all parameters and buffers)."""
+    with torch.device("meta"):
+        module = build()
+    return module.to_empty(device=device).to(dtype).eval().requires_grad_(
+        False)
+
+
+@torch.no_grad()
+def random_init(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """The package's random init, in place: LayerNorm scales 1, biases 0,
+    every other parameter (weights, embeddings) normal(0, 0.02) drawn from
+    ``generator`` in parameter order."""
+    layer_norms = {id(p) for m in module.modules()
+                   if isinstance(m, nn.LayerNorm) for p in m.parameters()}
+    for name, param in module.named_parameters():
+        if id(param) in layer_norms:
+            param.fill_(1.0 if name.endswith("weight") else 0.0)
+        elif name.endswith("bias"):
+            param.zero_()
+        else:
+            param.copy_(torch.randn(param.shape, generator=generator,
+                                    device=param.device) * 0.02)
+    return module
+
+
+def linear_layer(weight, bias, dtype, device) -> nn.Linear:
+    """An ``nn.Linear`` holding (out, in) ``weight`` and ``bias`` (None:
+    a layer without bias)."""
+    out_features, in_features = weight.shape
+    layer = empty_module(lambda: nn.Linear(in_features, out_features,
+                                           bias=bias is not None),
+                         dtype, device)
+    values = {"weight": weight}
+    if bias is not None:
+        values["bias"] = bias
+    return fill_parameters(layer, values)
 
 
 def _empty_encoder(config: TextEncoderConfig, dtype,
                    device) -> TextEncoder:
-    """An encoder with uninitialised storage on ``device`` (no random
-    init work; every caller fills all parameters)."""
-    with torch.device("meta"):
-        encoder = TextEncoder(config)
-    return encoder.to_empty(device=device).to(dtype).eval().requires_grad_(False)
+    """An encoder with uninitialised storage on ``device``. Int8Linear
+    scales stay fp32 through the cast to ``dtype``."""
+    encoder = empty_module(lambda: TextEncoder(config), dtype, device)
+    for module in encoder.modules():
+        if isinstance(module, Int8Linear):
+            module.weight_scale = module.weight_scale.float()
+    return encoder
 
 
 @torch.no_grad()
 def fill_parameters(module: nn.Module, values: dict) -> nn.Module:
-    """Copy ``values`` (name → array or tensor) into every parameter of
-    ``module``; raise if one is missing or has another shape."""
-    params = dict(module.named_parameters())
-    missing = set(params) - set(values)
+    """Copy ``values`` (name → array or tensor) into every parameter and
+    buffer of ``module``, each cast to its own dtype; raise if one is
+    missing or has another shape."""
+    tensors = {**dict(module.named_parameters()),
+               **dict(module.named_buffers())}
+    missing = set(tensors) - set(values)
     if missing:
         raise KeyError(f"weights missing: {sorted(missing)}")
-    for name, param in params.items():
+    for name, tensor in tensors.items():
         value = values[name]
         value = value.float() if torch.is_tensor(value) else \
             torch.from_numpy(np.array(value, dtype=np.float32))
-        if tuple(value.shape) != tuple(param.shape):
-            raise ValueError(f"{name}: expected {tuple(param.shape)}, got "
+        if tuple(value.shape) != tuple(tensor.shape):
+            raise ValueError(f"{name}: expected {tuple(tensor.shape)}, got "
                              f"{tuple(value.shape)}")
-        param.copy_(value)
+        tensor.copy_(value)
     return module
 
 
-def init_encoder(config: TextEncoderConfig, generator: torch.Generator,
-                 dtype=torch.float32, device="cpu") -> TextEncoder:
-    """Random-init encoder (normal(0, 0.02) weights, zero biases, unit
-    LayerNorm scales), drawn from ``generator`` on ``device``."""
-    encoder = _empty_encoder(config, dtype, device)
-    with torch.no_grad():
-        for name, param in encoder.named_parameters():
-            if name.endswith("ln.weight"):
-                param.fill_(1.0)
-            elif name.endswith("bias"):
-                param.zero_()
-            else:
-                param.copy_(torch.randn(param.shape, generator=generator,
-                                        device=param.device) * 0.02)
+@torch.no_grad()
+def quantize_encoder(encoder: TextEncoder) -> TextEncoder:
+    """Replace the six linear layers of every block with ``Int8Linear``
+    (int8 values + per-output-channel scales of the weights as held, in the
+    compute dtype), in place; the counterpart of marqo_tpu
+    ``quantize_encoder_params``. Returns ``encoder`` with quantize=True in
+    its config."""
+    if encoder.config.quantize:
+        return encoder
+    encoder.config = replace(encoder.config, quantize=True)
+    for layer in encoder.layers:
+        layer.config = encoder.config
+        for name in QUANTIZED_LINEARS:
+            setattr(layer, name, Int8Linear.from_linear(getattr(layer, name)))
     return encoder
+
+
+def _float_config(config: TextEncoderConfig) -> TextEncoderConfig:
+    """The builders make the float encoder first and quantize it last."""
+    return replace(config, quantize=False)
+
+
+def _quantized_if_asked(encoder: TextEncoder,
+                        config: TextEncoderConfig) -> TextEncoder:
+    return quantize_encoder(encoder) if config.quantize else encoder
+
+
+def init_encoder(config: TextEncoderConfig, generator: torch.Generator,
+                 dtype=torch.float32, device="cuda") -> TextEncoder:
+    """Random-init encoder (normal(0, 0.02) weights, zero biases, unit
+    LayerNorm scales), drawn from ``generator`` on ``device``; quantized
+    after the cast to ``dtype`` when ``config.quantize``."""
+    encoder = random_init(_empty_encoder(_float_config(config), dtype,
+                                         device), generator)
+    return _quantized_if_asked(encoder, config)
 
 
 def encode_tokens(encoder: TextEncoder, input_ids: torch.Tensor,
@@ -292,12 +415,13 @@ _HF_LAYER = {
 
 def params_from_torch_state_dict(state_dict, config: TextEncoderConfig,
                                  dtype=torch.float32,
-                                 device="cpu") -> TextEncoder:
+                                 device="cuda") -> TextEncoder:
     """An encoder holding an HF Bert/Roberta-style ``state_dict``.
 
     Handles both bare-model keys (``embeddings.…``) and prefixed
     (``bert.embeddings.…`` / ``roberta.…``). torch's (out, in) linear
-    layout is this module's own, so weights copy as they are.
+    layout is this module's own, so weights copy as they are. Quantized
+    after the cast to ``dtype`` when ``config.quantize``.
     """
     sd = {}
     for key, tensor in state_dict.items():
@@ -316,8 +440,11 @@ def params_from_torch_state_dict(state_dict, config: TextEncoderConfig,
             for kind in ("weight", "bias"):
                 values[f"layers.{i}.{name}.{kind}"] = \
                     sd[f"encoder.layer.{i}.{hf}.{kind}"]
-    config = _with_type_vocab(config, values["embeddings.token_type.weight"])
-    return fill_parameters(_empty_encoder(config, dtype, device), values)
+    float_config = _with_type_vocab(_float_config(config),
+                                    values["embeddings.token_type.weight"])
+    encoder = fill_parameters(_empty_encoder(float_config, dtype, device),
+                              values)
+    return _quantized_if_asked(encoder, config)
 
 
 # this module's per-layer parameter names ← marqo_tpu stacked pytree keys
@@ -332,10 +459,17 @@ _JAX_LAYER = {
 
 
 def params_from_jax(params_numpy: dict, config: TextEncoderConfig,
-                    dtype=torch.float32, device="cpu") -> TextEncoder:
+                    dtype=torch.float32, device="cuda") -> TextEncoder:
     """An encoder holding marqo_tpu's parameter pytree, given as numpy
-    arrays ({"embeddings": {...}, "layers": {...}} with stacked layers)."""
+    arrays ({"embeddings": {...}, "layers": {...}} with stacked layers).
+
+    A quantized pytree (marqo_tpu ``quantize_encoder_params``: ``*_q``
+    (L, in, out) int8 and ``*_s`` (L, 1, out) fp32 in place of the six
+    linear weights) fills ``Int8Linear`` buffers as they are, transposed to
+    (out, in) and (out,); an unquantized one is quantized after the cast to
+    ``dtype`` when ``config.quantize``."""
     emb, layers = params_numpy["embeddings"], params_numpy["layers"]
+    quantized = "q_w_q" in layers
     values = {
         "embeddings.word.weight": emb["word"],
         "embeddings.position.weight": emb["position"],
@@ -345,14 +479,24 @@ def params_from_jax(params_numpy: dict, config: TextEncoderConfig,
     }
     for i in range(config.num_layers):
         for name, (w, b) in _JAX_LAYER.items():
-            # .T turns (in, out) into (out, in); 1-D LayerNorm scales pass
-            values[f"layers.{i}.{name}.weight"] = np.asarray(layers[w][i]).T
             values[f"layers.{i}.{name}.bias"] = layers[b][i]
-    config = _with_type_vocab(config, values["embeddings.token_type.weight"])
-    return fill_parameters(_empty_encoder(config, dtype, device), values)
+            if quantized and name in QUANTIZED_LINEARS:
+                values[f"layers.{i}.{name}.weight_q"] = \
+                    np.asarray(layers[w + "_q"][i]).T
+                values[f"layers.{i}.{name}.weight_scale"] = \
+                    np.asarray(layers[w + "_s"][i])[0]
+            else:
+                # .T turns (in, out) into (out, in); 1-D LayerNorm scales
+                # pass
+                values[f"layers.{i}.{name}.weight"] = \
+                    np.asarray(layers[w][i]).T
+    build_config = _with_type_vocab(replace(config, quantize=quantized),
+                                    values["embeddings.token_type.weight"])
+    encoder = fill_parameters(_empty_encoder(build_config, dtype, device),
+                              values)
+    return _quantized_if_asked(encoder, config)
 
 
 def _with_type_vocab(config: TextEncoderConfig, table) -> TextEncoderConfig:
     """Size the token-type table to the checkpoint's (1 when absent)."""
-    from dataclasses import replace
     return replace(config, type_vocab_size=int(table.shape[0]))

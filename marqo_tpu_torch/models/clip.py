@@ -39,7 +39,8 @@ import torch.nn as nn
 from marqo_tpu_torch.core.exceptions import ModelLoadError, VectoriseError
 from marqo_tpu_torch.inference.batching import pick_batch_bucket
 from marqo_tpu_torch.inference.types import Device, Modality
-from marqo_tpu_torch.models.bert import fill_parameters
+from marqo_tpu_torch.models.bert import (empty_module, fill_parameters,
+                                         random_init)
 from marqo_tpu_torch.ops import fused_attention
 from marqo_tpu_torch.ops.common import ACTIVATIONS, layer_norm
 from marqo_tpu_torch.ops.image_ops import CLIP_MEAN, CLIP_STD, host_decode
@@ -243,31 +244,27 @@ def _empty_clip(text_config, vision_config, dtype, device,
                 pre_ln: bool = True) -> CLIPEncoder:
     """A model with uninitialised storage on ``device`` (every caller fills
     all parameters)."""
-    with torch.device("meta"):
-        model = CLIPEncoder(text_config, vision_config, pre_ln)
-    return model.to_empty(device=device).to(dtype).eval().requires_grad_(False)
+    return empty_module(
+        lambda: CLIPEncoder(text_config, vision_config, pre_ln), dtype, device)
 
 
 def init_clip_params(text_config: CLIPTextConfig,
                      vision_config: CLIPVisionConfig,
                      generator: torch.Generator, dtype=torch.float32,
-                     device="cpu") -> CLIPEncoder:
+                     device="cuda") -> CLIPEncoder:
     """Random-init model (normal(0, 0.02) weights and embeddings, zero
     biases, unit LayerNorm scales), drawn from ``generator`` on
     ``device``."""
-    model = _empty_clip(text_config, vision_config, dtype, device)
-    layer_norms = {id(p) for m in model.modules()
-                   if isinstance(m, nn.LayerNorm) for p in m.parameters()}
-    with torch.no_grad():
-        for name, param in model.named_parameters():
-            if id(param) in layer_norms:
-                param.fill_(1.0 if name.endswith("weight") else 0.0)
-            elif name.endswith("bias"):
-                param.zero_()
-            else:
-                param.copy_(torch.randn(param.shape, generator=generator,
-                                        device=param.device) * 0.02)
-    return model
+    return random_init(_empty_clip(text_config, vision_config, dtype,
+                                   device), generator)
+
+
+def init_vision_tower(vision_config: CLIPVisionConfig,
+                      generator: torch.Generator, dtype=torch.float32,
+                      device="cuda") -> CLIPVisionTower:
+    """The vision tower alone, initialised as ``init_clip_params`` does."""
+    return random_init(empty_module(lambda: CLIPVisionTower(vision_config),
+                                    dtype, device), generator)
 
 
 def _numpy_state_dict(state_dict) -> dict:
@@ -391,9 +388,6 @@ def params_from_open_clip(state_dict, text_config: CLIPTextConfig,
     (visual.transformer.resblocks.*, in_proj_weight fused QKV) into the JAX
     package's layout (numpy float32). Projections are already (in, out)."""
     sd = _numpy_state_dict(state_dict)
-    conv = sd["visual.conv1.weight"]  # (H, 3, p, p)
-    H = conv.shape[0]
-    patch_w = conv.transpose(2, 3, 1, 0).reshape(-1, H)
     return {
         "text": {
             "token_embedding": _f32(sd["token_embedding.weight"]),
@@ -404,19 +398,28 @@ def params_from_open_clip(state_dict, text_config: CLIPTextConfig,
             "final_ln_bias": _f32(sd["ln_final.bias"]),
             "text_projection": _f32(sd["text_projection"]),
         },
-        "vision": {
-            "patch_embedding": _f32(patch_w),
-            "class_embedding": _f32(sd["visual.class_embedding"]),
-            "position_embedding": _f32(sd["visual.positional_embedding"]),
-            "pre_ln_scale": _f32(sd["visual.ln_pre.weight"]),
-            "pre_ln_bias": _f32(sd["visual.ln_pre.bias"]),
-            "layers": convert_open_clip_resblocks(
-                sd, "visual.transformer.resblocks",
-                vision_config.num_layers),
-            "post_ln_scale": _f32(sd["visual.ln_post.weight"]),
-            "post_ln_bias": _f32(sd["visual.ln_post.bias"]),
-            "visual_projection": _f32(sd["visual.proj"]),
-        },
+        "vision": open_clip_vision(sd, vision_config),
+    }
+
+
+def open_clip_vision(sd: dict, vision_config: CLIPVisionConfig) -> dict:
+    """The vision half of an openai/open_clip state dict (numpy arrays:
+    visual.conv1, class_embedding, positional_embedding, ln_pre,
+    transformer.resblocks, ln_post, proj) in the JAX package's layout."""
+    conv = sd["visual.conv1.weight"]  # (H, 3, p, p)
+    H = conv.shape[0]
+    patch_w = conv.transpose(2, 3, 1, 0).reshape(-1, H)
+    return {
+        "patch_embedding": _f32(patch_w),
+        "class_embedding": _f32(sd["visual.class_embedding"]),
+        "position_embedding": _f32(sd["visual.positional_embedding"]),
+        "pre_ln_scale": _f32(sd["visual.ln_pre.weight"]),
+        "pre_ln_bias": _f32(sd["visual.ln_pre.bias"]),
+        "layers": convert_open_clip_resblocks(
+            sd, "visual.transformer.resblocks", vision_config.num_layers),
+        "post_ln_scale": _f32(sd["visual.ln_post.weight"]),
+        "post_ln_bias": _f32(sd["visual.ln_post.bias"]),
+        "visual_projection": _f32(sd["visual.proj"]),
     }
 
 
@@ -431,7 +434,7 @@ _JAX_BLOCK = {
 
 def params_from_jax(params_numpy: dict, text_config: CLIPTextConfig,
                     vision_config: CLIPVisionConfig, dtype=torch.float32,
-                    device="cpu") -> CLIPEncoder:
+                    device="cuda") -> CLIPEncoder:
     """A model holding parameters in the JAX package's layout, given as
     numpy arrays ({"text": {...}, "vision": {...}} with stacked layers):
     the JAX package's own params, or a converter's output above."""
@@ -442,29 +445,54 @@ def params_from_jax(params_numpy: dict, text_config: CLIPTextConfig,
         "text.final_ln.weight": text["final_ln_scale"],
         "text.final_ln.bias": text["final_ln_bias"],
         "text.projection": text["text_projection"],
-        "vision.patch_embedding": vision["patch_embedding"],
-        "vision.class_embedding": vision["class_embedding"],
-        "vision.position_embedding": vision["position_embedding"],
-        "vision.post_ln.weight": vision["post_ln_scale"],
-        "vision.post_ln.bias": vision["post_ln_bias"],
-        "vision.projection": vision["visual_projection"],
+        **_block_values("text.", text, text_config.num_layers),
+        **_vision_values("vision.", vision, vision_config.num_layers),
     }
-    pre_ln = "pre_ln_scale" in vision
-    if pre_ln:
-        values["vision.pre_ln.weight"] = vision["pre_ln_scale"]
-        values["vision.pre_ln.bias"] = vision["pre_ln_bias"]
-    for tower, tree, L in (("text", text, text_config.num_layers),
-                           ("vision", vision, vision_config.num_layers)):
-        for i in range(L):
-            for name, (w, b) in _JAX_BLOCK.items():
-                # .T turns (in, out) into nn.Linear's (out, in); 1-D
-                # LayerNorm scales pass as they are
-                values[f"{tower}.layers.{i}.{name}.weight"] = \
-                    np.asarray(tree["layers"][w][i]).T
-                values[f"{tower}.layers.{i}.{name}.bias"] = \
-                    tree["layers"][b][i]
-    model = _empty_clip(text_config, vision_config, dtype, device, pre_ln)
+    model = _empty_clip(text_config, vision_config, dtype, device,
+                        "pre_ln_scale" in vision)
     return fill_parameters(model, values)
+
+
+def vision_tower_from_jax(vision_numpy: dict,
+                          vision_config: CLIPVisionConfig,
+                          dtype=torch.float32,
+                          device="cuda") -> CLIPVisionTower:
+    """The vision tower alone, from the ``"vision"`` part of the JAX
+    package's layout (numpy arrays)."""
+    tower = empty_module(
+        lambda: CLIPVisionTower(vision_config,
+                                pre_ln="pre_ln_scale" in vision_numpy),
+        dtype, device)
+    return fill_parameters(
+        tower, _vision_values("", vision_numpy, vision_config.num_layers))
+
+
+def _block_values(prefix: str, tree: dict, L: int) -> dict:
+    values = {}
+    for i in range(L):
+        for name, (w, b) in _JAX_BLOCK.items():
+            # .T turns (in, out) into nn.Linear's (out, in); 1-D LayerNorm
+            # scales pass as they are
+            values[f"{prefix}layers.{i}.{name}.weight"] = \
+                np.asarray(tree["layers"][w][i]).T
+            values[f"{prefix}layers.{i}.{name}.bias"] = tree["layers"][b][i]
+    return values
+
+
+def _vision_values(prefix: str, vision: dict, L: int) -> dict:
+    values = {
+        f"{prefix}patch_embedding": vision["patch_embedding"],
+        f"{prefix}class_embedding": vision["class_embedding"],
+        f"{prefix}position_embedding": vision["position_embedding"],
+        f"{prefix}post_ln.weight": vision["post_ln_scale"],
+        f"{prefix}post_ln.bias": vision["post_ln_bias"],
+        f"{prefix}projection": vision["visual_projection"],
+        **_block_values(prefix, vision, L),
+    }
+    if "pre_ln_scale" in vision:
+        values[f"{prefix}pre_ln.weight"] = vision["pre_ln_scale"]
+        values[f"{prefix}pre_ln.bias"] = vision["pre_ln_bias"]
+    return values
 
 
 # --- model wrapper -----------------------------------------------------------

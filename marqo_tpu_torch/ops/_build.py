@@ -103,5 +103,9 @@ def load_library() -> ctypes.CDLL:
             fused.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
                 ctypes.c_float, ctypes.c_void_p]
             fused.restype = ctypes.c_int
+            w8a8 = lib.marqo_w8a8_matmul
+            w8a8.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+                ctypes.c_void_p]
+            w8a8.restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the device time of marqo_tpu_torch's encoders goes, on a CUDA
 card: an e5-base-v2-width random-init text encoder (bf16) runs a padded
-ingest batch and a packed one, and the ViT-L/14 image tower (bf16, random
+ingest batch and a packed one, the same weights quantized (int8 W8A8,
+kernel B3) the padded batch, and the ViT-L/14 image tower (bf16, random
 init) a batch of images, under torch.profiler. The script prints one JSON
 line per batch with the device time by kernel family (attention kernel,
 matmuls, the rest), the top kernels, and the device's busy share of the
@@ -38,6 +39,9 @@ def family(name: str) -> str:
     # both attention kernels (B1, B2) instantiate csrc/attention_tile.cuh
     if "attention_tile_kernel" in name:
         return "attention_kernel"
+    # B3's two kernels (csrc/w8a8_matmul.cu)
+    if "w8a8_gemm" in name or "quantize_rows" in name:
+        return "w8a8_kernel"
     if any(t in name.lower() for t in ("gemm", "cutlass", "sm90_xmma",
                                        "cublas", "nvjet")):
         return "matmul"
@@ -80,10 +84,12 @@ def main() -> int:
 
     import numpy as np
 
+    import copy
+
     from marqo_tpu_torch.models.bert import (TextEncoderConfig,
                                              encode_tokens,
                                              encode_tokens_packed,
-                                             init_encoder)
+                                             init_encoder, quantize_encoder)
     from marqo_tpu_torch.ops.packing import pack_sequences
     config = TextEncoderConfig(**E5_BASE)
     encoder = init_encoder(config, torch.Generator("cuda").manual_seed(0),
@@ -105,6 +111,12 @@ def main() -> int:
     def padded():
         with torch.inference_mode():
             encode_tokens(encoder, dev["ids"], dev["mask"])
+
+    int8_encoder = quantize_encoder(copy.deepcopy(encoder))
+
+    def padded_int8():
+        with torch.inference_mode():
+            encode_tokens(int8_encoder, dev["ids"], dev["mask"])
 
     def packed_run():
         with torch.inference_mode():
@@ -132,6 +144,7 @@ def main() -> int:
     for name, fn, docs, rows, seq in (
             ("padded", padded, B, B, S),
             ("packed", packed_run, B, int(packed.input_ids.shape[0]), S),
+            ("padded_int8", padded_int8, B, B, S),
             ("vit_l14_images", images, args.images, args.images, 257)):
         kernels, wall_ms = profile(fn, args.steps)
         total_us = sum(kernels.values())

@@ -64,7 +64,7 @@ def test_encode_tokens_fp32(shared_weights, pooling):
     ids, mask, _ = _inputs()
     ref = jbert.encode_tokens(params, jnp.asarray(ids), jnp.asarray(mask),
                               jconfig, compute_dtype=jnp.float32)
-    encoder = tbert.params_from_jax(params_np, tconfig)
+    encoder = tbert.params_from_jax(params_np, tconfig, device="cpu")
     out = tbert.encode_tokens(encoder, torch.from_numpy(ids),
                               torch.from_numpy(mask))
     assert out.dtype == torch.float32 and tuple(out.shape) == (6, 64)
@@ -80,7 +80,8 @@ def test_encode_tokens_bf16(shared_weights):
     params16 = jax.tree.map(lambda a: a.astype(jnp.bfloat16), params)
     ref = jbert.encode_tokens(params16, jnp.asarray(ids), jnp.asarray(mask),
                               jconfig, compute_dtype=jnp.bfloat16)
-    encoder = tbert.params_from_jax(params_np, tconfig, dtype=torch.bfloat16)
+    encoder = tbert.params_from_jax(params_np, tconfig, dtype=torch.bfloat16,
+                                     device="cpu")
     out = tbert.encode_tokens(encoder, torch.from_numpy(ids),
                               torch.from_numpy(mask))
     assert out.dtype == torch.float32
@@ -105,7 +106,7 @@ def test_encode_tokens_packed_fp32(shared_weights, pooling):
     ref = jbert.encode_tokens_packed(params, *map(jnp.asarray, arrays),
                                      packed.n_sequences, jconfig,
                                      compute_dtype=jnp.float32)
-    encoder = tbert.params_from_jax(params_np, tconfig)
+    encoder = tbert.params_from_jax(params_np, tconfig, device="cpu")
     out = tbert.encode_tokens_packed(encoder, *map(torch.from_numpy, arrays),
                                      packed.n_sequences).numpy()
     assert out.shape == (9, 64)
@@ -121,7 +122,7 @@ def test_packed_trash_row_takes_pad_tokens(shared_weights):
     """seq_index == -1 (pad tokens) pools into the trash row, never into a
     document."""
     _, tconfig, _, params_np = shared_weights
-    encoder = tbert.params_from_jax(params_np, tconfig)
+    encoder = tbert.params_from_jax(params_np, tconfig, device="cpu")
     ids, mask, lengths = _inputs(B=4, seed=5)
     packed = _packed(ids, lengths, 64)
     assert (packed.seq_index < 0).any()
@@ -138,7 +139,8 @@ def test_packed_trash_row_takes_pad_tokens(shared_weights):
 
 def test_normalize_gives_unit_vectors(shared_weights):
     _, tconfig, _, params_np = shared_weights
-    encoder = tbert.params_from_jax(params_np, replace(tconfig, normalize=True))
+    encoder = tbert.params_from_jax(params_np, replace(tconfig, normalize=True),
+                                    device="cpu")
     ids, mask, _ = _inputs(seed=3)
     out = tbert.encode_tokens(encoder, torch.from_numpy(ids),
                               torch.from_numpy(mask))
@@ -152,23 +154,20 @@ def test_plain_attention_impl_matches_kernel_route_on_cpu(shared_weights):
     outs = []
     for impl in ("kernel", "plain"):
         encoder = tbert.params_from_jax(
-            params_np, replace(tconfig, attention_impl=impl))
+            params_np, replace(tconfig, attention_impl=impl), device="cpu")
         outs.append(tbert.encode_tokens(encoder, torch.from_numpy(ids),
                                         torch.from_numpy(mask)))
     assert torch.equal(outs[0], outs[1])
 
 
-def test_quantize_is_refused():
-    _, tconfig = _configs(quantize=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        tbert.init_encoder(tconfig, torch.Generator().manual_seed(0))
-
-
 def test_init_encoder_is_seeded():
     _, tconfig = _configs()
-    a = tbert.init_encoder(tconfig, torch.Generator().manual_seed(5))
-    b = tbert.init_encoder(tconfig, torch.Generator().manual_seed(5))
-    c = tbert.init_encoder(tconfig, torch.Generator().manual_seed(6))
+    a = tbert.init_encoder(tconfig, torch.Generator().manual_seed(5),
+                           device="cpu")
+    b = tbert.init_encoder(tconfig, torch.Generator().manual_seed(5),
+                           device="cpu")
+    c = tbert.init_encoder(tconfig, torch.Generator().manual_seed(6),
+                           device="cpu")
     for (name, pa), pb, pc in zip(a.named_parameters(), b.parameters(),
                                   c.parameters()):
         assert torch.equal(pa, pb), name
@@ -204,7 +203,8 @@ def test_params_from_torch_state_dict_matches_jax(kind):
     assert tconfig.position_offset == jconfig.position_offset == (
         2 if kind == "xlm-roberta" else 0)
     jparams = jbert.params_from_torch_state_dict(state_dict, jconfig)
-    encoder = tbert.params_from_torch_state_dict(state_dict, tconfig)
+    encoder = tbert.params_from_torch_state_dict(state_dict, tconfig,
+                                                 device="cpu")
     ids, mask, _ = _inputs(seed=6)
     ref = jbert.encode_tokens(jparams, jnp.asarray(ids), jnp.asarray(mask),
                               jconfig, compute_dtype=jnp.float32)
@@ -218,7 +218,8 @@ def test_params_from_torch_state_dict_matches_hf_bert_mean_pool():
     """The port against HF's own BertModel forward (mean pooling)."""
     cfg, model = _hf_model("bert")
     encoder = tbert.params_from_torch_state_dict(model.state_dict(),
-                                                 tbert.config_from_hf(cfg))
+                                                 tbert.config_from_hf(cfg),
+                                                 device="cpu")
     ids, mask, _ = _inputs(seed=7)
     with torch.no_grad():
         hidden = model(input_ids=torch.from_numpy(ids).long(),
@@ -230,3 +231,119 @@ def test_params_from_torch_state_dict_matches_hf_bert_mean_pool():
     out = tbert.encode_tokens(encoder, torch.from_numpy(ids),
                               torch.from_numpy(mask))
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-5)
+
+
+# --- int8 (W8A8) encoder: ops/quant.py, kernel B3's twin on the CPU ----------
+
+@pytest.fixture(scope="module")
+def quantized_weights(shared_weights):
+    """marqo_tpu's quantized pytree (quantize_encoder_params of the shared
+    fp32 weights) as numpy, with both configs set to quantize."""
+    jconfig, tconfig, params, _ = shared_weights
+    qparams = jbert.quantize_encoder_params(params)
+    return (replace(jconfig, quantize=True), replace(tconfig, quantize=True),
+            qparams, _numpy_tree(qparams))
+
+
+def test_params_from_jax_takes_the_quantized_pytree(shared_weights,
+                                                     quantized_weights):
+    """The JAX package's int8 arrays, transposed to (out, in), equal the
+    port's own quantization of the same fp32 weights; biases and scales
+    too, and the scales stay fp32."""
+    _, tconfig, _, params_np = shared_weights
+    _, qtconfig, _, qparams_np = quantized_weights
+    ported = tbert.params_from_jax(qparams_np, tconfig, device="cpu")
+    ours = tbert.quantize_encoder(
+        tbert.params_from_jax(params_np, tconfig, device="cpu"))
+    built = tbert.params_from_jax(params_np, qtconfig, device="cpu")
+    buffers = dict(ours.named_buffers())
+    assert len(buffers) == 3 * 6 * tconfig.num_layers
+    for encoder in (ported, built):
+        assert encoder.config.quantize
+        for name, value in encoder.named_buffers():
+            assert value.dtype == buffers[name].dtype, name
+            assert torch.equal(value, buffers[name]), name
+    assert buffers["layers.0.query.weight_q"].dtype == torch.int8
+    assert buffers["layers.0.query.weight_scale"].dtype == torch.float32
+    assert not any(n.endswith("query.weight")
+                   for n, _ in ours.named_parameters())
+
+
+@pytest.mark.parametrize("pooling", ["mean", "cls"])
+def test_quantized_encoder_fp32_matches_jax(quantized_weights, pooling):
+    jconfig, tconfig, qparams, qparams_np = quantized_weights
+    jconfig = replace(jconfig, pooling=pooling)
+    tconfig = replace(tconfig, pooling=pooling)
+    ids, mask, _ = _inputs(seed=8)
+    ref = jbert.encode_tokens(qparams, jnp.asarray(ids), jnp.asarray(mask),
+                              jconfig, compute_dtype=jnp.float32)
+    encoder = tbert.params_from_jax(qparams_np, tconfig, device="cpu")
+    out = tbert.encode_tokens(encoder, torch.from_numpy(ids),
+                              torch.from_numpy(mask)).numpy()
+    assert (_cosines(out, ref) > 1 - 1e-5).all()
+    np.testing.assert_allclose(out, np.asarray(ref), atol=1e-4)
+
+
+def test_quantized_encoder_packed_fp32_matches_jax(quantized_weights):
+    jconfig, tconfig, qparams, qparams_np = quantized_weights
+    ids, mask, lengths = _inputs(B=9, seed=9)
+    packed = _packed(ids, lengths, 32)
+    arrays = (packed.input_ids, packed.segment_ids, packed.positions,
+              packed.seq_index)
+    ref = jbert.encode_tokens_packed(qparams, *map(jnp.asarray, arrays),
+                                     packed.n_sequences, jconfig,
+                                     compute_dtype=jnp.float32)
+    encoder = tbert.params_from_jax(qparams_np, tconfig, device="cpu")
+    out = tbert.encode_tokens_packed(encoder, *map(torch.from_numpy, arrays),
+                                     packed.n_sequences).numpy()
+    assert out.shape == (9, 64)
+    assert (_cosines(out, ref) > 1 - 1e-5).all()
+    np.testing.assert_allclose(out, np.asarray(ref), atol=1e-4)
+
+
+def test_quantized_encoder_stays_near_the_fp32_encoder(shared_weights):
+    """As tests/test_quantization.py:38-54: cosine > 0.99 against the
+    unquantized encoder on the same weights."""
+    _, tconfig, _, params_np = shared_weights
+    ids, mask, _ = _inputs(seed=10)
+    outs = [tbert.encode_tokens(
+        tbert.params_from_jax(params_np, replace(tconfig, quantize=q),
+                              device="cpu"),
+        torch.from_numpy(ids), torch.from_numpy(mask)).numpy()
+        for q in (False, True)]
+    assert (_cosines(outs[0], outs[1]) > 0.99).all()
+
+
+def test_quantized_encoder_bf16_matches_jax(shared_weights):
+    """Both packages the way their loaders run it: weights cast to bf16,
+    then quantized; compute in bf16."""
+    jconfig, tconfig, params, params_np = shared_weights
+    ids, mask, _ = _inputs(seed=11)
+    params16 = jax.tree.map(lambda a: a.astype(jnp.bfloat16), params)
+    ref = jbert.encode_tokens(jbert.quantize_encoder_params(params16),
+                              jnp.asarray(ids), jnp.asarray(mask),
+                              replace(jconfig, quantize=True),
+                              compute_dtype=jnp.bfloat16)
+    encoder = tbert.params_from_jax(params_np,
+                                    replace(tconfig, quantize=True),
+                                    dtype=torch.bfloat16, device="cpu")
+    assert encoder.layers[0].ffn_in.bias.dtype == torch.bfloat16
+    assert encoder.layers[0].ffn_in.weight_scale.dtype == torch.float32
+    out = tbert.encode_tokens(encoder, torch.from_numpy(ids),
+                              torch.from_numpy(mask))
+    assert (_cosines(out.numpy(), ref) > 1 - 1e-3).all()
+
+
+def test_init_encoder_quantizes_when_asked():
+    _, tconfig = _configs(quantize=True)
+    encoder = tbert.init_encoder(tconfig, torch.Generator().manual_seed(5),
+                                 dtype=torch.bfloat16, device="cpu")
+    layer = encoder.layers[0]
+    assert all(isinstance(getattr(layer, name), tbert.Int8Linear)
+               for name in tbert.QUANTIZED_LINEARS)
+    float_encoder = tbert.init_encoder(
+        replace(tconfig, quantize=False), torch.Generator().manual_seed(5),
+        dtype=torch.bfloat16, device="cpu")
+    q, s = tbert.quantize_weight(float_encoder.layers[0].ffn_out.weight)
+    assert torch.equal(layer.ffn_out.weight_q, q)
+    assert torch.equal(layer.ffn_out.weight_scale, s)

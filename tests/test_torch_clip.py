@@ -53,7 +53,7 @@ def shared():
         numpy_params)
     params = jax.tree.map(jnp.asarray, numpy_params)
     t_cfg, v_cfg = _configs(clip)
-    model = clip.params_from_jax(numpy_params, t_cfg, v_cfg)
+    model = clip.params_from_jax(numpy_params, t_cfg, v_cfg, device="cpu")
     return params, model, numpy_params
 
 
@@ -98,7 +98,7 @@ def test_towers_match_jax_bf16_in_cosine(shared):
     params, _, numpy_params = shared
     t_cfg, v_cfg = _configs(clip)
     model16 = clip.params_from_jax(numpy_params, t_cfg, v_cfg,
-                                   dtype=torch.bfloat16)
+                                   dtype=torch.bfloat16, device="cpu")
     rng = np.random.default_rng(2)
     ids, pixels = _ids(rng, 3, 16), _pixels(rng, 3)
     jt, jv = _configs(jax_clip)
@@ -165,7 +165,7 @@ def hf_pair():
     t_cfg, v_cfg = _configs(clip)
     model = clip.params_from_jax(
         clip.params_from_hf_clip(hf_model.state_dict(), t_cfg, v_cfg),
-        t_cfg, v_cfg)
+        t_cfg, v_cfg, device="cpu")
     return hf_model, model
 
 
@@ -259,7 +259,7 @@ def test_open_clip_converters_match_jax():
         jax_clip.convert_open_clip_resblocks(
             sd, "visual.transformer.resblocks", 2))))
     # the converted arrays load, and torch state dicts convert the same way
-    clip.params_from_jax(ours, *_configs(clip))
+    clip.params_from_jax(ours, *_configs(clip), device="cpu")
     from_torch = clip.params_from_open_clip(
         {k: torch.from_numpy(v) for k, v in sd.items()}, *_configs(clip))
     _assert_same_tree(from_torch, ours)
@@ -344,15 +344,20 @@ def test_registry_dispatch_splits_as_the_reference():
     from marqo_tpu.inference.loaders import \
         resolve_model_class as jax_resolve
     from marqo_tpu_torch.inference.loaders import resolve_model_class
+    from marqo_tpu.models.hf_clip import JaxHFCLIPModel
+    from marqo_tpu_torch.models.hf_clip import TorchHFCLIPModel
+    ported_pairs = {jax_clip.JaxCLIPModel: clip.TorchCLIPModel,
+                    JaxHFCLIPModel: TorchHFCLIPModel}
     entries = _clip_registry_entries()
     ported = 0
     for name, props in entries:
         reference = jax_resolve(name, props)
-        if reference is jax_clip.JaxCLIPModel:
-            assert resolve_model_class(name, props) is clip.TorchCLIPModel
+        if reference in ported_pairs:
+            assert resolve_model_class(name, props) is \
+                ported_pairs[reference]
             ported += 1
             continue
         with pytest.raises(ModelLoadError,
-                           match=r"not yet ported .*\(ROADMAP A[67]\)"):
+                           match=r"not yet ported .*\(ROADMAP A7\)"):
             resolve_model_class(name, props)
     assert 0 < ported < len(entries)

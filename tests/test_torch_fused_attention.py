@@ -196,7 +196,8 @@ def test_bert_flash_mode_pools_as_the_b1_path(layout):
     from marqo_tpu_torch.ops.packing import pack_sequences
     config = TextEncoderConfig(vocab_size=64, hidden_size=32, num_layers=2,
                                num_heads=2, intermediate_size=64)
-    encoder = init_encoder(config, torch.Generator().manual_seed(0))
+    encoder = init_encoder(config, torch.Generator().manual_seed(0),
+                           device="cpu")
     rng = np.random.default_rng(0)
     B, S = 6, 32
     lengths = rng.integers(3, S + 1, B)

@@ -99,6 +99,8 @@ def servers(checkpoint, images):
              "caption": f"a {COLORS[i]} picture"} for i in range(N_DOCS)]
     with pytest.MonkeyPatch.context() as env:
         env.setenv("MARQO_MODELS_TO_PRELOAD", "[]")
+        # no CUDA device here: the port serves on the CPU only when asked
+        env.setenv("MARQO_BEST_AVAILABLE_DEVICE", "cpu")
         env.setattr(JaxCLIPModel, "compute_dtype", jnp.float32)
         env.setattr(TorchCLIPModel, "compute_dtype", torch.float32)
         try:

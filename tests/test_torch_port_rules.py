@@ -21,7 +21,9 @@ PORT = os.path.join(REPO, "marqo_tpu_torch")
 # rewritten in torch: compared against the JAX package by the parity tests
 PORTED = {
     "ops/common.py", "ops/flash_attention.py", "ops/fused_attention.py",
-    "ops/image_ops.py", "ops/_build.py", "models/bert.py", "models/clip.py",
+    "ops/image_ops.py", "ops/_build.py", "ops/quant.py",
+    "ops/quant_matmul.py", "models/bert.py", "models/clip.py",
+    "models/cross_encoder.py", "models/stella.py", "models/hf_clip.py",
     "inference/types.py", "inference/batching.py", "inference/loaders.py",
     "engine/torch_scorer.py",
 }
@@ -29,6 +31,9 @@ PORTED = {
 # copies with deliberate edits, and why
 DELIBERATE_EDITS = {
     "__init__.py": "package docstring names the PyTorch/CUDA port",
+    "api/app.py": "startup picks the device first and keeps a "
+                  "MARQO_BEST_AVAILABLE_DEVICE already set; without one and "
+                  "without CUDA it raises instead of serving on the CPU",
     "core/add_documents.py": "one comment named jax.device_get",
     "core/monitoring.py": "get_accelerator_info reads torch.cuda and fills "
                           "the memory fields",
@@ -38,8 +43,9 @@ DELIBERATE_EDITS = {
                                    "classes",
     "inference/image_patching.py": "the DINO/YOLOX/Faster R-CNN patchers run "
                                    "JAX models: not yet ported (ROADMAP A9)",
-    "inference/rerank.py": "the cross-encoder and OWL-ViT rerankers run JAX "
-                           "models: not yet ported (ROADMAP A6, A9)",
+    "inference/rerank.py": "the cross-encoder is models/cross_encoder.py's "
+                           "TorchCrossEncoder; the OWL-ViT reranker is not "
+                           "yet ported (ROADMAP A9)",
 }
 
 
@@ -128,8 +134,10 @@ def test_app_serves_without_jax_or_marqo_tpu(tmp_path):
                        for m in sys.modules if sys.modules[m] is not None)
         print("OK")
     """)
+    # this host has no CUDA device: serve on the CPU on purpose
     env = dict(os.environ, PYTHONPATH=REPO, MARQO_MODELS_TO_PRELOAD="[]",
-               HF_HUB_OFFLINE="1", TRANSFORMERS_OFFLINE="1")
+               HF_HUB_OFFLINE="1", TRANSFORMERS_OFFLINE="1",
+               MARQO_BEST_AVAILABLE_DEVICE="cpu")
     proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
                           env=env, capture_output=True, text=True,
                           timeout=300)

@@ -86,6 +86,8 @@ def servers(checkpoint):
     servers = {}
     with pytest.MonkeyPatch.context() as env:
         env.setenv("MARQO_MODELS_TO_PRELOAD", "[]")
+        # no CUDA device here: the port serves on the CPU only when asked
+        env.setenv("MARQO_BEST_AVAILABLE_DEVICE", "cpu")
         try:
             for package in ("marqo_tpu", "marqo_tpu_torch"):
                 server = _Server(package)

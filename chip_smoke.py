@@ -11,12 +11,19 @@ phases and prints one JSON object per phase:
   2. build         seconds to build (or load) the kernels' library
   3. kernel        B1, masked attention, against its plain twin: both mask
                    modes, fp32 and bf16, at (B, 12, S, 64) for S in
-                   16/128/512
+                   16/128/512 and at (32, 12, 128, 32) (the cross-encoder's
+                   head dim); each on contiguous inputs and on the
+                   encoders' own layouts (views of (B, S, N*D) projection
+                   outputs, chunks of Stella's fused qkv projection); the
+                   output must be the (B, S, N, D)-strided view; bf16
+                   within 4e-3 + 1e-2 |ref|, a bound the twin with a
+                   softmax scale off by 10% must fail (check_attention)
   4. fused_kernel  B2, flash attention, against its plain twin: no mask,
                    pad_mask and packed segment ids, fp32 and bf16, at
                    (4, 16, S, D) for the ViT towers' (tokens, head dim),
                    and at the main path's own shapes: (16, 16, 257, 64)
-                   with no mask, (16, 12, 128, 64) padded and packed
+                   with no mask, (16, 12, 128, 64) padded and packed; in
+                   the same three layouts and to the same bounds as phase 3
   5. quant_kernel  B3, the fused W8A8 linear layer, against its plain
                    twin, fp32 and bf16: M in 1/32/37/4096/17408 over the
                    registry's BERT (K, N) widths, then the main path's own
@@ -49,11 +56,15 @@ phases and prints one JSON object per phase:
                    width, 64 documents and the searches; B1 ran
  14. hf_clip_serve an xlm-roberta-base-ViT-B-32 random-init image index:
                    search by text and by image; B1 and B2 no-mask ran
- 15. timing        kernel, twin and library-call times, B3 against the bf16
-                   F.linear it replaces, the int8 against the bf16 e5
-                   encoder, ViT-L/14 images per second on the kernel and
-                   twin paths, add throughput and search latency
-                   (information only)
+ 15. timing        kernel, twin and library-call times (attention on
+                   contiguous inputs as earlier runs timed them, and at the
+                   main-path shapes also in the encoders' own layout, which
+                   the kernels line reports), B3 against the bf16 F.linear
+                   it replaces, the int8 against the bf16 e5 encoder, the
+                   bf16 e5 encoder padded and packed on a log-normal ingest
+                   batch, ViT-L/14 images per second on the kernel and twin
+                   paths, add throughput and search latency (information
+                   only)
 
 then the card's name and power limit as nvidia-smi gives them, a
 {"kernels": [...]} line, and as the last line
@@ -78,8 +89,16 @@ B1_SOURCE = "marqo_tpu_torch/csrc/masked_attention.cu"
 B1_REPLACES = "marqo_tpu/ops/flash_attention.py:36"
 B2_SOURCE = "marqo_tpu_torch/csrc/fused_attention.cu"
 B2_REPLACES = "marqo_tpu/ops/fused_attention.py:102"
-# as tests/test_flash_attention.py:39 and tests/test_fused_attention.py:87
-ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# The attention kernels against their twins: |out - ref| <= ATOL + RTOL
+# |ref| elementwise. fp32: 1e-5 (tests/test_flash_attention.py:39). bf16:
+# both sides round P and the output to bf16 (2^-8 relative), so the bound is
+# a share of |ref| plus a floor for outputs that cancel; on attention_inputs
+# a correct kernel stays well inside it, and a 10% error in the softmax
+# scale lies far outside it (SCALE_CONTROL checks that on every bf16 case).
+ATOL = {"float32": 1e-5, "bfloat16": 4e-3}
+RTOL = {"float32": 0.0, "bfloat16": 1e-2}
+# the wrong softmax scale the bf16 tolerance must refuse
+SCALE_CONTROL = 0.9
 E5_BASE = {"vocab_size": 30522, "hidden_size": 768, "num_layers": 12,
            "num_heads": 12, "intermediate_size": 3072}
 # ViT-L/14 (bench.py:209-213, BASELINE config 3)
@@ -89,6 +108,9 @@ VIT_L14_TEXT = {"vocab_size": 49408, "hidden_size": 768, "num_layers": 12,
 VIT_L14_VISION = {"image_size": 224, "patch_size": 14, "hidden_size": 1024,
                   "num_layers": 24, "num_heads": 16, "intermediate_size": 4096,
                   "projection_dim": 768}
+# B1's checks, (S, B, D): the encoder's head dim 64 at S 16/128/512, and
+# the cross-encoder's (MiniLM-L-6) head dim 32
+B1_CASES = ((16, 32, 64), (128, 32, 64), (512, 8, 64), (128, 32, 32))
 # B2's checks, (B, N, S, D, modes): every mode at batch 4 over the ViT
 # towers' (tokens, head dim), B/32, L/14, L/14@336, and the open_clip H
 # (80), H-14-378 (730 tokens) and bigG (104) head dims; then the shapes the
@@ -192,12 +214,37 @@ def bound(bytes_moved: float, operations: float, peak_ops: float) -> dict:
             "bound_by": "bytes" if memory_ms >= compute_ms else "operations"}
 
 
-def attention_bound(B, N, S, D, mask_ints: int) -> dict:
-    """q, k, v read and the output written once in bf16, plus the int32
-    mask or ids; Q.K^T and P.V at 2 operations per multiply-add, on the
-    bf16 tensor-core peak."""
-    return bound(4 * B * N * S * D * 2 + 4 * mask_ints, 4 * B * N * S * S * D,
-                 PEAK_BF16_FLOPS)
+def attention_bound(B, N, S, D, mode: str, ids=None) -> dict:
+    """What this run's mask needs, in bf16: q read and the output written in
+    full; K and V of the keys some query may attend to, and V of every key
+    of a batch row holding a query that may attend to none (its output is
+    the uniform mean of V); the int32 mask or ids read once. Q.K^T over the
+    allowed (query, key) pairs and P.V over those and over every key of a
+    query that sees none, at 2 operations per multiply-add, on the bf16
+    tensor-core peak. ``mode``: "nomask", "padding" and "segment" (B1's
+    modes), or "fused_segment" (B2's, where id 0 is a segment too)."""
+    import torch
+    if ids is None:
+        k_keys = v_keys = B * S
+        qk_pairs, blind_queries = B * S * S, 0
+    else:
+        ids = ids.cpu().long()
+        if mode == "padding":
+            allowed = (ids > 0)[:, None, :].expand(B, S, S)
+        elif mode == "segment":
+            allowed = ((ids[:, :, None] == ids[:, None, :]) &
+                       (ids[:, None, :] > 0))
+        else:
+            allowed = ids[:, :, None] == ids[:, None, :]
+        seen = allowed.any(1)     # (B, S) keys some query attends to
+        blind = ~allowed.any(2)   # (B, S) queries that attend to none
+        k_keys = int(seen.sum())
+        v_keys = int(torch.where(blind.any(1), S, seen.sum(1)).sum())
+        qk_pairs, blind_queries = int(allowed.sum()), int(blind.sum())
+    bytes_moved = (2 * B * S + k_keys + v_keys) * N * D * 2 + (
+        0 if ids is None else 4 * B * S)
+    operations = 2 * N * D * (2 * qk_pairs + blind_queries * S)
+    return bound(bytes_moved, operations, PEAK_BF16_FLOPS)
 
 
 def w8a8_bound(M, K, N) -> dict:
@@ -236,17 +283,19 @@ def count_delta(before: dict, after: dict) -> dict:
 # --- inputs ------------------------------------------------------------------
 
 def attention_inputs(B, N, S, D, dtype, seed):
-    """Inputs for both attention kernels, on the card: q, k, v (B, N, S, D)
-    ~ 0.3*N(0, 1) (tests/test_fused_attention.py's scale); a padding mask
-    whose first rows are full, 1-token, half and all-pad; packed segment
-    ids with several documents per row, a pad tail of 0 (pad queries) and
-    an all-pad last row."""
+    """Inputs for both attention kernels, on the card: q, k (B, N, S, D)
+    ~ N(0, 1), so the scores have unit variance and the softmax is peaked
+    (a wrong scale or a wrong key moves the output), and v ~ 0.3*N(0, 1)
+    (tests/test_fused_attention.py's scale); a padding mask whose first
+    rows are full, 1-token, half and all-pad; packed segment ids with
+    several documents per row, a pad tail of 0 (pad queries) and an
+    all-pad last row."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
-    q, k, v = (torch.from_numpy(0.3 * rng.standard_normal(
+    q, k, v = (torch.from_numpy(scale * rng.standard_normal(
         (B, N, S, D), dtype=np.float32)).to(DEVICE, dtype)
-        for _ in range(3))
+        for scale in (1.0, 1.0, 0.3))
     lengths = rng.integers(1, S + 1, B)
     first = (S, 1, S // 2, 0)[:B]
     lengths[:len(first)] = first
@@ -260,6 +309,34 @@ def attention_inputs(B, N, S, D, dtype, seed):
             pos, sid = pos + n, sid + 1
     return (q, k, v, torch.from_numpy(pad).to(DEVICE),
             torch.from_numpy(seg).to(DEVICE))
+
+
+PROJECTION_LAYOUTS = ("projection", "fused_qkv")
+
+
+def projection_views(q, k, v, layout):
+    """q, k, v (B, N, S, D) with the same values, laid out as the encoders
+    hand them to the kernels: "projection", views x.view(B, S, N,
+    D).transpose(1, 2) of one (B, S, N*D) tensor each (BERT, CLIP);
+    "fused_qkv", chunks of one (B, S, 3*N*D) tensor (Stella's fused qkv
+    projection)."""
+    import torch
+    B, N, S, D = q.shape
+    if layout == "projection":
+        views = [torch.empty(B, S, N * D, dtype=t.dtype, device=t.device)
+                 .view(B, S, N, D).transpose(1, 2) for t in (q, k, v)]
+    else:
+        fused = torch.empty(B, S, 3 * N * D, dtype=q.dtype, device=q.device)
+        views = [c.reshape(B, S, N, D).transpose(1, 2)
+                 for c in fused.chunk(3, dim=-1)]
+    for view, t in zip(views, (q, k, v)):
+        view.copy_(t)
+    return views
+
+
+def is_projection_layout(out) -> bool:
+    """out is a (B, N, S, D) view of a dense (B, S, N, D) tensor."""
+    return out.transpose(1, 2).is_contiguous()
 
 
 def w8a8_inputs(M, K, N, dtype, seed):
@@ -303,6 +380,34 @@ def w8a8_error(out, ref) -> float:
     return float(diff.max() / ref.float().abs().max().clamp_min(1e-30))
 
 
+def attention_excess(out, ref) -> float:
+    """The largest |out - ref| - RTOL |ref| over the elements: the attention
+    kernels' output is within tolerance of its twin's iff this is at most
+    ATOL of their dtype."""
+    dname = str(out.dtype).split(".")[-1]
+    ref = ref.float()
+    return float(((out.float() - ref).abs() - RTOL[dname] * ref.abs()).max())
+
+
+def check_attention(out, ref, control, label: str) -> dict:
+    """Hold an attention kernel's output against its twin's ``ref``; in
+    bf16, ``control`` (the twin with the softmax scale off by
+    SCALE_CONTROL, or None where no row can show it) must fail the same
+    tolerance, or the check could not see such a fault. Returns the largest
+    absolute error, the excess and the control's excess (None if none)."""
+    dname = str(out.dtype).split(".")[-1]
+    excess = attention_excess(out, ref)
+    check(excess <= ATOL[dname], f"{label}: |out - ref| exceeds {ATOL[dname]} "
+          f"+ {RTOL[dname]} |ref| by {excess - ATOL[dname]}")
+    missed = None
+    if control is not None and dname == "bfloat16":
+        missed = attention_excess(control, ref)
+        check(missed > ATOL[dname], f"{label}: the bf16 tolerance passes a "
+              f"softmax scale off by {SCALE_CONTROL} (excess {missed})")
+    return {"max_abs_err": float((out.float() - ref.float()).abs().max()),
+            "excess": excess, "control_excess": missed}
+
+
 def write_images(directory: str, n: int, seed: int) -> list:
     """PNG files from a numpy seed: a colour field under a gradient and
     noise, 160x120 to 640x480, both orientations."""
@@ -331,33 +436,47 @@ def min_cos(a, b) -> float:
 
 # --- phases ------------------------------------------------------------------
 
+def layouts(q, k, v, names=("contiguous",) + PROJECTION_LAYOUTS):
+    """(name, q, k, v) for each layout named: "contiguous", the inputs as
+    they are; the others, the same values in that projection layout."""
+    for name in names:
+        yield ((name, q, k, v) if name == "contiguous" else
+               (name, *projection_views(q, k, v, name)))
+
+
 def phase_kernel(fa, torch):
     errors = {"padding": 0.0, "segment": 0.0}
     results = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        for S, B in ((16, 32), (128, 32), (512, 8)):
-            q, k, v, pad, seg = attention_inputs(B, 12, S, 64, dtype, seed=S)
-            for mode, mask, kernel, plain in (
-                    ("padding", pad, fa.attention_padding,
-                     fa.attention_padding_reference),
-                    ("segment", seg, fa.attention_segment,
-                     fa.attention_segment_reference)):
-                out = kernel(q, k, v, mask)
-                torch.cuda.synchronize()
-                ref = plain(q, k, v, mask)
-                check(out.dtype == dtype and out.shape == q.shape,
-                      f"kernel output {out.dtype} {tuple(out.shape)}")
-                check(bool(torch.isfinite(out).all()),
-                      f"non-finite kernel output ({mode}, {dname}, S={S})")
-                err = float((out.float() - ref.float()).abs().max())
-                results.append({"mode": mode, "dtype": dname, "shape":
-                                [B, 12, S, 64], "max_abs_err": err})
-                check(err <= ATOL[dname],
-                      f"kernel vs twin ({mode}, {dname}, S={S}): max abs "
-                      f"err {err} > {ATOL[dname]}")
-                errors[mode] = max(errors[mode], err)
-    emit("kernel", ok=True, atol=ATOL, results=results)
+        for S, B, D in B1_CASES:
+            shape = [B, 12, S, D]
+            q, k, v, pad, seg = attention_inputs(B, 12, S, D, dtype, seed=S)
+            for layout, q, k, v in layouts(q, k, v):
+                for mode, mask, kernel, plain in (
+                        ("padding", pad, fa.attention_padding,
+                         fa.attention_padding_reference),
+                        ("segment", seg, fa.attention_segment,
+                         fa.attention_segment_reference)):
+                    out = kernel(q, k, v, mask)
+                    torch.cuda.synchronize()
+                    ref = plain(q, k, v, mask)
+                    check(out.dtype == dtype and out.shape == q.shape and
+                          is_projection_layout(out),
+                          f"kernel output {out.dtype} {tuple(out.shape)} "
+                          f"strides {out.stride()}")
+                    label = (f"kernel vs twin ({mode}, {dname}, {shape}, "
+                             f"{layout})")
+                    check(bool(torch.isfinite(out).all()),
+                          f"non-finite output: {label}")
+                    result = check_attention(out, ref, plain(
+                        q * SCALE_CONTROL, k, v, mask), label)
+                    results.append({"mode": mode, "dtype": dname,
+                                    "shape": shape, "layout": layout,
+                                    **result})
+                    errors[mode] = max(errors[mode], result["max_abs_err"])
+    emit("kernel", ok=True, atol=ATOL, rtol=RTOL, checks=len(results),
+         results=results)
     return errors
 
 
@@ -372,24 +491,30 @@ def phase_fused_kernel(fused, torch):
                                                  seed=B * S * D)
             masks = {"nomask": {}, "pad_mask": {"pad_mask": pad},
                      "segment_ids": {"segment_ids": seg}}
-            for name in names:
-                mask = masks[name]
-                mode = "segment" if mask else "nomask"
-                out = fused.fused_attention(q, k, v, **mask)
-                torch.cuda.synchronize()
-                ref = fused.fused_attention_reference(q, k, v, **mask)
-                check(out.dtype == dtype and out.shape == q.shape,
-                      f"fused output {out.dtype} {tuple(out.shape)}")
-                check(bool(torch.isfinite(out).all()),
-                      f"non-finite fused output ({name}, {dname}, {shape})")
-                err = float((out.float() - ref.float()).abs().max())
-                results.append({"mode": name, "dtype": dname,
-                                "shape": shape, "max_abs_err": err})
-                check(err <= ATOL[dname],
-                      f"fused kernel vs twin ({name}, {dname}, {shape}): "
-                      f"max abs err {err} > {ATOL[dname]}")
-                errors[mode] = max(errors[mode], err)
-    emit("fused_kernel", ok=True, atol=ATOL, results=results)
+            for layout, q, k, v in layouts(q, k, v):
+                for name in names:
+                    mask = masks[name]
+                    mode = "segment" if mask else "nomask"
+                    out = fused.fused_attention(q, k, v, **mask)
+                    torch.cuda.synchronize()
+                    ref = fused.fused_attention_reference(q, k, v, **mask)
+                    check(out.dtype == dtype and out.shape == q.shape and
+                          is_projection_layout(out),
+                          f"fused output {out.dtype} {tuple(out.shape)} "
+                          f"strides {out.stride()}")
+                    label = (f"fused kernel vs twin ({name}, {dname}, "
+                             f"{shape}, {layout})")
+                    check(bool(torch.isfinite(out).all()),
+                          f"non-finite output: {label}")
+                    result = check_attention(
+                        out, ref, fused.fused_attention_reference(
+                            q * SCALE_CONTROL, k, v, **mask), label)
+                    results.append({"mode": name, "dtype": dname,
+                                    "shape": shape, "layout": layout,
+                                    **result})
+                    errors[mode] = max(errors[mode], result["max_abs_err"])
+    emit("fused_kernel", ok=True, atol=ATOL, rtol=RTOL, checks=len(results),
+         results=results)
     return errors
 
 
@@ -1017,40 +1142,54 @@ def phase_timing(fa, fused, qm, torch, clip_model, pixels, int8_encoder,
     from marqo_tpu_torch.models.bert import encode_tokens
     from marqo_tpu_torch.models.clip import encode_clip_image
     rows = []
+    # each attention row in the contiguous (B, N, S, D) layout that earlier
+    # runs timed, and at the main-path shapes also in the encoders' own
+    # layout (views of the (B, S, N*D) projection outputs); SDPA takes the
+    # same tensors
     for B, S in ((256, 128), (1, 32)):
         q, k, v, pad, seg = attention_inputs(B, 12, S, 64, torch.bfloat16,
                                              seed=B)
-        for mode, mask, kernel, plain, allowed in (
-                ("padding", pad, fa.attention_padding,
-                 fa.attention_padding_reference,
-                 (pad > 0)[:, None, None, :]),
-                ("segment", seg, fa.attention_segment,
-                 fa.attention_segment_reference,
-                 ((seg[:, :, None] == seg[:, None, :]) &
-                  (seg[:, None, :] > 0))[:, None])):
-            iters = 20 if B > 1 else 200
-            rows.append({"kernel": "masked_attention", "mode": mode,
-                         "shape": [B, 12, S, 64], "dtype": "bfloat16",
-                         **paired_ms(lambda: kernel(q, k, v, mask),
-                                     lambda: plain(q, k, v, mask), iters),
-                         "library_ms": cuda_ms(_sdpa(torch, q, k, v, allowed),
-                                               iters)})
+        for layout, q, k, v in layouts(q, k, v, ("contiguous", "projection")
+                                         if B > 1 else ("contiguous",)):
+            for mode, mask, kernel, plain, allowed in (
+                    ("padding", pad, fa.attention_padding,
+                     fa.attention_padding_reference,
+                     (pad > 0)[:, None, None, :]),
+                    ("segment", seg, fa.attention_segment,
+                     fa.attention_segment_reference,
+                     ((seg[:, :, None] == seg[:, None, :]) &
+                      (seg[:, None, :] > 0))[:, None])):
+                iters = 20 if B > 1 else 200
+                rows.append({"kernel": "masked_attention", "mode": mode,
+                             "shape": [B, 12, S, 64], "layout": layout,
+                             "dtype": "bfloat16",
+                             **attention_bound(B, 12, S, 64, mode, mask),
+                             **paired_ms(lambda: kernel(q, k, v, mask),
+                                         lambda: plain(q, k, v, mask), iters),
+                             "library_ms": cuda_ms(
+                                 _sdpa(torch, q, k, v, allowed), iters)})
     for B, N, S in ((16, 16, 257), (1, 16, 257), (256, 12, 128)):
         q, k, v, _, seg = attention_inputs(B, N, S, 64, torch.bfloat16,
                                            seed=B)
-        for mode, mask, allowed in (
-                ("nomask", {}, None),
-                ("segment", {"segment_ids": seg},
-                 (seg[:, :, None] == seg[:, None, :])[:, None])):
-            iters = 20 if B > 1 else 200
-            rows.append({"kernel": "fused_attention", "mode": mode,
-                         "shape": [B, N, S, 64], "dtype": "bfloat16",
-                         **paired_ms(
-                             lambda: fused.fused_attention(q, k, v, **mask),
-                             lambda: fused.fused_attention_reference(
-                                 q, k, v, **mask), iters),
-                         "library_ms": cuda_ms(_sdpa(torch, q, k, v, allowed),
-                                               iters)})
+        for layout, q, k, v in layouts(q, k, v, ("contiguous", "projection")
+                                         if B > 1 else ("contiguous",)):
+            for mode, mask, allowed in (
+                    ("nomask", {}, None),
+                    ("segment", {"segment_ids": seg},
+                     (seg[:, :, None] == seg[:, None, :])[:, None])):
+                iters = 20 if B > 1 else 200
+                rows.append({"kernel": "fused_attention", "mode": mode,
+                             "shape": [B, N, S, 64], "layout": layout,
+                             "dtype": "bfloat16",
+                             **attention_bound(B, N, S, 64, "fused_" + mode,
+                                               mask.get("segment_ids")),
+                             **paired_ms(
+                                 lambda: fused.fused_attention(q, k, v,
+                                                               **mask),
+                                 lambda: fused.fused_attention_reference(
+                                     q, k, v, **mask), iters),
+                             "library_ms": cuda_ms(
+                                 _sdpa(torch, q, k, v, allowed), iters)})
     # B3 at the padded ingest batch's three linear shapes and at a batch-1
     # query; beside it the bf16 F.linear that the int8 path replaces, and
     # the library yardstick (and torch._int_mm alone)
@@ -1102,9 +1241,45 @@ def phase_timing(fa, fused, qm, torch, clip_model, pixels, int8_encoder,
         return run
 
     enc = paired_ms(encode(int8_encoder), encode(bf16_encoder), 5)
+    # the bf16 encoder on a realistic ingest batch: 256 documents of
+    # log-normal lengths around 60 tokens in the 128 bucket
+    # (scripts/profile_torch_encoder.py's batch), padded and packed
+    import numpy as np
+
+    from marqo_tpu_torch.models.bert import encode_tokens_packed
+    from marqo_tpu_torch.ops.packing import pack_sequences
+    rng = np.random.default_rng(0)
+    lengths = np.clip(rng.lognormal(np.log(60), 0.5, 256), 4, 128).astype(int)
+    mixed = rng.integers(5, E5_BASE["vocab_size"], (256, 128)).astype(
+        np.int32)
+    mixed_mask = (np.arange(128)[None] < lengths[:, None]).astype(np.int32)
+    mixed *= mixed_mask
+    packed = pack_sequences([mixed[i, :lengths[i]] for i in range(256)],
+                            seq_len=128, pad_id=0)
+    on = {name: torch.from_numpy(getattr(packed, name)).to(DEVICE)
+          for name in ("input_ids", "segment_ids", "positions", "seq_index")}
+    mixed, mixed_mask = (torch.from_numpy(a).to(DEVICE)
+                         for a in (mixed, mixed_mask))
+
+    def padded_mixed():
+        with torch.inference_mode():
+            encode_tokens(bf16_encoder, mixed, mixed_mask)
+
+    def packed_mixed():
+        with torch.inference_mode():
+            encode_tokens_packed(bf16_encoder, on["input_ids"],
+                                 on["segment_ids"], on["positions"],
+                                 on["seq_index"], packed.n_sequences)
+
+    mix = paired_ms(packed_mixed, padded_mixed, 5)
     encoder_row = {"batch": [256, 128], "int8_ms": enc["ms"],
                    "bf16_ms": enc["plain_ms"], "int8_ms_runs": enc["ms_runs"],
-                   "bf16_ms_runs": enc["plain_ms_runs"]}
+                   "bf16_ms_runs": enc["plain_ms_runs"],
+                   "bf16_lognormal_padded_ms": mix["plain_ms"],
+                   "bf16_lognormal_packed_ms": mix["ms"],
+                   "bf16_lognormal_padded_ms_runs": mix["plain_ms_runs"],
+                   "bf16_lognormal_packed_ms_runs": mix["ms_runs"],
+                   "packed_rows": int(packed.input_ids.shape[0])}
     return rows, vit_row, encoder_row
 
 
@@ -1186,35 +1361,40 @@ def main() -> int:
          search_median_ms=statistics.median(latencies), search_ms=latencies,
          note="information only")
 
-    def timed(kernel, mode, shape):
+    def timed(kernel, mode, shape, layout="projection"):
+        """The row of the layout the main path hands the kernel: the
+        projections' views for attention (B3 has one layout)."""
         return next(row for row in timing if row["kernel"] == kernel and
-                    row["mode"] == mode and row["shape"] == shape)
+                    row["mode"] == mode and row["shape"] == shape and
+                    row.get("layout", layout) == layout)
 
     def entry(name, source, replaces, launches, max_abs_err, row, bounds):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max_abs_err, "ms": row["ms"],
-                "plain_ms": row["plain_ms"], **bounds,
+                "plain_ms": row["plain_ms"], "bound_ms": bounds["bound_ms"],
+                "bound_by": bounds["bound_by"],
                 "library_ms": row["library_ms"]}
 
+    # the attention rows carry the bound of their own inputs' mask
     B, N, S, D = 256, 12, 128, 64
-    kernels = [entry(f"masked_attention_{mode}", B1_SOURCE, B1_REPLACES,
-                     serve["launches"][f"masked_attention_{mode}"],
-                     errors[mode], timed("masked_attention", mode,
-                                         [B, N, S, D]),
-                     attention_bound(B, N, S, D, B * S))
-               for mode in ("padding", "segment")]
+    kernels = []
+    for mode in ("padding", "segment"):
+        row = timed("masked_attention", mode, [B, N, S, D])
+        kernels.append(entry(f"masked_attention_{mode}", B1_SOURCE,
+                             B1_REPLACES,
+                             serve["launches"][f"masked_attention_{mode}"],
+                             errors[mode], row, row))
     # B2's no-mask mode at the ViT-L/14 shape, launched by the CLIP serve
     # path; its segment mode at the encoder's ingest shape, launched by the
     # encoder's "flash" path
-    for mode, shape, counts, ids in (
-            ("nomask", [16, 16, 257, 64], clip_launches, 0),
-            ("segment", [B, N, S, D], encoder_launches, B * S)):
+    for mode, shape, counts in (
+            ("nomask", [16, 16, 257, 64], clip_launches),
+            ("segment", [B, N, S, D], encoder_launches)):
+        row = timed("fused_attention", mode, shape)
         kernels.append(entry(
             f"fused_attention_{mode}", B2_SOURCE, B2_REPLACES,
-            counts[f"fused_attention_{mode}"], fused_errors[mode],
-            timed("fused_attention", mode, shape),
-            attention_bound(*shape, ids)))
+            counts[f"fused_attention_{mode}"], fused_errors[mode], row, row))
     # B3 at the padded ingest batch's FFN shape, launched by the int8 serve
     # path
     kernels.append(entry(

@@ -14,31 +14,40 @@
 // every output row is defined; disallowed scores get -1e9 and keys past the
 // ragged edge of S get -inf.
 //
-// What bounds it on this card: the TPU kernel tiles S by up to 512 and
-// holds (512, 512) fp32 score blocks in VMEM; a Hopper block has 227 KB of
-// shared memory. The tile loop of attention_tile.cuh owns a 64-row query
-// tile per block and walks 64-key tiles, so any S fits (577 for
-// ViT-L/14@336, 730 for ViT-H-14-378) and the last tile masks its own
-// ragged edge, with no padding of the token axis. Head dims are any
-// multiple of 8 up to 128 (64 for the B and L towers; 80, 88 and 104 for the
-// open_clip H, g and bigG towers): shared memory grows with D to 113 KB at
-// D = 128. The arithmetic is plain fp32 FMA from shared memory (no tensor
-// cores yet), so at ViT shapes the kernel is bound by shared-memory
-// bandwidth and the FMA issue rate, not by device memory.
+// What bounds it on this card: at the ViT-L/14 shape ((16, 16, 257, 64),
+// bf16) the bytes, 0.010 ms, against 0.004 ms of tensor-core operations. The
+// TPU kernel tiles S by up to 512 and holds (512, 512) fp32 score blocks in
+// VMEM; a Hopper block has 227 KB of shared memory. The tile loop of
+// attention_tile.cuh owns a 64-row query tile per block and walks 64-key
+// tiles, so any S fits (577 for ViT-L/14@336, 730 for ViT-H-14-378); bf16
+// runs mma.sync on the tensor cores fed by a double-buffered cp.async ring.
+// Work follows S: query warps past S do no math and the last key tile
+// computes only the 8-key fragments inside S (at 257 tokens, 272 x 264
+// scores where 64-row tiles computed 320 x 320). In segment mode key tiles
+// holding no id of the block's queries are skipped. Head dims are any
+// multiple of 8 up to 128 (64 for the B and L towers; 80, 88 and 104 for
+// the open_clip H, g and bigG towers), on eight instances of the head dim
+// padded to a multiple of 16. q, k and v are read in the projections'
+// (B, S, N, D) layout through strides. The fp32 instances keep the exact
+// FMA loop.
 
 #include "attention_tile.cuh"
 
 namespace {
 
 using marqo_attention::launch_attention;
+using marqo_attention::Operands;
+using marqo_attention::Skip;
 
 struct NoMask {
   static constexpr bool kUsesIds = false;
+  static constexpr Skip kSkip = Skip::kNone;
   static __device__ __forceinline__ bool allowed(int, int) { return true; }
 };
 
 struct SegmentMask {
   static constexpr bool kUsesIds = true;
+  static constexpr Skip kSkip = Skip::kSegment;
   static __device__ __forceinline__ bool allowed(int query, int key) {
     return key == query;
   }
@@ -46,50 +55,61 @@ struct SegmentMask {
 
 constexpr int kMaxHeadDim = 128;
 
-template <typename T, typename Mask, int D = 8>
+// the instance whose padded head dim DP covers head_dim (DP - 16 < D <= DP)
+template <typename T, typename Mask, int DP = 16>
 cudaError_t launch_head_dim(int head_dim, const void* q, const void* k,
                             const void* v, const void* ids, void* out,
-                            int batch, int heads, int seq_len, float scale,
-                            cudaStream_t stream) {
-  if (head_dim == D)
-    return launch_attention<T, D, Mask>(q, k, v, ids, out, batch, heads,
-                                        seq_len, scale, stream);
-  if constexpr (D < kMaxHeadDim)
-    return launch_head_dim<T, Mask, D + 8>(head_dim, q, k, v, ids, out, batch,
-                                           heads, seq_len, scale, stream);
+                            const Operands& strides, int batch, int heads,
+                            int seq_len, float scale, cudaStream_t stream) {
+  if (head_dim <= DP)
+    return launch_attention<T, DP, Mask>(q, k, v, ids, out, strides, batch,
+                                         heads, seq_len, head_dim, scale,
+                                         stream);
+  if constexpr (DP < kMaxHeadDim)
+    return launch_head_dim<T, Mask, DP + 16>(head_dim, q, k, v, ids, out,
+                                             strides, batch, heads, seq_len,
+                                             scale, stream);
   return cudaErrorInvalidValue;
 }
 
 template <typename T>
 cudaError_t launch_mode(const void* q, const void* k, const void* v,
-                        const void* segment_ids, void* out, int batch,
-                        int heads, int seq_len, int head_dim, float scale,
+                        const void* segment_ids, void* out,
+                        const Operands& strides, int batch, int heads,
+                        int seq_len, int head_dim, float scale,
                         cudaStream_t stream) {
   return segment_ids
              ? launch_head_dim<T, SegmentMask>(head_dim, q, k, v, segment_ids,
-                                               out, batch, heads, seq_len,
-                                               scale, stream)
+                                               out, strides, batch, heads,
+                                               seq_len, scale, stream)
              : launch_head_dim<T, NoMask>(head_dim, q, k, v, nullptr, out,
-                                          batch, heads, seq_len, scale,
-                                          stream);
+                                          strides, batch, heads, seq_len,
+                                          scale, stream);
 }
 
 }  // namespace
 
-// q, k, v, out: (batch, heads, seq_len, head_dim), contiguous, fp32 or bf16
-// (bf16 != 0), head_dim a multiple of 8 up to 128; segment_ids: (batch,
-// seq_len) int32, or null for no mask. Returns the cudaError_t of the launch
-// (0 on success); the kernel runs asynchronously on `stream`.
+// q, k, v, out: (batch, heads, seq_len, head_dim), fp32 or bf16 (bf16 !=
+// 0), head_dim a multiple of 8 up to 128, given by `strides`: 12 element
+// strides, the batch, head and token strides of q, k, v and out in that
+// order (the last axis has stride 1; strides are multiples of 8 and
+// pointers 16-byte aligned). segment_ids: (batch, seq_len) int32,
+// contiguous, or null for no mask. Returns the cudaError_t of the launch (0
+// on success); the kernel runs asynchronously on `stream`.
 extern "C" int marqo_fused_attention(const void* q, const void* k,
                                      const void* v, const void* segment_ids,
                                      void* out, int batch, int heads,
                                      int seq_len, int head_dim, int bf16,
-                                     float scale, void* stream) {
+                                     float scale, const long long* strides,
+                                     void* stream) {
+  if (head_dim < 8 || head_dim > kMaxHeadDim || head_dim % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Operands st = marqo_attention::make_operands(strides);
   const cudaError_t err =
-      bf16 ? launch_mode<__nv_bfloat16>(q, k, v, segment_ids, out, batch,
+      bf16 ? launch_mode<__nv_bfloat16>(q, k, v, segment_ids, out, st, batch,
                                         heads, seq_len, head_dim, scale, s)
-           : launch_mode<float>(q, k, v, segment_ids, out, batch, heads,
+           : launch_mode<float>(q, k, v, segment_ids, out, st, batch, heads,
                                 seq_len, head_dim, scale, s);
   return static_cast<int>(err);
 }

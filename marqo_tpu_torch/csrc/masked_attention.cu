@@ -8,27 +8,36 @@
 //   padding: key j is allowed iff mask[j] > 0
 //   segment: key j is allowed iff seg[i] == seg[j] and seg[j] > 0
 // Disallowed scores are the finite -1e9, as in the TPU kernel, so a fully
-// masked row (a pad query in segment mode) comes out as the uniform mean of
-// V over all S keys, never NaN.
+// masked row (a pad query in segment mode, every row of an all-pad batch
+// row) comes out as the uniform mean of V over all S keys, never NaN.
 //
-// What bounds it on this card: the TPU kernel gave one program the whole
-// S x S score tile, which at S = 512 in fp32 is 1 MB, far over the 227 KB of
+// What bounds it on this card: at the encoder's shapes ((256, 12, 128, 64),
+// bf16) the bytes: at most 0.060 ms to read q, k, v and write the output
+// once (less where padding leaves keys unread), against 0.013 ms of
+// tensor-core operations. The TPU kernel gave one program the whole S x S
+// score tile, which at S = 512 in fp32 is 1 MB, far over the 227 KB of
 // shared memory a block may use. The tile loop of attention_tile.cuh owns a
 // 64-row query tile per block and walks 64-key tiles with an online
-// softmax, so shared memory is 68 KB at D = 64 whatever S is. Masked tiles
-// are not skipped: computing -1e9 scores keeps the uniform-row result of
-// the TPU kernel exact with no special case. Arithmetic is plain fp32 FMA
-// from shared memory (no tensor cores yet), so at the encoder's shapes the
-// kernel is bound by shared-memory bandwidth and FMA issue rate.
+// softmax: bf16 runs mma.sync on the tensor cores, fed by a double-buffered
+// cp.async ring, so the arithmetic fits under the memory floor. Key tiles
+// the mask rules out for the whole block are skipped (a padded batch of
+// short documents is about half padding) with results unchanged bit for
+// bit; an all-pad row or a block holding a pad query visits every tile,
+// which keeps the uniform-row result exact. q, k and v are read in the
+// projections' (B, S, N, D) layout through strides. The fp32 instances keep
+// the exact FMA loop.
 
 #include "attention_tile.cuh"
 
 namespace {
 
 using marqo_attention::launch_attention;
+using marqo_attention::Operands;
+using marqo_attention::Skip;
 
 struct PaddingMask {
   static constexpr bool kUsesIds = true;
+  static constexpr Skip kSkip = Skip::kPadding;
   static __device__ __forceinline__ bool allowed(int, int key) {
     return key > 0;
   }
@@ -36,44 +45,45 @@ struct PaddingMask {
 
 struct SegmentMask {
   static constexpr bool kUsesIds = true;
+  static constexpr Skip kSkip = Skip::kSegmentPositive;
   static __device__ __forceinline__ bool allowed(int query, int key) {
     return key > 0 && key == query;
   }
 };
 
-template <typename T, int D>
+template <typename T, int DP>
 cudaError_t launch_mode(const void* q, const void* k, const void* v,
-                        const void* mask, void* out, int batch, int heads,
-                        int seq_len, int segment, float scale,
-                        cudaStream_t stream) {
-  return segment ? launch_attention<T, D, SegmentMask>(
-                       q, k, v, mask, out, batch, heads, seq_len, scale, stream)
-                 : launch_attention<T, D, PaddingMask>(
-                       q, k, v, mask, out, batch, heads, seq_len, scale,
-                       stream);
+                        const void* mask, void* out, const Operands& strides,
+                        int batch, int heads, int seq_len, int head_dim,
+                        int segment, float scale, cudaStream_t stream) {
+  return segment ? launch_attention<T, DP, SegmentMask>(
+                       q, k, v, mask, out, strides, batch, heads, seq_len,
+                       head_dim, scale, stream)
+                 : launch_attention<T, DP, PaddingMask>(
+                       q, k, v, mask, out, strides, batch, heads, seq_len,
+                       head_dim, scale, stream);
 }
 
 template <typename T>
 cudaError_t launch_dtype(const void* q, const void* k, const void* v,
-                         const void* mask, void* out, int batch, int heads,
-                         int seq_len, int head_dim, int segment, float scale,
-                         cudaStream_t stream) {
+                         const void* mask, void* out, const Operands& strides,
+                         int batch, int heads, int seq_len, int head_dim,
+                         int segment, float scale, cudaStream_t stream) {
+  // the instance's head dim is D padded to a multiple of 16
   switch (head_dim) {
     case 8:
-      return launch_mode<T, 8>(q, k, v, mask, out, batch, heads, seq_len,
-                               segment, scale, stream);
     case 16:
-      return launch_mode<T, 16>(q, k, v, mask, out, batch, heads, seq_len,
-                                segment, scale, stream);
+      return launch_mode<T, 16>(q, k, v, mask, out, strides, batch, heads,
+                                seq_len, head_dim, segment, scale, stream);
     case 32:
-      return launch_mode<T, 32>(q, k, v, mask, out, batch, heads, seq_len,
-                                segment, scale, stream);
+      return launch_mode<T, 32>(q, k, v, mask, out, strides, batch, heads,
+                                seq_len, head_dim, segment, scale, stream);
     case 64:
-      return launch_mode<T, 64>(q, k, v, mask, out, batch, heads, seq_len,
-                                segment, scale, stream);
+      return launch_mode<T, 64>(q, k, v, mask, out, strides, batch, heads,
+                                seq_len, head_dim, segment, scale, stream);
     case 128:
-      return launch_mode<T, 128>(q, k, v, mask, out, batch, heads, seq_len,
-                                 segment, scale, stream);
+      return launch_mode<T, 128>(q, k, v, mask, out, strides, batch, heads,
+                                 seq_len, head_dim, segment, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -81,19 +91,26 @@ cudaError_t launch_dtype(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q, k, v, out: (batch, heads, seq_len, head_dim), contiguous, fp32 or bf16
-// (bf16 != 0); mask: (batch, seq_len) int32. Returns the cudaError_t of the
-// launch (0 on success); the kernel runs asynchronously on `stream`.
+// q, k, v, out: (batch, heads, seq_len, head_dim), fp32 or bf16 (bf16 !=
+// 0), given by `strides`: 12 element strides, the batch, head and token
+// strides of q, k, v and out in that order (the last axis has stride 1;
+// strides are multiples of 8 and pointers 16-byte aligned). mask: (batch,
+// seq_len) int32, contiguous. Returns the cudaError_t of the launch (0 on
+// success); the kernel runs asynchronously on `stream`.
 extern "C" int marqo_masked_attention(const void* q, const void* k,
                                       const void* v, const void* mask,
                                       void* out, int batch, int heads,
                                       int seq_len, int head_dim, int segment,
-                                      int bf16, float scale, void* stream) {
+                                      int bf16, float scale,
+                                      const long long* strides,
+                                      void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Operands st = marqo_attention::make_operands(strides);
   const cudaError_t err =
-      bf16 ? launch_dtype<__nv_bfloat16>(q, k, v, mask, out, batch, heads,
-                                         seq_len, head_dim, segment, scale, s)
-           : launch_dtype<float>(q, k, v, mask, out, batch, heads, seq_len,
-                                 head_dim, segment, scale, s);
+      bf16 ? launch_dtype<__nv_bfloat16>(q, k, v, mask, out, st, batch,
+                                         heads, seq_len, head_dim, segment,
+                                         scale, s)
+           : launch_dtype<float>(q, k, v, mask, out, st, batch, heads,
+                                 seq_len, head_dim, segment, scale, s);
   return static_cast<int>(err);
 }

@@ -165,7 +165,8 @@ class EncoderLayer(nn.Module):
             return module(t)
 
         def heads(t):
-            return t.view(B, S, N, D).transpose(1, 2).contiguous()
+            # a view: the kernels read the projection's layout by strides
+            return t.view(B, S, N, D).transpose(1, 2)
 
         q = heads(linear("query", x))
         k = heads(linear("key", x))

@@ -121,7 +121,8 @@ class PreNormBlock(nn.Module):
         h = layer_norm(x, self.ln1.weight, self.ln1.bias, self.eps)
 
         def heads(t):
-            return t.view(B, S, N, H // N).transpose(1, 2).contiguous()
+            # a view: the kernels read the projection's layout by strides
+            return t.view(B, S, N, H // N).transpose(1, 2)
 
         ctx = attend(heads(self.q(h)), heads(self.k(h)), heads(self.v(h)))
         x = x + self.o(ctx.transpose(1, 2).reshape(B, S, H))

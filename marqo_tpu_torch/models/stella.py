@@ -110,10 +110,11 @@ class StellaLayer(nn.Module):
         def heads(t):
             return t.reshape(B, S, N, D).transpose(1, 2)
 
+        # RoPE writes new q and k; v stays a view of the fused projection
         q, k, v = self.qkv(x).chunk(3, dim=-1)
-        q = apply_rope(heads(q), cos, sin).contiguous()
-        k = apply_rope(heads(k), cos, sin).contiguous()
-        ctx = flash_attention.attention_padding(q, k, heads(v).contiguous(),
+        q = apply_rope(heads(q), cos, sin)
+        k = apply_rope(heads(k), cos, sin)
+        ctx = flash_attention.attention_padding(q, k, heads(v),
                                                 attention_mask)
         ctx = ctx.transpose(1, 2).reshape(B, S, H)
         eps = config.layer_norm_eps

@@ -17,15 +17,22 @@ On Hopper the TPU kernel's one-program-per-(batch, head) design does not
 fit: its (S, S) fp32 score tile is 1 MB at S = 512, against 227 KB of
 shared memory per block. The CUDA kernel tiles queries by 64 and loops
 over 64-key tiles with an online softmax, so shared memory stays at the
-tile size and scores never reach device memory; it runs plain fp32 FMA
-from shared memory, which bounds it at these shapes (tensor cores are
-later work).
+tile size and scores never reach device memory. bf16 runs on the tensor
+cores (mma.sync, fed by a cp.async ring) and skips key tiles the mask
+rules out; fp32 keeps an exact FMA loop (csrc/attention_tile.cuh).
+
+Layout: q, k and v may be any (B, N, S, D) views whose last axis is
+contiguous, such as the projections' ``x.view(B, S, N, D).transpose(1,
+2)``; the kernel reads them through their strides and writes its output
+as a (B, N, S, D) view of a (B, S, N, D) tensor, so the caller's
+``ctx.transpose(1, 2).reshape(B, S, H)`` is a view, not a copy.
 
 Routing: a tensor on the CPU takes the plain twin; a tensor on a CUDA
 device launches the kernel or raises. ``LAUNCHES`` counts kernel
 launches per mode.
 """
 
+import ctypes
 import math
 import threading
 
@@ -61,10 +68,43 @@ def attention_segment(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _launch(q, k, v, segment_ids, "segment")
 
 
+def check_layout(name: str, q, k, v) -> None:
+    """Raise ValueError unless the attention kernels can read q, k, v as
+    they lie: the last axis contiguous (stride 1), the stride of every other
+    axis longer than 1 a multiple of 8 elements, and each data pointer
+    16-byte aligned (the kernels copy rows in 16-byte pieces)."""
+    for label, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: {label} must be contiguous in its "
+                             f"last axis, got strides {t.stride()}")
+        if any(size > 1 and stride % 8 for size, stride in
+               zip(t.shape[:-1], t.stride()[:-1])):
+            raise ValueError(f"{name}: {label}'s strides {t.stride()} must "
+                             f"be multiples of 8 elements")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {label} must be 16-byte aligned")
+
+
+def kernel_output(q) -> torch.Tensor:
+    """The kernels' output for q's (B, N, S, D) shape: a (B, N, S, D) view
+    of a new (B, S, N, D) tensor, the layout the next projection reads."""
+    B, N, S, D = q.shape
+    return torch.empty(B, S, N, D, dtype=q.dtype,
+                       device=q.device).transpose(1, 2)
+
+
+def kernel_strides(q, k, v, out):
+    """The C entry points' strides: a host array of the batch, head and
+    token element strides of q, k, v and out, in that order."""
+    values = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(values))(*values)
+
+
 def check_kernel_inputs(q, k, v, mask) -> None:
     """Raise ValueError unless the kernel takes these tensors (device
-    aside): fp32/bf16 q, k, v of one contiguous (B, N, S, D) shape with
-    S <= MAX_SEQ_LEN and D in HEAD_DIMS, and a (B, S) mask."""
+    aside): fp32/bf16 q, k, v of one (B, N, S, D) shape with S <=
+    MAX_SEQ_LEN and D in HEAD_DIMS, laid out as ``check_layout`` asks, and
+    a (B, S) mask."""
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"masked attention: q, k, v must all be fp32 or "
                          f"bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -79,8 +119,7 @@ def check_kernel_inputs(q, k, v, mask) -> None:
     if S > MAX_SEQ_LEN or D not in HEAD_DIMS:
         raise ValueError(f"masked attention: S={S} (max {MAX_SEQ_LEN}), "
                          f"D={D} (one of {HEAD_DIMS}) not supported")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("masked attention: q, k, v must be contiguous")
+    check_layout("masked attention", q, k, v)
 
 
 def _launch(q, k, v, mask, mode: str) -> torch.Tensor:
@@ -91,7 +130,7 @@ def _launch(q, k, v, mask, mode: str) -> torch.Tensor:
                          "device")
     check_kernel_inputs(q, k, v, mask)
     mask = mask.to(torch.int32).contiguous()
-    out = torch.empty_like(q)
+    out = kernel_output(q)
     if out.numel() == 0:
         return out
     B, N, S, D = q.shape
@@ -101,6 +140,7 @@ def _launch(q, k, v, mask, mode: str) -> torch.Tensor:
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
             out.data_ptr(), B, N, S, D, int(mode == "segment"),
             int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(D),
+            kernel_strides(q, k, v, out),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"masked attention kernel launch failed: CUDA "

@@ -14,6 +14,11 @@ q is unscaled: 1/sqrt(D) is applied inside, scores, softmax and the P.V
 accumulation run in fp32, and the output is in the input dtype. Every query
 sees at least its own key, so every output row is defined.
 
+Layout: as ops/flash_attention.py's kernel, q, k and v may be any
+(B, N, S, D) views with a contiguous last axis (the projections'
+``x.view(B, S, N, D).transpose(1, 2)``), and the output is a (B, N, S, D)
+view of a (B, S, N, D) tensor.
+
 Not ported: the ``interpret`` argument, ``supports()`` (its S % 128 rule is
 a TPU tiling limit; the CUDA kernel masks its own ragged edge) and
 ``flash_enabled()`` (the MARQO_TPU_FUSED_ATTENTION gate): on a CUDA device
@@ -31,7 +36,10 @@ from typing import Optional
 import torch
 
 from marqo_tpu_torch.ops import _build
-from marqo_tpu_torch.ops.flash_attention import softmax_attention
+from marqo_tpu_torch.ops.flash_attention import (check_layout,
+                                                 kernel_output,
+                                                 kernel_strides,
+                                                 softmax_attention)
 
 HEAD_DIMS = tuple(range(8, 129, 8))
 DTYPES = (torch.float32, torch.bfloat16)
@@ -64,8 +72,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def check_kernel_inputs(q, k, v, segment_ids=None) -> None:
     """Raise ValueError unless the kernel takes these tensors (device
-    aside): fp32/bf16 q, k, v of one contiguous (B, N, S, D) shape with
-    S >= 1 and D in HEAD_DIMS, and (B, S) segment ids if any."""
+    aside): fp32/bf16 q, k, v of one (B, N, S, D) shape with S >= 1 and D
+    in HEAD_DIMS, laid out as ``check_layout`` asks, and (B, S) segment ids
+    if any."""
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"fused attention: q, k, v must all be fp32 or "
                          f"bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -80,8 +89,7 @@ def check_kernel_inputs(q, k, v, segment_ids=None) -> None:
     if segment_ids is not None and tuple(segment_ids.shape) != (B, S):
         raise ValueError(f"fused attention: segment ids must be {(B, S)}, "
                          f"got {tuple(segment_ids.shape)}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("fused attention: q, k, v must be contiguous")
+    check_layout("fused attention", q, k, v)
 
 
 def _launch(q, k, v, ids) -> torch.Tensor:
@@ -94,7 +102,7 @@ def _launch(q, k, v, ids) -> torch.Tensor:
     check_kernel_inputs(q, k, v, ids)
     if ids is not None:
         ids = ids.to(torch.int32).contiguous()
-    out = torch.empty_like(q)
+    out = kernel_output(q)
     if out.numel() == 0:
         return out
     B, N, S, D = q.shape
@@ -104,6 +112,7 @@ def _launch(q, k, v, ids) -> torch.Tensor:
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if ids is None else ids.data_ptr(), out.data_ptr(),
             B, N, S, D, int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(D),
+            kernel_strides(q, k, v, out),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused attention kernel launch failed: CUDA "

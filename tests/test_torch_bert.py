@@ -347,3 +347,82 @@ def test_init_encoder_quantizes_when_asked():
     q, s = tbert.quantize_weight(float_encoder.layers[0].ffn_out.weight)
     assert torch.equal(layer.ffn_out.weight_q, q)
     assert torch.equal(layer.ffn_out.weight_scale, s)
+
+
+# --- the kernels read the projections' layout --------------------------------
+
+def _lies_in(view, base) -> bool:
+    """view's data lies inside base's storage (a view, not a copy)."""
+    start = base.untyped_storage().data_ptr()
+    end = start + base.untyped_storage().nbytes()
+    return (view.untyped_storage().data_ptr() == start and
+            start <= view.data_ptr() < end)
+
+
+def _spy(seen, result):
+    def attend(q, k, v, *mask):
+        seen.append((q, k, v))
+        return result(q, k, v, *mask)
+    return attend
+
+
+def _capture_outputs(modules):
+    outputs = {}
+    for name, module in modules.items():
+        module.register_forward_hook(
+            lambda _m, _i, out, name=name: outputs.__setitem__(name, out))
+    return outputs
+
+
+def test_encoder_layer_hands_projection_views_to_attention():
+    """EncoderLayer (the BERT encoders, the cross-encoder, the HF-CLIP text
+    towers) passes q, k and v as views of the projection outputs."""
+    _, tconfig = _configs()
+    layer = tbert.init_encoder(tconfig, torch.Generator().manual_seed(0),
+                               device="cpu").layers[0]
+    outputs = _capture_outputs({n: getattr(layer, n)
+                                for n in ("query", "key", "value")})
+    seen = []
+    x = torch.randn(3, 16, tconfig.hidden_size)
+    mask = torch.ones(3, 16, dtype=torch.int32)
+    layer(x, _spy(seen, tbert._ATTENTION[("kernel", "padding")]), mask)
+    (q, k, v), = seen
+    for t, name in ((q, "query"), (k, "key"), (v, "value")):
+        assert t.shape == (3, tconfig.num_heads, 16, tconfig.head_dim)
+        assert t.stride(-1) == 1 and not t.is_contiguous()
+        assert _lies_in(t, outputs[name]), name
+
+
+def test_prenorm_block_hands_projection_views_to_attention():
+    from marqo_tpu_torch.models import clip as tclip
+    block = tclip.PreNormBlock(64, 128, 4, "quick_gelu", 1e-5)
+    outputs = _capture_outputs({n: getattr(block, n) for n in "qkv"})
+    seen = []
+    block(torch.randn(2, 50, 64),
+          _spy(seen, tclip.fused_attention.fused_attention))
+    (q, k, v), = seen
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        assert t.shape == (2, 4, 50, 16)
+        assert t.stride(-1) == 1 and not t.is_contiguous()
+        assert _lies_in(t, outputs[name]), name
+
+
+def test_stella_layer_hands_v_as_a_view_of_the_fused_projection(
+        monkeypatch):
+    """RoPE writes new q and k; v is a chunk of the fused qkv output."""
+    from marqo_tpu_torch.models import stella as tstella
+    config = tstella.StellaConfig(vocab_size=64, hidden_size=64,
+                                  num_layers=1, num_heads=4,
+                                  intermediate_size=128, projection_dim=32)
+    layer = tstella.init_stella(config, torch.Generator().manual_seed(0),
+                                device="cpu").layers[0]
+    outputs = _capture_outputs({"qkv": layer.qkv})
+    seen = []
+    monkeypatch.setattr(tstella.flash_attention, "attention_padding",
+                        _spy(seen, tstella.flash_attention.attention_padding))
+    S = 12
+    rope = tstella.rope_tables(S, config.head_dim, config.rope_theta, "cpu")
+    layer(torch.randn(2, S, 64), torch.ones(2, S, dtype=torch.int32), rope)
+    (q, k, v), = seen
+    assert v.stride(-1) == 1 and _lies_in(v, outputs["qkv"])
+    assert all(t.stride(-1) == 1 for t in (q, k))

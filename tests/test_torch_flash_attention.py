@@ -133,7 +133,8 @@ def test_kernel_route_refuses_other_devices():
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "mask", "seq_len",
-                                 "head_dim", "contiguity"])
+                                 "head_dim", "contiguity", "stride",
+                                 "alignment"])
 def test_kernel_input_checks(bad):
     shape, dtype = (2, 2, 16, 8), torch.float32
     if bad == "seq_len":
@@ -149,9 +150,67 @@ def test_kernel_input_checks(bad):
     elif bad == "mask":
         mask = torch.ones(2, 15, dtype=torch.int32)
     elif bad == "contiguity":
-        q = torch.zeros(2, 16, 2, 8).transpose(1, 2)
-    with pytest.raises(ValueError):
+        # the last axis is not contiguous
+        q = torch.zeros(2, 2, 8, 16).transpose(2, 3)
+    elif bad == "stride":
+        # tokens 12 elements apart: rows not on 16-byte boundaries
+        q = torch.zeros(2, 2, 16, 12)[..., :8]
+    elif bad == "alignment":
+        q = torch.zeros(2 * 2 * 16 * 8 + 1)[1:].view(shape)
+    match = {"contiguity": "contiguous", "stride": "multiples of 8",
+             "alignment": "aligned"}.get(bad)
+    with pytest.raises(ValueError, match=match):
         fa.check_kernel_inputs(q, k, v, mask)
+
+
+def _projection_views(B, N, S, D, dtype=torch.float32, device="meta"):
+    """q, k, v as the encoders hand them over: views of one (B, S, N*D)
+    projection output each, and Stella's chunks of one fused
+    (B, S, 3*N*D) qkv projection."""
+    def heads(t):
+        return t.view(B, S, N, D).transpose(1, 2)
+    separate = [heads(torch.empty(B, S, N * D, dtype=dtype, device=device))
+                for _ in range(3)]
+    fused = torch.empty(B, S, 3 * N * D, dtype=dtype, device=device)
+    chunks = [t.reshape(B, S, N, D).transpose(1, 2)
+              for t in fused.chunk(3, dim=-1)]
+    return {"projection": separate, "fused_qkv": chunks}
+
+
+@pytest.mark.parametrize("layout", ["projection", "fused_qkv"])
+def test_kernel_input_checks_accept_the_projection_layouts(layout):
+    for dtype in fa.DTYPES:
+        for D in fa.HEAD_DIMS:
+            q, k, v = _projection_views(2, 3, 16, D, dtype)[layout]
+            assert not q.is_contiguous()
+            fa.check_kernel_inputs(q, k, v,
+                                   torch.ones(2, 16, dtype=torch.int32))
+
+
+def test_kernel_output_is_the_projection_layout():
+    q = torch.empty(2, 3, 16, 64, device="meta")
+    out = fa.kernel_output(q)
+    assert out.shape == q.shape and out.transpose(1, 2).is_contiguous()
+    assert list(fa.kernel_strides(q, q, q, out)) == \
+        [3 * 16 * 64, 16 * 64, 64] * 3 + [16 * 3 * 64, 64, 3 * 64]
+
+
+@pytest.mark.parametrize("layout", ["projection", "fused_qkv"])
+@pytest.mark.parametrize("mode", ["padding", "segment"])
+def test_twins_take_strided_views(mode, layout):
+    """The plain twins give on the projections' views what they give on
+    contiguous copies of the same values."""
+    B, N, S, D = 5, 2, 32, 16
+    views = _projection_views(B, N, S, D, device="cpu")[layout]
+    for view, values in zip(views, _qkv(B, N, S, D, seed=13)):
+        view.copy_(torch.from_numpy(values))
+    mask = torch.from_numpy(_pad_mask(B, S, 13) if mode == "padding"
+                            else _segment_ids(B, S, 13))
+    fn = {"padding": fa.attention_padding,
+          "segment": fa.attention_segment}[mode]
+    out = fn(*views, mask)
+    ref = fn(*(t.contiguous() for t in views), mask)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-6)
 
 
 def test_kernel_input_checks_accept_the_encoder_shapes():

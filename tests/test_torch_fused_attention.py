@@ -157,7 +157,8 @@ def test_kernel_input_checks_accept_the_tower_shapes(S, D):
 
 @pytest.mark.parametrize("bad", ["head_dim_84", "head_dim_136", "shape",
                                  "dtype", "mixed_dtype", "empty_seq",
-                                 "segment_shape", "contiguity"])
+                                 "segment_shape", "contiguity", "stride",
+                                 "alignment"])
 def test_kernel_input_checks_refuse(bad):
     shape, dtype = (2, 2, 16, 64), torch.float32
     if bad == "head_dim_84":
@@ -177,9 +178,57 @@ def test_kernel_input_checks_refuse(bad):
     elif bad == "segment_shape":
         seg = torch.ones(2, 15, dtype=torch.int32)
     elif bad == "contiguity":
-        q = torch.zeros(2, 16, 2, 64).transpose(1, 2)
-    with pytest.raises(ValueError):
+        # the last axis is not contiguous
+        q = torch.zeros(2, 2, 64, 16).transpose(2, 3)
+    elif bad == "stride":
+        # tokens 68 elements apart: rows not on 16-byte boundaries
+        q = torch.zeros(2, 2, 16, 68)[..., :64]
+    elif bad == "alignment":
+        v = torch.zeros(2 * 2 * 16 * 64 + 2)[2:].view(shape)
+    match = {"contiguity": "contiguous", "stride": "multiples of 8",
+             "alignment": "aligned"}.get(bad)
+    with pytest.raises(ValueError, match=match):
         fa.check_kernel_inputs(q, k, v, seg)
+
+
+def _projection_views(B, N, S, D, device="meta"):
+    """q, k, v as the ViT blocks hand them over (views of one (B, S, N*D)
+    projection output each), and as chunks of one fused (B, S, 3*N*D)
+    projection."""
+    def heads(t):
+        return t.reshape(B, S, N, D).transpose(1, 2)
+    separate = [heads(torch.empty(B, S, N * D, device=device))
+                for _ in range(3)]
+    fused = torch.empty(B, S, 3 * N * D, device=device)
+    return {"projection": separate,
+            "fused_qkv": [heads(t) for t in fused.chunk(3, dim=-1)]}
+
+
+@pytest.mark.parametrize("layout", ["projection", "fused_qkv"])
+@pytest.mark.parametrize("D", [8, 24, 64, 80, 104, 128])
+def test_kernel_input_checks_accept_the_projection_layouts(D, layout):
+    q, k, v = _projection_views(2, 3, 257, D)[layout]
+    assert not q.is_contiguous()
+    fa.check_kernel_inputs(q, k, v)
+    fa.check_kernel_inputs(q, k, v, torch.ones(2, 257, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("layout", ["projection", "fused_qkv"])
+@pytest.mark.parametrize("mode", ["nomask", "pad_mask", "segment_ids"])
+def test_twin_takes_strided_views(mode, layout):
+    """The plain twin gives on the projections' views what it gives on
+    contiguous copies of the same values."""
+    B, N, S, D = 3, 2, 50, 32
+    views = _projection_views(B, N, S, D, device="cpu")[layout]
+    for view, values in zip(views, _qkv(B, N, S, D, seed=21)):
+        view.copy_(torch.from_numpy(values))
+    mask = {"nomask": {},
+            "pad_mask": {"pad_mask": torch.from_numpy(_pad_mask(B, S, 21))},
+            "segment_ids": {"segment_ids": torch.from_numpy(
+                _packed_segments(B, S, 21))}}[mode]
+    out = fa.fused_attention(*views, **mask)
+    ref = fa.fused_attention(*(t.contiguous() for t in views), **mask)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-6)
 
 
 @pytest.mark.parametrize("layout", ["padded", "packed"])

@@ -1,21 +1,35 @@
 """marqo_tpu_torch's CUDA kernels against their plain twins, on the card:
 B1 (ops/flash_attention.py, masked attention), B2 (ops/fused_attention.py,
 flash attention with no mask or segment ids) and B3 (ops/quant_matmul.py,
-the fused W8A8 linear layer).
+the fused W8A8 linear layer). The attention kernels are also fed the
+encoders' own layouts (views of the projection outputs), ragged token
+counts and head dims, and masks that exercise each tile-skipping rule of
+csrc/attention_tile.cuh; the built library's bf16 attention instances must
+hold tensor-core instructions (HMMA).
 Skips without an sm_90 CUDA device and nvcc; on a Hopper host run
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
 (``--noconftest``: the suite's conftest imports JAX, which the port's host
-need not have). Tolerances: attention fp32 atol 1e-5, bf16 atol 2e-2, as
-chip_smoke.py's kernel phases; B3 as its quant_kernel phase.
+need not have). Tolerances as chip_smoke.py's kernel phases: attention
+``chip_smoke.check_attention`` (fp32 |err| <= 1e-5; bf16 |err| <= 4e-3 +
+1e-2 |ref|, and a softmax scale off by 10% must fail that bound); B3 as its
+quant_kernel phase.
 """
 
+import os
+import re
+import shutil
+import subprocess
+
+import numpy as np
 import pytest
 import torch
 
 import chip_smoke
-from chip_smoke import attention_inputs, w8a8_inputs
+from chip_smoke import (PROJECTION_LAYOUTS, SCALE_CONTROL, attention_inputs,
+                        check_attention, is_projection_layout,
+                        projection_views, w8a8_inputs)
 from marqo_tpu_torch.ops import _build
 from marqo_tpu_torch.ops import flash_attention as fa
 from marqo_tpu_torch.ops import fused_attention as fused
@@ -23,7 +37,15 @@ from marqo_tpu_torch.ops import quant_matmul as qm
 
 pytestmark = pytest.mark.cuda
 
-ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _control(plain, q, k, v, *mask, **masks):
+    """The twin with the softmax scale off by SCALE_CONTROL, which the bf16
+    tolerance must refuse; None in fp32 and where every row attends to one
+    key (S = 1), which no scale changes."""
+    if q.dtype != torch.bfloat16 or q.shape[2] == 1:
+        return None
+    return plain(q * SCALE_CONTROL, k, v, *mask, **masks)
 
 
 @pytest.fixture
@@ -55,8 +77,8 @@ def test_kernel_matches_twin(card, S, D, dtype):
         assert fa.LAUNCHES[mode] == before + 1
         assert out.dtype == dtype and out.shape == q.shape
         assert torch.isfinite(out).all()
-        err = float((out.float() - plain(q, k, v, mask).float()).abs().max())
-        assert err <= ATOL[dtype], (mode, err)
+        check_attention(out, plain(q, k, v, mask),
+                        _control(plain, q, k, v, mask), mode)
 
 
 def test_kernel_refuses_non_contiguous_input(card):
@@ -89,9 +111,9 @@ def test_fused_kernel_matches_twin(card, B, N, S, D, names, dtype):
         assert fused.LAUNCHES[mode] == before + 1
         assert out.dtype == dtype and out.shape == q.shape
         assert torch.isfinite(out).all()
-        ref = fused.fused_attention_reference(q, k, v, **mask)
-        err = float((out.float() - ref.float()).abs().max())
-        assert err <= ATOL[dtype], (name, err)
+        check_attention(out, fused.fused_attention_reference(q, k, v, **mask),
+                        _control(fused.fused_attention_reference, q, k, v,
+                                 **mask), name)
 
 
 def test_fused_kernel_refuses_non_contiguous_input(card):
@@ -99,6 +121,163 @@ def test_fused_kernel_refuses_non_contiguous_input(card):
     with pytest.raises(ValueError, match="contiguous"):
         fused.fused_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
                               k, v, segment_ids=seg)
+
+
+B1_MODES = (("padding", fa.attention_padding, fa.attention_padding_reference),
+            ("segment", fa.attention_segment, fa.attention_segment_reference))
+
+
+def _check_b1(q, k, v, mask, dtype):
+    for mode, kernel, plain in B1_MODES:
+        before = fa.LAUNCHES[mode]
+        out = kernel(q, k, v, mask)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES[mode] == before + 1
+        assert out.dtype == dtype and out.shape == q.shape
+        assert is_projection_layout(out)
+        assert torch.isfinite(out).all()
+        check_attention(out, plain(q, k, v, mask),
+                        _control(plain, q, k, v, mask), mode)
+
+
+def _check_b2(q, k, v, masks, dtype):
+    for name, mask in masks.items():
+        out = fused.fused_attention(q, k, v, **mask)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and out.shape == q.shape
+        assert is_projection_layout(out)
+        assert torch.isfinite(out).all()
+        check_attention(out, fused.fused_attention_reference(q, k, v, **mask),
+                        _control(fused.fused_attention_reference, q, k, v,
+                                 **mask), name)
+
+
+def _b2_masks(pad, seg):
+    return {"nomask": {}, "pad_mask": {"pad_mask": pad},
+            "segment_ids": {"segment_ids": seg}}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", PROJECTION_LAYOUTS)
+@pytest.mark.parametrize("S,D", [(128, 64), (17, 32), (257, 8), (512, 128)])
+def test_kernel_reads_projection_layouts(card, S, D, layout, dtype):
+    """B1 on the encoders' own layouts: views of a (B, S, N*D) projection
+    and chunks of Stella's fused qkv projection."""
+    q, k, v, pad, seg = attention_inputs(4, 3, S, D, dtype, seed=S + D)
+    views = projection_views(q, k, v, layout)
+    assert not views[0].is_contiguous()
+    _check_b1(*views, pad, dtype)
+    _check_b1(*views, seg, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", PROJECTION_LAYOUTS)
+@pytest.mark.parametrize("S,D", [(257, 64), (50, 80), (730, 104)])
+def test_fused_kernel_reads_projection_layouts(card, S, D, layout, dtype):
+    q, k, v, pad, seg = attention_inputs(4, 3, S, D, dtype, seed=S + D)
+    _check_b2(*projection_views(q, k, v, layout), _b2_masks(pad, seg), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [8, 32])
+@pytest.mark.parametrize("S", [1, 15, 17, 65, 257])
+def test_kernel_ragged_seq_len(card, S, D, dtype):
+    q, k, v, pad, seg = attention_inputs(4, 3, S, D, dtype, seed=S * D + 1)
+    _check_b1(q, k, v, pad, dtype)
+    _check_b1(q, k, v, seg, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [24, 40, 80, 104, 120])
+@pytest.mark.parametrize("S", [1, 15, 17, 65, 257, 577, 730])
+def test_fused_kernel_ragged_seq_len_and_head_dim(card, S, D, dtype):
+    q, k, v, pad, seg = attention_inputs(4, 2, S, D, dtype, seed=S * D + 2)
+    _check_b2(q, k, v, _b2_masks(pad, seg), dtype)
+
+
+def _skip_case(name, S):
+    """(B, S) int32 ids/mask rows that exercise each tile-skipping rule."""
+    ids = np.zeros((4, S), dtype=np.int32)
+    if name == "all_pad_row":
+        # padding: an all-pad row among real ones of other lengths
+        for b, n in enumerate((S, 0, 70, 5)):
+            ids[b, :n] = 1
+    elif name == "pad_queries_in_block":
+        # segment: the first query block holds real and pad (0) queries;
+        # later blocks hold only real ones
+        ids[:, :40] = 1
+        ids[:, 64:130] = 2
+        ids[:, 130:S - 20] = 3
+        ids[1, 20:64] = 0
+        ids[2] = 0
+        ids[2, 100:110] = 4
+    elif name == "straddling_segments":
+        # runs of 50, 30, 70, 100, ... across the 64-key tile edges
+        pos, sid = 0, 1
+        for run in (50, 30, 70, 100, 13, 60, 90):
+            ids[:, pos:pos + run] = sid
+            pos, sid = pos + run, sid + 1
+        ids[3, 60:70] = 0
+    elif name == "non_monotone":
+        # ids revisit earlier values and step down
+        runs = ((3, 40), (1, 50), (3, 30), (2, 60), (1, 10), (5, 70),
+                (2, 40), (0, 10), (4, 90))
+        pos = 0
+        for sid, run in runs:
+            ids[:, pos:pos + run] = sid
+            pos += run
+        ids[1] = ids[1, ::-1]
+    elif name == "padding_hole":
+        # a wholly padded 64-key tile in the middle of a row
+        ids[:, :64] = 1
+        ids[:, 128:S - 30] = 1
+        ids[1, 128:] = 0
+        ids[2, :] = 1
+        ids[2, 64:192] = 0
+    return ids
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["all_pad_row", "pad_queries_in_block",
+                                  "straddling_segments", "non_monotone",
+                                  "padding_hole"])
+def test_tile_skipping_keeps_every_row(card, name, dtype):
+    """Each skipping rule's edge through every masked mode: B1 padding and
+    segment, B2 segment ids and pad mask, on the encoders' layout."""
+    S = 400
+    q, k, v, _, _ = attention_inputs(4, 3, S, 64, dtype, seed=len(name))
+    q, k, v = projection_views(q, k, v, "projection")
+    ids = torch.from_numpy(_skip_case(name, S)).to(card)
+    _check_b1(q, k, v, ids, dtype)
+    _check_b2(q, k, v, {"pad_mask": {"pad_mask": ids},
+                        "segment_ids": {"segment_ids": ids}}, dtype)
+
+
+def _cuobjdump():
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    candidate = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    if not os.path.isfile(candidate):
+        pytest.skip("needs cuobjdump to read the built library")
+    return candidate
+
+
+def test_bf16_attention_instances_run_on_tensor_cores(card):
+    """The bf16 instances of the tile loop (B1 and B2) hold HMMA (the
+    tensor cores' mma.sync); the fp32 instances hold none (their exact FMA
+    loop)."""
+    library = _build.load_library()
+    sass = subprocess.run([_cuobjdump(), "-sass", library._name],
+                          capture_output=True, text=True, check=True).stdout
+    functions = re.split(r"\n\s*Function : ", sass)[1:]
+    bf16 = [f for f in functions
+            if "attention_tile_kernelI13__nv_bfloat16" in f.split()[0]]
+    fp32 = [f for f in functions if "attention_tile_kernelIf" in f.split()[0]]
+    assert len(bf16) == len(fp32) == 2 * 4 + 2 * 8
+    assert all("HMMA" in f for f in bf16)
+    assert not any("HMMA" in f for f in fp32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

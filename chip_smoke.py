@@ -25,15 +25,19 @@ phases and prints one JSON object per phase:
                    with no mask, (16, 12, 128, 64) padded and packed; in
                    the same three layouts and to the same bounds as phase 3
   5. quant_kernel  B3, the fused W8A8 linear layer, against its plain
-                   twin, fp32 and bf16: M in 1/32/37/4096/17408 over the
-                   registry's BERT (K, N) widths, then the main path's own
-                   shapes (M = 32768 padded ingest, 17408 packed, 32 for
-                   a query, by (768, 768), (768, 3072), (3072, 768))
+                   twin, fp32 and bf16, equal bit for bit: M in
+                   1/32/37/4096/17408 over the registry's BERT (K, N)
+                   widths, ragged M, N and K (output rows whose stride is
+                   not a multiple of 16 bytes among them), then the main
+                   path's own shapes (M = 32768 padded ingest, 17408
+                   packed, 32 for a query, by (768, 768), (768, 2304) for
+                   the packed q, k, v, (768, 3072), (3072, 768))
   6. encoder       e5-base-v2-width encoder on the same random weights:
                    B1 ("kernel") and B2 ("flash") paths against the twin
                    path, padded and packed
   7. int8_encoder  the same width with quantize=True: the B3 path against
-                   the twin path, padded and packed; the int8 encoder
+                   the twin path, padded and packed (four B3 launches per
+                   block: q, k and v are one GEMM); the int8 encoder
                    against the bf16 one on the same weights
   8. clip_encoder  the ViT-L/14 towers at full width and depth, random
                    weights: the vision tower on B2 against the twin, batch 16
@@ -60,7 +64,9 @@ phases and prints one JSON object per phase:
                    contiguous inputs as earlier runs timed them, and at the
                    main-path shapes also in the encoders' own layout, which
                    the kernels line reports), B3 against the bf16 F.linear
-                   it replaces, the int8 against the bf16 e5 encoder, the
+                   it replaces and torch._int_mm, B3's row quantizer and
+                   GEMM apart (torch.profiler) against their bounds, the
+                   int8 against the bf16 e5 encoder, the
                    bf16 e5 encoder padded and packed on a log-normal ingest
                    batch, ViT-L/14 images per second on the kernel and twin
                    paths, add throughput and search latency (information
@@ -140,17 +146,24 @@ XLMR_VIT_B32 = {"vocab_size": 250002, "text_hidden_size": 768,
 XLMR_VIT_B32_DIMS = 512
 HF_CLIP_DOCS = 32
 # B3's (K, N) grid: the registry's BERT widths (hidden 384, 768, 1024 with
-# FFN 1536, 3072, 4096) in each of the encoder's linear shapes
-W8A8_WIDTHS = ((768, 768), (768, 3072), (3072, 768), (384, 1536),
-               (1024, 4096))
-# B3 against its twin: fp32 max error over max |ref|, bf16 in ulps of ref
-W8A8_TOLERANCE = {"float32": 1e-5, "bfloat16": 1.0}
+# FFN 1536, 3072, 4096) in each of the encoder's linear shapes, and e5's
+# packed q, k, v (768, 3 x 768)
+W8A8_WIDTHS = ((768, 768), (768, 2304), (768, 3072), (3072, 768),
+               (384, 1536), (1024, 4096))
 W8A8_GRID_M = (1, 32, 37, 4096, 17408)
+# B3's ragged (M, K, N): K tails shorter than a 128-byte stage; N = 1, 13,
+# 129, 100, 1030, 770 give output rows whose bf16 stride is not a multiple
+# of 16 bytes (the GEMM's element-wise store path; all but 100 in fp32
+# too); tiles overhanging M and N, at a query's M = 1 and 32 and at M large
+# enough for the 128-wide tiles
+W8A8_RAGGED = ((5, 16, 1), (3, 48, 13), (130, 80, 129), (1, 768, 100),
+               (32, 768, 1030), (4097, 3072, 770))
 # the rows B3 gets on the main path: the e5-base padded ingest batch (256
 # documents x 128 tokens), the packed batch (136 rows x 128) and a batch-1
-# query (32 tokens), each through the encoder's three linear shapes
+# query (32 tokens), each through the encoder's four linear shapes (q, k
+# and v packed into one)
 W8A8_PATH_M = (256 * 128, 136 * 128, 32)
-W8A8_PATH_WIDTHS = ((768, 768), (768, 3072), (3072, 768))
+W8A8_PATH_WIDTHS = ((768, 768), (768, 2304), (768, 3072), (3072, 768))
 B3_SOURCE = "marqo_tpu_torch/csrc/w8a8_matmul.cu"
 B3_REPLACES = "marqo_tpu/ops/quant_matmul.py:36"
 # one NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet, dense):
@@ -193,6 +206,31 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_times_ms(fn, iters: int, names) -> dict:
+    """Device ms per call of ``fn`` spent in the kernels whose names hold
+    each of ``names``, from torch.profiler over ``iters`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    totals = dict.fromkeys(names, 0.0)
+    for event in prof.key_averages():
+        if event.device_type.name != "CUDA":
+            continue
+        device_us = getattr(event, "device_time_total", None)
+        if device_us is None:
+            device_us = event.cuda_time_total
+        for name in names:
+            if name in event.key:
+                totals[name] += device_us
+    return {name: us / 1000 / iters for name, us in totals.items()}
 
 
 def paired_ms(kernel, plain, iters: int) -> dict:
@@ -252,6 +290,16 @@ def w8a8_bound(M, K, N) -> dict:
     written once; 2 M K N int8 operations on the int8 tensor-core peak."""
     return bound(M * K * 2 + N * K + N * 8 + M * N * 2, 2 * M * K * N,
                  PEAK_INT8_OPS)
+
+
+def quantize_bound(M, K) -> dict:
+    """B3's row quantizer alone: bf16 x read, int8 x_q and fp32 x_scale
+    written once (its few operations never bound it)."""
+    return bound(M * K * 2 + M * K + M * 4, 0, PEAK_INT8_OPS)
+
+
+# kernel names (csrc/w8a8_matmul.cu) that split B3's time in a profile
+W8A8_KERNELS = ("w8a8_quantize_rows", "w8a8_gemm")
 
 
 # --- launch counters ---------------------------------------------------------
@@ -367,17 +415,6 @@ def bf16_ulp(t):
     tiny = torch.finfo(torch.bfloat16).tiny
     return torch.exp2(torch.floor(torch.log2(t.float().abs().clamp_min(tiny)))
                       - 7)
-
-
-def w8a8_error(out, ref) -> float:
-    """B3's error against its twin in the units of its tolerance: fp32
-    max |out - ref| / max |ref| (at most 1e-5), bf16 max |out - ref| in bf16
-    ulps of ref (at most 1)."""
-    import torch
-    diff = (out.float() - ref.float()).abs()
-    if out.dtype == torch.bfloat16:
-        return float((diff / bf16_ulp(ref)).max())
-    return float(diff.max() / ref.float().abs().max().clamp_min(1e-30))
 
 
 def attention_excess(out, ref) -> float:
@@ -519,11 +556,13 @@ def phase_fused_kernel(fused, torch):
 
 
 def phase_quant_kernel(qm, torch):
-    """B3 against its twin over the test grid and at the main path's own
-    shapes; returns the largest absolute error at the main path's shapes
-    per dtype."""
+    """B3 against its twin over the test grid, the ragged cases and at the
+    main path's own shapes: equal bit for bit (the int32 sum is exact and
+    both round each step alike). Returns the largest absolute error at the
+    main path's shapes per dtype (0)."""
     results, path_errors = [], {"float32": 0.0, "bfloat16": 0.0}
     cases = [(M, K, N, False) for M in W8A8_GRID_M for K, N in W8A8_WIDTHS]
+    cases += [(M, K, N, False) for M, K, N in W8A8_RAGGED]
     cases += [(M, K, N, True) for M in W8A8_PATH_M
               for K, N in W8A8_PATH_WIDTHS]
     for dtype in (torch.float32, torch.bfloat16):
@@ -538,19 +577,17 @@ def phase_quant_kernel(qm, torch):
                   f"w8a8 output {out.dtype} {tuple(out.shape)}")
             check(bool(torch.isfinite(out).all()),
                   f"non-finite w8a8 output ({dname}, {M}, {K}, {N})")
-            err = w8a8_error(out, ref)
             abs_err = float((out.float() - ref.float()).abs().max())
+            unequal = int((out != ref).sum())
             results.append({"dtype": dname, "shape": [M, K, N],
-                            "main_path": on_path, "error": err,
+                            "main_path": on_path, "unequal": unequal,
                             "max_abs_err": abs_err})
-            check(err <= W8A8_TOLERANCE[dname],
-                  f"w8a8 kernel vs twin ({dname}, {M}, {K}, {N}): error "
-                  f"{err} > {W8A8_TOLERANCE[dname]}")
+            check(torch.equal(out, ref),
+                  f"w8a8 kernel vs twin ({dname}, {M}, {K}, {N}): {unequal} "
+                  f"values differ, max |out - ref| {abs_err}")
             if on_path:
                 path_errors[dname] = max(path_errors[dname], abs_err)
-    emit("quant_kernel", ok=True, tolerance=W8A8_TOLERANCE,
-         tolerance_units={"float32": "max |out - ref| / max |ref|",
-                          "bfloat16": "bf16 ulps of ref"},
+    emit("quant_kernel", ok=True, tolerance="exact (torch.equal)",
          checks=len(results), results=results)
     return path_errors
 
@@ -611,8 +648,8 @@ def phase_int8_encoder(torch):
     check(padded.shape == (B, E5_BASE["hidden_size"]) and
           bool(torch.isfinite(padded).all()),
           "int8 encoder output shape/finiteness")
-    # six linear layers per block, padded and packed
-    expected = 2 * 6 * config.num_layers
+    # four linear layers per block (q, k and v in one), padded and packed
+    expected = 2 * 4 * config.num_layers
     check(launches["w8a8_matmul"] == expected,
           f"int8 encoder: expected {expected} B3 launches: {launches}")
     emit("int8_encoder", ok=True, shape=[B, S], packed_rows=int(
@@ -1190,18 +1227,26 @@ def phase_timing(fa, fused, qm, torch, clip_model, pixels, int8_encoder,
                                      q, k, v, **mask), iters),
                              "library_ms": cuda_ms(
                                  _sdpa(torch, q, k, v, allowed), iters)})
-    # B3 at the padded ingest batch's three linear shapes and at a batch-1
-    # query; beside it the bf16 F.linear that the int8 path replaces, and
-    # the library yardstick (and torch._int_mm alone)
-    for M, K, N in ((32768, 768, 768), (32768, 768, 3072),
-                    (32768, 3072, 768), (32, 768, 3072)):
+    # B3 at the padded ingest batch's four linear shapes and at a batch-1
+    # query's packed q, k, v and FFN; beside it the bf16 F.linear that the
+    # int8 path replaces, the library yardstick and torch._int_mm alone,
+    # and its two kernels apart (torch.profiler)
+    for M, K, N in ((32768, 768, 768), (32768, 768, 2304),
+                    (32768, 768, 3072), (32768, 3072, 768), (32, 768, 2304),
+                    (32, 768, 3072)):
         x, w_q, w_scale, bias = w8a8_inputs(M, K, N, torch.bfloat16, seed=M)
         weight = (0.05 * torch.randn(N, K, device=DEVICE)).to(torch.bfloat16)
         bias16 = bias.to(torch.bfloat16)
         x_q = qm.quantize_rows(x.float())[0]
         iters = 20 if M > 32 else 200
+        split = kernel_times_ms(
+            lambda: qm.w8a8_matmul(x, w_q, w_scale, bias), iters,
+            W8A8_KERNELS)
         rows.append({"kernel": "w8a8_matmul", "mode": "w8a8",
                      "shape": [M, K, N], "dtype": "bfloat16",
+                     **w8a8_bound(M, K, N),
+                     "quantize_ms": split["w8a8_quantize_rows"],
+                     "gemm_ms": split["w8a8_gemm"],
                      **paired_ms(
                          lambda: qm.w8a8_matmul(x, w_q, w_scale, bias),
                          lambda: qm.w8a8_matmul_reference(x, w_q, w_scale,
@@ -1212,6 +1257,12 @@ def phase_timing(fa, fused, qm, torch, clip_model, pixels, int8_encoder,
                                           iters),
                      "bf16_linear_ms": cuda_ms(
                          lambda: F.linear(x, weight, bias16), iters)})
+        if M > 32 and N == 768:
+            # the quantizer alone at K = 768 and 3072, against its bound
+            rows.append({"kernel": "w8a8_quantize_rows", "mode": "w8a8",
+                         "shape": [M, K], "dtype": "bfloat16",
+                         "ms": split["w8a8_quantize_rows"],
+                         **quantize_bound(M, K)})
     config = clip_model.vision.config
     plain_config = replace(config, attention_impl="plain")
 

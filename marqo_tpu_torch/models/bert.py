@@ -13,7 +13,8 @@ serving); LayerNorm, softmax and pooling statistics run in fp32
 kernel on a CUDA device, its plain twin on the CPU. The linear layers are
 plain ``nn.Linear`` matmuls, or, with ``quantize=True``, ``Int8Linear``
 (W8A8, ops/quant.py: CUDA kernel B3 on a CUDA device, its plain twin on the
-CPU). It only serves: no autograd.
+CPU), where one (3H, H) layer computes q, k and v. It only serves: no
+autograd.
 
 The builders (``init_encoder``, ``params_from_torch_state_dict``,
 ``params_from_jax``) put the encoder on the card unless the caller names
@@ -110,16 +111,15 @@ class Int8Linear(nn.Module):
 
     @classmethod
     @torch.no_grad()
-    def from_linear(cls, linear: nn.Linear) -> "Int8Linear":
-        """Quantize ``linear``'s weight as it is held (in the compute dtype,
-        as the JAX loader quantizes after its cast); keep its bias."""
-        out_features, in_features = linear.weight.shape
+    def from_weight(cls, weight: torch.Tensor,
+                    bias: torch.Tensor) -> "Int8Linear":
+        """Quantize the (out, in) ``weight`` as it is held (in the compute
+        dtype, as the JAX loader quantizes after its cast); keep ``bias``."""
+        out_features, in_features = weight.shape
         with torch.device("meta"):
             module = cls(in_features, out_features)
-        weight_q, weight_scale = quantize_weight(linear.weight)
-        module.weight_q = weight_q
-        module.weight_scale = weight_scale
-        module.bias = linear.bias.detach().clone()
+        module.weight_q, module.weight_scale = quantize_weight(weight)
+        module.bias = bias.detach().clone()
         return module
 
     def forward(self, x: torch.Tensor, impl: str = "kernel") -> torch.Tensor:
@@ -127,9 +127,13 @@ class Int8Linear(nn.Module):
         return linear(x, self.weight_q, self.weight_scale, self.bias)
 
 
-# the six linear layers of a block, which quantize=True makes Int8Linear
-QUANTIZED_LINEARS = ("query", "key", "value", "attn_out", "ffn_in",
-                     "ffn_out")
+# the float encoder's q, k and v projections, which quantize=True packs
+# into one (3H, H) Int8Linear "qkv" whose rows are query, key, value: the
+# weights are quantized per output row and every row of x has one scale, so
+# its output equals the three separate int8 layers' bit for bit
+QKV = ("query", "key", "value")
+# a block's linear layers once quantize=True made them Int8Linear
+QUANTIZED_LINEARS = ("qkv", "attn_out", "ffn_in", "ffn_out")
 
 
 class EncoderLayer(nn.Module):
@@ -140,9 +144,12 @@ class EncoderLayer(nn.Module):
         H, I = config.hidden_size, config.intermediate_size
         self.config = config
         linear = Int8Linear if config.quantize else nn.Linear
-        self.query = linear(H, H)
-        self.key = linear(H, H)
-        self.value = linear(H, H)
+        if config.quantize:
+            self.qkv = Int8Linear(H, 3 * H)
+        else:
+            self.query = nn.Linear(H, H)
+            self.key = nn.Linear(H, H)
+            self.value = nn.Linear(H, H)
         self.attn_out = linear(H, H)
         self.attn_ln = nn.LayerNorm(H)
         self.ffn_in = linear(H, I)
@@ -168,9 +175,12 @@ class EncoderLayer(nn.Module):
             # a view: the kernels read the projection's layout by strides
             return t.view(B, S, N, D).transpose(1, 2)
 
-        q = heads(linear("query", x))
-        k = heads(linear("key", x))
-        v = heads(linear("value", x))
+        if config.quantize:
+            # views of the packed (B, S, 3, N, D) output: S-stride 3H
+            qkv = linear("qkv", x).view(B, S, 3, N, D)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        else:
+            q, k, v = (heads(linear(name, x)) for name in QKV)
         ctx = attend(q, k, v, mask_data)
         ctx = ctx.transpose(1, 2).reshape(B, S, H)
         eps = config.layer_norm_eps
@@ -277,9 +287,10 @@ def fill_parameters(module: nn.Module, values: dict) -> nn.Module:
 
 @torch.no_grad()
 def quantize_encoder(encoder: TextEncoder) -> TextEncoder:
-    """Replace the six linear layers of every block with ``Int8Linear``
-    (int8 values + per-output-channel scales of the weights as held, in the
-    compute dtype), in place; the counterpart of marqo_tpu
+    """Replace the linear layers of every block with ``Int8Linear`` (int8
+    values + per-output-channel scales of the weights as held, in the
+    compute dtype), in place; q, k and v become one ``qkv`` layer of their
+    concatenated weights and biases. The counterpart of marqo_tpu
     ``quantize_encoder_params``. Returns ``encoder`` with quantize=True in
     its config."""
     if encoder.config.quantize:
@@ -287,8 +298,16 @@ def quantize_encoder(encoder: TextEncoder) -> TextEncoder:
     encoder.config = replace(encoder.config, quantize=True)
     for layer in encoder.layers:
         layer.config = encoder.config
-        for name in QUANTIZED_LINEARS:
-            setattr(layer, name, Int8Linear.from_linear(getattr(layer, name)))
+        projections = [getattr(layer, name) for name in QKV]
+        layer.qkv = Int8Linear.from_weight(
+            torch.cat([p.weight for p in projections]),
+            torch.cat([p.bias for p in projections]))
+        for name in QKV:
+            delattr(layer, name)
+        for name in QUANTIZED_LINEARS[1:]:
+            linear = getattr(layer, name)
+            setattr(layer, name,
+                    Int8Linear.from_weight(linear.weight, linear.bias))
     return encoder
 
 
@@ -467,8 +486,9 @@ def params_from_jax(params_numpy: dict, config: TextEncoderConfig,
     A quantized pytree (marqo_tpu ``quantize_encoder_params``: ``*_q``
     (L, in, out) int8 and ``*_s`` (L, 1, out) fp32 in place of the six
     linear weights) fills ``Int8Linear`` buffers as they are, transposed to
-    (out, in) and (out,); an unquantized one is quantized after the cast to
-    ``dtype`` when ``config.quantize``."""
+    (out, in) and (out,), q, k and v concatenated into ``qkv``; an
+    unquantized one is quantized after the cast to ``dtype`` when
+    ``config.quantize``."""
     emb, layers = params_numpy["embeddings"], params_numpy["layers"]
     quantized = "q_w_q" in layers
     values = {
@@ -479,7 +499,17 @@ def params_from_jax(params_numpy: dict, config: TextEncoderConfig,
         "embeddings.ln.bias": emb["ln_bias"],
     }
     for i in range(config.num_layers):
+        if quantized:
+            keys = [_JAX_LAYER[name] for name in QKV]
+            values[f"layers.{i}.qkv.weight_q"] = np.concatenate(
+                [np.asarray(layers[w + "_q"][i]).T for w, _ in keys])
+            values[f"layers.{i}.qkv.weight_scale"] = np.concatenate(
+                [np.asarray(layers[w + "_s"][i])[0] for w, _ in keys])
+            values[f"layers.{i}.qkv.bias"] = np.concatenate(
+                [np.asarray(layers[b][i]) for _, b in keys])
         for name, (w, b) in _JAX_LAYER.items():
+            if quantized and name in QKV:
+                continue
             values[f"layers.{i}.{name}.bias"] = layers[b][i]
             if quantized and name in QUANTIZED_LINEARS:
                 values[f"layers.{i}.{name}.weight_q"] = \

@@ -8,12 +8,15 @@ each row of x is quantized by its absmax over the whole row
 (x_scale = max(absmax / 127, 1e-8), x_q = clip(round(x / x_scale), ±127),
 rounding half to even), the int8 product accumulates exactly in int32, and
 the fp32 epilogue is (acc · x_scale) · w_scale + bias, written in x's dtype.
+The kernels round every step as the twin does, so their output equals the
+twin's bit for bit.
 
 The TPU kernel's tiling rule (M % 256, N % 512) is gone: the CUDA kernels
 mask their own edges, so M and N are any positive size and K any multiple
 of 16 up to ``MAX_K`` (127 · 127 · 4096 < 2³¹, so the int32 sum cannot
-overflow). The CUDA path is two launches, a row quantizer then the int8
-tensor-core GEMM, with the quantized rows in scratch the wrapper allocates.
+overflow). The CUDA path is two launches, a one-read row quantizer then
+the int8 GEMM on Hopper's warpgroup MMA fed by TMA, with the quantized rows
+in scratch the wrapper allocates.
 
 Routing: a tensor on the CPU takes the plain twin; a tensor on a CUDA
 device launches the kernels or raises. ``LAUNCHES["w8a8"]`` counts kernel
@@ -99,14 +102,19 @@ def _launch(x, w_q, w_scale, bias) -> torch.Tensor:
     M, K = x.shape
     N = w_q.shape[0]
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    x_q = torch.empty((M, K), dtype=torch.int8, device=x.device)
-    x_scale = torch.empty((M,), dtype=torch.float32, device=x.device)
+    # the quantized rows (M, K) int8, then their (M,) fp32 scales, in one
+    # allocation (at a query's size allocations are a large part of a
+    # call's host time); M K is a multiple of 16, so the scales stay
+    # 16-byte aligned
+    scratch = torch.empty((M * K + 4 * M,), dtype=torch.uint8,
+                          device=x.device)
+    x_q = scratch.data_ptr()
     lib = _build.load_library()
     with torch.cuda.device(x.device):
         err = lib.marqo_w8a8_matmul(
             x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), x_q.data_ptr(),
-            x_scale.data_ptr(), M, K, N, int(x.dtype == torch.bfloat16),
+            bias.data_ptr(), out.data_ptr(), x_q, x_q + M * K, M, K, N,
+            int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"w8a8 matmul kernel launch failed: CUDA error "

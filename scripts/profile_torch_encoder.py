@@ -39,8 +39,8 @@ def family(name: str) -> str:
     # both attention kernels (B1, B2) instantiate csrc/attention_tile.cuh
     if "attention_tile_kernel" in name:
         return "attention_kernel"
-    # B3's two kernels (csrc/w8a8_matmul.cu)
-    if "w8a8_gemm" in name or "quantize_rows" in name:
+    # B3's two kernels (csrc/w8a8_matmul.cu: w8a8_quantize_rows, w8a8_gemm)
+    if "w8a8_" in name:
         return "w8a8_kernel"
     if any(t in name.lower() for t in ("gemm", "cutlass", "sm90_xmma",
                                        "cublas", "nvjet")):

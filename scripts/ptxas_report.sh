@@ -1,6 +1,7 @@
 #!/usr/bin/env bash
 # Print each kernel's registers, shared memory and spills as ptxas reports
-# them (nvcc -Xptxas -v), with the nvcc and flags that
+# them (nvcc -Xptxas -v), and every ptxas warning or performance note (a
+# setmaxnreg it ignored, wgmma it serialized), with the nvcc and flags that
 # marqo_tpu_torch/ops/_build.py builds the library with.
 #   scripts/ptxas_report.sh [source.cu ...]   (default: every csrc/*.cu)
 set -euo pipefail
@@ -14,6 +15,6 @@ sources=("$@")
 [ ${#sources[@]} -eq 0 ] && sources=(marqo_tpu_torch/csrc/*.cu)
 for src in "${sources[@]}"; do
   "${nvcc[@]}" -Xptxas -v -c -o "$out/$(basename "$src").o" "$src" 2>&1 |
-    grep -E "Compiling entry|Used|spill" | sed 's/ptxas info    : //' &
+    grep -E "Compiling entry|Used|spill|warning|Potential" | sed 's/ptxas info    : //' &
 done
 wait

@@ -247,26 +247,42 @@ def quantized_weights(shared_weights):
 
 def test_params_from_jax_takes_the_quantized_pytree(shared_weights,
                                                      quantized_weights):
-    """The JAX package's int8 arrays, transposed to (out, in), equal the
-    port's own quantization of the same fp32 weights; biases and scales
-    too, and the scales stay fp32."""
+    """The JAX package's int8 arrays, transposed to (out, in) (q, k and v
+    concatenated into the packed qkv layer), equal the port's own
+    quantization of the same fp32 weights; biases and scales too, and the
+    scales stay fp32."""
     _, tconfig, _, params_np = shared_weights
-    _, qtconfig, _, qparams_np = quantized_weights
+    _, qtconfig, qparams, qparams_np = quantized_weights
     ported = tbert.params_from_jax(qparams_np, tconfig, device="cpu")
     ours = tbert.quantize_encoder(
         tbert.params_from_jax(params_np, tconfig, device="cpu"))
     built = tbert.params_from_jax(params_np, qtconfig, device="cpu")
     buffers = dict(ours.named_buffers())
-    assert len(buffers) == 3 * 6 * tconfig.num_layers
+    # qkv, attn_out, ffn_in, ffn_out: weight_q, weight_scale, bias each
+    assert len(buffers) == 3 * 4 * tconfig.num_layers
     for encoder in (ported, built):
         assert encoder.config.quantize
+        assert dict(encoder.named_buffers()).keys() == buffers.keys()
         for name, value in encoder.named_buffers():
             assert value.dtype == buffers[name].dtype, name
             assert torch.equal(value, buffers[name]), name
-    assert buffers["layers.0.query.weight_q"].dtype == torch.int8
-    assert buffers["layers.0.query.weight_scale"].dtype == torch.float32
-    assert not any(n.endswith("query.weight")
+    H = tconfig.hidden_size
+    assert buffers["layers.0.qkv.weight_q"].dtype == torch.int8
+    assert tuple(buffers["layers.0.qkv.weight_q"].shape) == (3 * H, H)
+    assert buffers["layers.0.qkv.weight_scale"].dtype == torch.float32
+    assert not any(n.endswith(("query.weight", "key.weight", "value.weight"))
                    for n, _ in ours.named_parameters())
+    # bit for bit the JAX package's q, k, v arrays, concatenated
+    layers = jax.tree.map(np.asarray, qparams["layers"])
+    for i in range(tconfig.num_layers):
+        np.testing.assert_array_equal(
+            buffers[f"layers.{i}.qkv.weight_q"].numpy(),
+            np.concatenate([layers[w][i].T for w in
+                            ("q_w_q", "k_w_q", "v_w_q")]))
+        np.testing.assert_array_equal(
+            buffers[f"layers.{i}.qkv.weight_scale"].numpy(),
+            np.concatenate([layers[w][i][0] for w in
+                            ("q_w_s", "k_w_s", "v_w_s")]))
 
 
 @pytest.mark.parametrize("pooling", ["mean", "cls"])
@@ -334,6 +350,107 @@ def test_quantized_encoder_bf16_matches_jax(shared_weights):
     assert (_cosines(out.numpy(), ref) > 1 - 1e-3).all()
 
 
+def test_packed_qkv_is_the_concatenation_of_the_three_quantized_weights():
+    """quantize_encoder's qkv layer holds quantize_weight of the float
+    query, key and value weights (as held, in bf16) concatenated in that
+    order, and their biases: bit for bit."""
+    _, tconfig = _configs()
+    float_encoder = tbert.init_encoder(tconfig,
+                                       torch.Generator().manual_seed(3),
+                                       dtype=torch.bfloat16, device="cpu")
+    expected = []
+    for layer in float_encoder.layers:
+        parts = [tbert.quantize_weight(getattr(layer, n).weight)
+                 for n in tbert.QKV]
+        expected.append((torch.cat([q for q, _ in parts]),
+                         torch.cat([s for _, s in parts]),
+                         torch.cat([getattr(layer, n).bias
+                                    for n in tbert.QKV])))
+    encoder = tbert.quantize_encoder(float_encoder)
+    for layer, (weight_q, weight_scale, bias) in zip(encoder.layers,
+                                                     expected):
+        assert not any(hasattr(layer, n) for n in tbert.QKV)
+        assert torch.equal(layer.qkv.weight_q, weight_q)
+        assert torch.equal(layer.qkv.weight_scale, weight_scale)
+        assert torch.equal(layer.qkv.bias, bias)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_qkv_output_equals_three_int8_layers(dtype):
+    """One int8 GEMM over the (3H, H) packed weight gives q, k and v bit
+    for bit as three int8_linear calls over the separate weights: the
+    weights are quantized per output row, and a row of x has one scale for
+    all three."""
+    _, tconfig = _configs()
+    float_layer = tbert.init_encoder(tconfig,
+                                     torch.Generator().manual_seed(4),
+                                     dtype=dtype, device="cpu").layers[0]
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (3, 16, tconfig.hidden_size)).astype(np.float32)).to(dtype)
+    separate = [tbert.int8_linear(x, *tbert.quantize_weight(
+        getattr(float_layer, n).weight), getattr(float_layer, n).bias)
+        for n in tbert.QKV]
+    packed = tbert.Int8Linear.from_weight(
+        torch.cat([getattr(float_layer, n).weight for n in tbert.QKV]),
+        torch.cat([getattr(float_layer, n).bias for n in tbert.QKV]))(x)
+    assert torch.equal(packed, torch.cat(separate, dim=-1))
+
+
+def test_quantized_block_runs_four_int8_linears(monkeypatch):
+    """A quantized block calls int8_linear four times (qkv, attn_out,
+    ffn_in, ffn_out), not six, padded and packed."""
+    _, tconfig = _configs(quantize=True)
+    encoder = tbert.init_encoder(tconfig, torch.Generator().manual_seed(5),
+                                 device="cpu")
+    calls = []
+
+    def counting(x, w_q, w_scale, bias):
+        calls.append(tuple(w_q.shape))
+        return tbert.int8_linear_reference(x, w_q, w_scale, bias)
+
+    monkeypatch.setattr(tbert, "int8_linear", counting)
+    ids, mask, lengths = _inputs(seed=12)
+    tbert.encode_tokens(encoder, torch.from_numpy(ids),
+                        torch.from_numpy(mask))
+    H, L = tconfig.hidden_size, tconfig.num_layers
+    assert len(calls) == 4 * L
+    assert calls[:4] == [(3 * H, H), (H, H), (tconfig.intermediate_size, H),
+                         (H, tconfig.intermediate_size)]
+    packed = _packed(ids, lengths, 32)
+    tbert.encode_tokens_packed(encoder, *map(torch.from_numpy, (
+        packed.input_ids, packed.segment_ids, packed.positions,
+        packed.seq_index)), packed.n_sequences)
+    assert len(calls) == 2 * 4 * L
+
+
+def test_quantize_encoder_padded_and_packed_match_jax(shared_weights,
+                                                      quantized_weights):
+    """The port quantizing the fp32 weights itself (q, k, v packed) against
+    the JAX package's quantized pytree and three int8 layers, padded and
+    packed: cosine > 1 - 1e-5, atol 1e-4."""
+    _, tconfig, _, params_np = shared_weights
+    jconfig, qtconfig, qparams, _ = quantized_weights
+    encoder = tbert.params_from_jax(params_np, qtconfig, device="cpu")
+    assert isinstance(encoder.layers[0].qkv, tbert.Int8Linear)
+    ids, mask, lengths = _inputs(B=9, seed=13)
+    ref = jbert.encode_tokens(qparams, jnp.asarray(ids), jnp.asarray(mask),
+                              jconfig, compute_dtype=jnp.float32)
+    out = tbert.encode_tokens(encoder, torch.from_numpy(ids),
+                              torch.from_numpy(mask)).numpy()
+    assert (_cosines(out, ref) > 1 - 1e-5).all()
+    np.testing.assert_allclose(out, np.asarray(ref), atol=1e-4)
+    packed = _packed(ids, lengths, 32)
+    arrays = (packed.input_ids, packed.segment_ids, packed.positions,
+              packed.seq_index)
+    ref = jbert.encode_tokens_packed(qparams, *map(jnp.asarray, arrays),
+                                     packed.n_sequences, jconfig,
+                                     compute_dtype=jnp.float32)
+    out = tbert.encode_tokens_packed(encoder, *map(torch.from_numpy, arrays),
+                                     packed.n_sequences).numpy()
+    assert (_cosines(out, ref) > 1 - 1e-5).all()
+    np.testing.assert_allclose(out, np.asarray(ref), atol=1e-4)
+
+
 def test_init_encoder_quantizes_when_asked():
     _, tconfig = _configs(quantize=True)
     encoder = tbert.init_encoder(tconfig, torch.Generator().manual_seed(5),
@@ -391,6 +508,27 @@ def test_encoder_layer_hands_projection_views_to_attention():
         assert t.shape == (3, tconfig.num_heads, 16, tconfig.head_dim)
         assert t.stride(-1) == 1 and not t.is_contiguous()
         assert _lies_in(t, outputs[name]), name
+
+
+def test_quantized_layer_hands_views_of_the_packed_qkv_to_attention():
+    """The quantized EncoderLayer passes q, k and v as (B, N, S, D) views
+    of the one qkv output: token stride 3H, offsets 0, H, 2H."""
+    _, tconfig = _configs(quantize=True)
+    layer = tbert.init_encoder(tconfig, torch.Generator().manual_seed(0),
+                               device="cpu").layers[0]
+    outputs = _capture_outputs({"qkv": layer.qkv})
+    seen = []
+    x = torch.randn(3, 16, tconfig.hidden_size)
+    mask = torch.ones(3, 16, dtype=torch.int32)
+    layer(x, _spy(seen, tbert._ATTENTION[("kernel", "padding")]), mask)
+    (q, k, v), = seen
+    H, N, D = tconfig.hidden_size, tconfig.num_heads, tconfig.head_dim
+    base = outputs["qkv"]
+    for i, t in enumerate((q, k, v)):
+        assert t.shape == (3, N, 16, D)
+        assert t.stride() == (16 * 3 * H, D, 3 * H, 1)
+        assert _lies_in(t, base)
+        assert t.data_ptr() - base.data_ptr() == i * H * t.element_size()
 
 
 def test_prenorm_block_hands_projection_views_to_attention():

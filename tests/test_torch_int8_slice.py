@@ -65,6 +65,11 @@ def test_the_port_serves_the_int8_encoder(servers):
     layer = models[0].encoder.layers[0]
     assert isinstance(layer.ffn_in, Int8Linear)
     assert layer.ffn_in.weight_q.dtype == torch.int8
+    # q, k and v in one packed (3H, H) int8 layer
+    H = models[0].encoder.config.hidden_size
+    assert isinstance(layer.qkv, Int8Linear)
+    assert tuple(layer.qkv.weight_q.shape) == (3 * H, H)
+    assert not hasattr(layer, "query")
     # memory_bytes counts the int8 weights and their scales
     assert models[0].memory_bytes() == sum(
         t.numel() * t.element_size()

@@ -5,7 +5,8 @@ the fused W8A8 linear layer). The attention kernels are also fed the
 encoders' own layouts (views of the projection outputs), ragged token
 counts and head dims, and masks that exercise each tile-skipping rule of
 csrc/attention_tile.cuh; the built library's bf16 attention instances must
-hold tensor-core instructions (HMMA).
+hold tensor-core instructions (HMMA), and B3's GEMM instances the
+warpgroup MMA (IGMMA) and no mma.sync (IMMA).
 Skips without an sm_90 CUDA device and nvcc; on a Hopper host run
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
@@ -14,7 +15,8 @@ Skips without an sm_90 CUDA device and nvcc; on a Hopper host run
 need not have). Tolerances as chip_smoke.py's kernel phases: attention
 ``chip_smoke.check_attention`` (fp32 |err| <= 1e-5; bf16 |err| <= 4e-3 +
 1e-2 |ref|, and a softmax scale off by 10% must fail that bound); B3 as its
-quant_kernel phase.
+quant_kernel phase: equal to its twin bit for bit (torch.equal), fp32 and
+bf16.
 """
 
 import os
@@ -280,32 +282,79 @@ def test_bf16_attention_instances_run_on_tensor_cores(card):
     assert not any("HMMA" in f for f in fp32)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("K,N", chip_smoke.W8A8_WIDTHS)
-@pytest.mark.parametrize("M", [1, 32, 37, 4096, 17408])
-def test_w8a8_kernel_matches_twin(card, M, K, N, dtype):
-    """B3 against its twin: fp32 within 1e-5 of max |ref|, bf16 within one
-    bf16 ulp (chip_smoke.py's w8a8_error)."""
-    x, w_q, w_scale, bias = w8a8_inputs(M, K, N, dtype, seed=M + K + N)
+def _check_w8a8(M, K, N, dtype, seed):
+    """B3 equals its twin bit for bit and counts one launch."""
+    x, w_q, w_scale, bias = w8a8_inputs(M, K, N, dtype, seed=seed)
     before = qm.LAUNCHES["w8a8"]
     out = qm.w8a8_matmul(x, w_q, w_scale, bias)
     torch.cuda.synchronize()
     assert qm.LAUNCHES["w8a8"] == before + 1
     assert out.dtype == dtype and tuple(out.shape) == (M, N)
     assert torch.isfinite(out).all()
-    ref = qm.w8a8_matmul_reference(x, w_q, w_scale, bias)
-    assert chip_smoke.w8a8_error(out, ref) <= chip_smoke.W8A8_TOLERANCE[
-        str(dtype).split(".")[-1]]
+    assert torch.equal(out, qm.w8a8_matmul_reference(x, w_q, w_scale, bias))
 
 
-@pytest.mark.parametrize("M,K,N", [(5, 16, 1), (3, 48, 13), (130, 80, 129)])
-def test_w8a8_kernel_ragged_edges(card, M, K, N):
-    """K tails shorter than a 64-byte stage, odd N (no paired stores) and
-    tiles that overhang M and N."""
-    x, w_q, w_scale, bias = w8a8_inputs(M, K, N, torch.float32, seed=M * N)
-    out = qm.w8a8_matmul(x, w_q, w_scale, bias)
-    ref = qm.w8a8_matmul_reference(x, w_q, w_scale, bias)
-    assert chip_smoke.w8a8_error(out, ref) <= 1e-5
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,N", chip_smoke.W8A8_WIDTHS)
+@pytest.mark.parametrize("M", [1, 32, 37, 4096, 17408])
+def test_w8a8_kernel_matches_twin(card, M, K, N, dtype):
+    """B3 against its twin over the registry's widths: exactly equal."""
+    _check_w8a8(M, K, N, dtype, seed=M + K + N)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", chip_smoke.W8A8_RAGGED)
+def test_w8a8_kernel_ragged_edges(card, M, K, N, dtype):
+    """K tails shorter than a 128-byte stage, output rows whose stride is
+    not a multiple of 16 bytes (the element-wise store path), tiles that
+    overhang M and N, and a query's M = 1 and 32."""
+    _check_w8a8(M, K, N, dtype, seed=M * N)
+
+
+def _gemm_tile_widths(fn) -> set:
+    """The tile widths (BN) of the GEMM instances one call of ``fn``
+    launches, read from the kernels' names in a torch.profiler trace
+    (demangled, w8a8_gemm<float, 64>, or mangled, w8a8_gemmIfLi64E)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    widths = set()
+    for event in prof.key_averages():
+        found = re.search(r"w8a8_gemm(?:<\w+, |I\w*?Li)(\d+)", event.key)
+        if found:
+            widths.add(int(found.group(1)))
+    return widths
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,tile_n", [
+    (1, 16, 1, 64), (37, 80, 130, 64), (32, 768, 3072, 64),
+    (1024, 3072, 768, 64), (4096, 3072, 770, 128),
+    (17408, 768, 3072, 128)])
+def test_w8a8_every_instance_matches_twin(card, M, K, N, tile_n, dtype):
+    """Both GEMM instances, on shapes either side of the kernel's rule
+    (128-wide tiles where they fill the SMs, else 64-wide), ragged and on
+    the main path, each launching the instance named; K = 3072 wraps even
+    the deepest ring (8 stages) three times per tile."""
+    _check_w8a8(M, K, N, dtype, seed=M + N + tile_n)
+    x, w_q, w_scale, bias = w8a8_inputs(M, K, N, dtype, seed=0)
+    assert _gemm_tile_widths(
+        lambda: qm.w8a8_matmul(x, w_q, w_scale, bias)) == {tile_n}
+
+
+def test_w8a8_gemm_instances_run_on_warpgroup_mma(card):
+    """Every GEMM instance of B3 (two tile widths, fp32 and bf16 out)
+    holds the warpgroup MMA on int8 (IGMMA) and no mma.sync (IMMA)."""
+    library = _build.load_library()
+    sass = subprocess.run([_cuobjdump(), "-sass", library._name],
+                          capture_output=True, text=True, check=True).stdout
+    functions = re.split(r"\n\s*Function : ", sass)[1:]
+    gemm = [f for f in functions if "w8a8_gemm" in f.split()[0]]
+    assert len(gemm) == 2 * 2
+    assert all("IGMMA" in f for f in gemm)
+    assert not any("IMMA" in f for f in gemm)
 
 
 def test_w8a8_kernel_refuses_what_it_does_not_take(card):

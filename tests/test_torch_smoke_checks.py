@@ -1,6 +1,8 @@
-"""chip_smoke.py's attention checks, on the CPU: the bound counts only the
-keys the mask needs, and the bf16 tolerance passes the twin against itself
-but refuses the twin with a wrong softmax scale."""
+"""chip_smoke.py's checks and bounds, on the CPU: the attention bound
+counts only the keys the mask needs, and the bf16 tolerance passes the twin
+against itself but refuses the twin with a wrong softmax scale; B3's bounds
+count each byte once; B3's ragged cases reach its element-wise store
+path."""
 
 import pytest
 import torch
@@ -67,3 +69,38 @@ def test_bf16_tolerance_refuses_a_wrong_softmax_scale(monkeypatch, name,
     # a control the tolerance cannot tell from the twin fails it too
     with pytest.raises(chip_smoke.SmokeFailure, match="passes a softmax"):
         chip_smoke.check_attention(ref, ref, ref, name)
+
+
+@pytest.mark.parametrize("M,K,N,bytes_moved,operations", [
+    # bf16 x, int8 w_q, fp32 w_scale and bias, bf16 out; 2 M K N int8 ops
+    (32768, 768, 3072, 32768 * 768 * 2 + 3072 * 768 + 3072 * 8 +
+     32768 * 3072 * 2, 2 * 32768 * 768 * 3072),
+    (32, 768, 2304, 32 * 768 * 2 + 2304 * 768 + 2304 * 8 + 32 * 2304 * 2,
+     2 * 32 * 768 * 2304),
+])
+def test_w8a8_bound_counts_each_byte_once(monkeypatch, M, K, N, bytes_moved,
+                                          operations):
+    monkeypatch.setattr(chip_smoke, "bound", lambda b, o, peak: (b, o, peak))
+    assert chip_smoke.w8a8_bound(M, K, N) == (bytes_moved, operations,
+                                              chip_smoke.PEAK_INT8_OPS)
+
+
+@pytest.mark.parametrize("K,bound_ms", [(768, 0.0225), (3072, 0.0901)])
+def test_quantize_bound_is_the_bytes_of_one_read_and_one_write(K, bound_ms):
+    """bf16 x read once, int8 x_q and the fp32 scales written once: 75 MB
+    at K = 768 and 300 MB at K = 3072 for the padded ingest batch."""
+    bound = chip_smoke.quantize_bound(32768, K)
+    assert bound["bound_by"] == "bytes"
+    assert abs(bound["bound_ms"] - bound_ms) < 1e-4
+
+
+def test_w8a8_ragged_cases_reach_the_element_wise_store_path():
+    """Some ragged N give bf16 output rows whose stride is not a multiple
+    of 16 bytes, and the cases span the 64- and 128-wide GEMM tiles."""
+    ns = [N for _, _, N in chip_smoke.W8A8_RAGGED]
+    assert any(N * 2 % 16 for N in ns) and any(N * 4 % 16 for N in ns)
+    assert min(M for M, _, _ in chip_smoke.W8A8_RAGGED) == 1
+    assert max(M for M, _, _ in chip_smoke.W8A8_RAGGED) > 4096
+    assert all(K % 16 == 0 for _, K, _ in chip_smoke.W8A8_RAGGED)
+    assert (768, 2304) in chip_smoke.W8A8_WIDTHS
+    assert (768, 2304) in chip_smoke.W8A8_PATH_WIDTHS

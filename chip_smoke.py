@@ -32,45 +32,65 @@ phases and prints one JSON object per phase:
                    path's own shapes (M = 32768 padded ingest, 17408
                    packed, 32 for a query, by (768, 768), (768, 2304) for
                    the packed q, k, v, (768, 3072), (3072, 768))
-  6. encoder       e5-base-v2-width encoder on the same random weights:
+  6. c1_shapes     ROADMAP C1's repair: B1 (both modes) at head dims 48, 72
+                   and 80 on (32, 8, 128), B2 no-mask at SigLIP SO400M's
+                   (8, 16, 729, 72), to phase 3's bounds; B3 at K = 5120 and
+                   4112 (the two-pass quantizer) and int8 layers at K = 40
+                   and 200 (zero-padded), bit for bit
+  7. encoder       e5-base-v2-width encoder on the same random weights:
                    B1 ("kernel") and B2 ("flash") paths against the twin
                    path, padded and packed
-  7. int8_encoder  the same width with quantize=True: the B3 path against
+  8. int8_encoder  the same width with quantize=True: the B3 path against
                    the twin path, padded and packed (four B3 launches per
                    block: q, k and v are one GEMM); the int8 encoder
                    against the bf16 one on the same weights
-  8. clip_encoder  the ViT-L/14 towers at full width and depth, random
+  9. clip_encoder  the ViT-L/14 towers at full width and depth, random
                    weights: the vision tower on B2 against the twin, batch 16
-  9. serve         the in-process HTTP server: an e5-base-v2-width
+ 10. serve         the in-process HTTP server: an e5-base-v2-width
                    random-init index, 256 documents of mixed lengths,
                    TENSOR and HYBRID searches and an embed; both B1 modes
                    must have run
- 10. clip_serve    the same server: an open_clip ViT-L/14 random-init index
+ 11. clip_serve    the same server: an open_clip ViT-L/14 random-init index
                    with treatUrlsAndPointersAsImages, 64 documents with an
                    image file, a caption and a multimodal_combination
                    field; TENSOR searches by text, by an image path and
                    weighted, and an image embed; B2's no-mask mode must
                    have run during the adds and the image search
- 11. int8_serve    the serve phase's index with quantize: true; B3 must
+ 12. int8_serve    the serve phase's index with quantize: true; B3 must
                    have run during the adds and during the searches, B1 too
- 12. rerank        tensor_search.search on the serve phase's index with a
+ 13. rerank        tensor_search.search on the serve phase's index with a
                    cross-encoder reranker at ms-marco-MiniLM-L-6 width: hits
                    re-sorted by the cross-encoder's scores, B1 padding ran
- 13. stella_serve  an hf_stella random-init index at stella_en_400M_v5
+ 14. stella_serve  an hf_stella random-init index at stella_en_400M_v5
                    width, 64 documents and the searches; B1 ran
- 14. hf_clip_serve an xlm-roberta-base-ViT-B-32 random-init image index:
+ 15. hf_clip_serve an xlm-roberta-base-ViT-B-32 random-init image index:
                    search by text and by image; B1 and B2 no-mask ran
- 15. timing        kernel, twin and library-call times (attention on
+ 16. siglip_serve  the same server: a ViT-B-16-SigLIP random-init image
+                   index at full width (Marqo/marqo-fashionSigLIP's shape),
+                   searches by text and by image; exactly 12 B2 no-mask
+                   launches per tower call; the vectors against the plain
+                   twins' on the card (cosine >= 1 - 1e-3)
+ 17. nllb_siglip_encode
+                   NLLB-SigLIP base at full width (M2M-100 1024/16 heads,
+                   vocab 256206; ViT-B-16 at 384 px): texts of mixed
+                   lengths on B1 padding, images on B2 no-mask, against the
+                   plain twins on the card
+ 18. conv_clip_encode
+                   RN50 and convnext_base (224 px) at full width, text and
+                   images; no kernel of ours runs there, so each bf16 tower
+                   is held against itself in fp32 on the card
+ 19. timing        kernel, twin and library-call times (attention on
                    contiguous inputs as earlier runs timed them, and at the
                    main-path shapes also in the encoders' own layout, which
                    the kernels line reports), B3 against the bf16 F.linear
                    it replaces and torch._int_mm, B3's row quantizer and
-                   GEMM apart (torch.profiler) against their bounds, the
-                   int8 against the bf16 e5 encoder, the
-                   bf16 e5 encoder padded and packed on a log-normal ingest
-                   batch, ViT-L/14 images per second on the kernel and twin
-                   paths, add throughput and search latency (information
-                   only)
+                   GEMM apart (torch.profiler) against their bounds; C1's
+                   head dims on B1, B2 at the SigLIP towers' shapes and B3
+                   at K = 5120, each with its library call; the int8
+                   against the bf16 e5 encoder, the bf16 e5 encoder padded
+                   and packed on a log-normal ingest batch, ViT-L/14 images
+                   per second on the kernel and twin paths, add throughput
+                   and search latency (information only)
 
 then the card's name and power limit as nvidia-smi gives them, a
 {"kernels": [...]} line, and as the last line
@@ -164,6 +184,52 @@ W8A8_RAGGED = ((5, 16, 1), (3, 48, 13), (130, 80, 129), (1, 768, 100),
 # and v packed into one)
 W8A8_PATH_M = (256 * 128, 136 * 128, 32)
 W8A8_PATH_WIDTHS = ((768, 768), (768, 2304), (768, 3072), (3072, 768))
+# ROADMAP C1's shapes: B1 at the head dims it took only after the repair
+# (48: a 384-wide 8-head encoder; 72: SigLIP SO400M; 80: open_clip H) as
+# (B, N, S, D); B2's no-mask mode at SigLIP SO400M/14 at 384 px (729
+# tokens, D = 72); B3 on rows longer than the one-read quantizer holds
+# (K = 5120, an FFN of that width, and 4112, just past 4096), and int8
+# layers whose K is no multiple of 16 (zero-padded when they load)
+C1_B1_CASES = tuple((32, 8, 128, D) for D in (48, 72, 80))
+C1_B2_CASES = ((8, 16, 729, 72, ("nomask",)),)
+C1_W8A8_CASES = ((4096, 5120, 1280), (37, 5120, 64), (5, 4112, 16))
+C1_INT8_LAYER_K = (40, 200)
+# ViT-B-16-SigLIP at full width (the shape of Marqo/marqo-fashionSigLIP;
+# models/siglip.py _SIGLIP_ARCHS): 768 wide, 12 + 12 layers, 12 heads, MLP
+# 3072, patch 16 at 224 px (196 tokens), 64 text positions, vocab 32000
+SIGLIP_B16 = {"vocab_size": 32000, "context_length": 64, "patch_size": 16,
+              "text_layers": 12, "text_heads": 12, "text_intermediate": 3072,
+              "vision_layers": 12, "vision_heads": 12,
+              "vision_intermediate": 3072}
+SIGLIP_DIMS = 768
+SIGLIP_DOCS = 32
+# visheratin/nllb-clip-base-siglip (models/nllb_siglip.py NLLB_SIGLIP_ARCHS):
+# the NLLB-200 distilled-600M encoder (1024 wide, 12 layers, 16 heads, FFN
+# 4096, vocab 256206) and ViT-B-16 SigLIP at 384 px (576 tokens), 768-d
+NLLB_SIGLIP_BASE = {"vocab_size": 256206, "text_hidden_size": 1024,
+                    "text_layers": 12, "text_heads": 16,
+                    "text_intermediate": 4096, "max_positions": 1024,
+                    "patch_size": 16, "vision_layers": 12,
+                    "vision_heads": 12, "vision_intermediate": 3072}
+NLLB_SIGLIP_DIMS = 768
+# open_clip RN50 and convnext_base at 224 px (models/resnet_clip.py
+# RESNET_CONFIGS, models/convnext_clip.py CONVNEXT_CONFIGS) with their CLIP
+# text towers (512 wide, 12 layers, 8 heads)
+CLIP_TEXT_512 = {"vocab_size": 49408, "text_hidden_size": 512,
+                 "text_layers": 12, "text_heads": 8, "text_intermediate": 2048}
+RN50 = {**CLIP_TEXT_512, "layers": (3, 4, 6, 3), "width": 64, "heads": 32}
+RN50_DIMS = 1024
+CONVNEXT_BASE = {**CLIP_TEXT_512, "depths": (3, 3, 27, 3),
+                 "dims": (128, 256, 512, 1024)}
+CONVNEXT_BASE_DIMS = 512
+# the convnet towers' bf16 output against the same module in fp32 on the
+# card: cosine >= 1 - CONV_COS_TOL (the CPU tests' bf16 bound)
+CONV_COS_TOL = 1e-3
+# B2's no-mask mode on the SigLIP paths, (B, N, S, D), batch 16 as the
+# serve phase's adds give it: ViT-B-16-SigLIP's text (64 positions) and
+# image (196 patches) towers; SO400M/14 at 384 px (729 patches, D = 72)
+SIGLIP_ATTENTION_SHAPES = ((16, 12, 64, 64), (16, 12, 196, 64),
+                           (16, 16, 729, 72))
 B3_SOURCE = "marqo_tpu_torch/csrc/w8a8_matmul.cu"
 B3_REPLACES = "marqo_tpu/ops/quant_matmul.py:36"
 # one NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet, dense):
@@ -206,6 +272,40 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn, iters: int) -> float:
+    """Device ms per call of ``fn`` where one call holds the host longer
+    than the device (small shapes): the calls queue behind a device-side
+    sleep long enough for the host to enqueue them all (200 µs of host
+    time a call at the card's ~2 GHz), so the events around them see the
+    device run them back to back."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(iters * 200e-6 * 2e9))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def paired_queued_ms(kernel, plain, library, iters: int) -> dict:
+    """As ``paired_ms`` (plain, kernel, kernel, plain), each run queued
+    (``queued_ms``), with the library call's queued time and the kernel's
+    back-to-back time (``cuda_ms``: the host's, where it is the longer)."""
+    p1 = queued_ms(plain, iters)
+    k1 = queued_ms(kernel, iters)
+    k2 = queued_ms(kernel, iters)
+    p2 = queued_ms(plain, iters)
+    return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2],
+            "library_ms": queued_ms(library, iters),
+            "back_to_back_ms": cuda_ms(kernel, iters)}
 
 
 def kernel_times_ms(fn, iters: int, names) -> dict:
@@ -466,6 +566,11 @@ def write_images(directory: str, n: int, seed: int) -> list:
     return paths
 
 
+def np_finite(array) -> bool:
+    import numpy as np
+    return bool(np.isfinite(array).all())
+
+
 def min_cos(a, b) -> float:
     import torch
     return float(torch.nn.functional.cosine_similarity(a, b).min())
@@ -481,14 +586,17 @@ def layouts(q, k, v, names=("contiguous",) + PROJECTION_LAYOUTS):
                (name, *projection_views(q, k, v, name)))
 
 
-def phase_kernel(fa, torch):
+def b1_checks(fa, torch, cases):
+    """B1 against its twin, both modes, fp32 and bf16, over (B, N, S, D)
+    cases in the contiguous and the projection layouts. Returns the
+    results and the largest absolute error per mode."""
     errors = {"padding": 0.0, "segment": 0.0}
     results = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        for S, B, D in B1_CASES:
-            shape = [B, 12, S, D]
-            q, k, v, pad, seg = attention_inputs(B, 12, S, D, dtype, seed=S)
+        for B, N, S, D in cases:
+            shape = [B, N, S, D]
+            q, k, v, pad, seg = attention_inputs(B, N, S, D, dtype, seed=S)
             for layout, q, k, v in layouts(q, k, v):
                 for mode, mask, kernel, plain in (
                         ("padding", pad, fa.attention_padding,
@@ -512,17 +620,18 @@ def phase_kernel(fa, torch):
                                     "shape": shape, "layout": layout,
                                     **result})
                     errors[mode] = max(errors[mode], result["max_abs_err"])
-    emit("kernel", ok=True, atol=ATOL, rtol=RTOL, checks=len(results),
-         results=results)
-    return errors
+    return results, errors
 
 
-def phase_fused_kernel(fused, torch):
+def b2_checks(fused, torch, cases):
+    """B2 against its twin, fp32 and bf16, over (B, N, S, D, modes) cases
+    in the contiguous and the projection layouts. Returns the results and
+    the largest absolute error per mode."""
     errors = {"nomask": 0.0, "segment": 0.0}
     results = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        for B, N, S, D, names in FUSED_CASES:
+        for B, N, S, D, names in cases:
             shape = [B, N, S, D]
             q, k, v, pad, seg = attention_inputs(B, N, S, D, dtype,
                                                  seed=B * S * D)
@@ -550,6 +659,39 @@ def phase_fused_kernel(fused, torch):
                                     "shape": shape, "layout": layout,
                                     **result})
                     errors[mode] = max(errors[mode], result["max_abs_err"])
+    return results, errors
+
+
+def w8a8_check(qm, torch, M, K, N, dtype) -> dict:
+    """B3 at (M, K, N) against its twin: equal bit for bit."""
+    dname = str(dtype).split(".")[-1]
+    x, w_q, w_scale, bias = w8a8_inputs(M, K, N, dtype, seed=M + K + N)
+    out = qm.w8a8_matmul(x, w_q, w_scale, bias)
+    torch.cuda.synchronize()
+    ref = qm.w8a8_matmul_reference(x, w_q, w_scale, bias)
+    check(out.dtype == dtype and tuple(out.shape) == (M, N),
+          f"w8a8 output {out.dtype} {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()),
+          f"non-finite w8a8 output ({dname}, {M}, {K}, {N})")
+    abs_err = float((out.float() - ref.float()).abs().max())
+    unequal = int((out != ref).sum())
+    check(torch.equal(out, ref),
+          f"w8a8 kernel vs twin ({dname}, {M}, {K}, {N}): {unequal} "
+          f"values differ, max |out - ref| {abs_err}")
+    return {"dtype": dname, "shape": [M, K, N], "unequal": unequal,
+            "max_abs_err": abs_err}
+
+
+def phase_kernel(fa, torch):
+    results, errors = b1_checks(fa, torch, [(B, 12, S, D)
+                                            for S, B, D in B1_CASES])
+    emit("kernel", ok=True, atol=ATOL, rtol=RTOL, checks=len(results),
+         results=results)
+    return errors
+
+
+def phase_fused_kernel(fused, torch):
+    results, errors = b2_checks(fused, torch, FUSED_CASES)
     emit("fused_kernel", ok=True, atol=ATOL, rtol=RTOL, checks=len(results),
          results=results)
     return errors
@@ -566,30 +708,56 @@ def phase_quant_kernel(qm, torch):
     cases += [(M, K, N, True) for M in W8A8_PATH_M
               for K, N in W8A8_PATH_WIDTHS]
     for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).split(".")[-1]
         for M, K, N, on_path in cases:
-            x, w_q, w_scale, bias = w8a8_inputs(M, K, N, dtype,
-                                                seed=M + K + N)
-            out = qm.w8a8_matmul(x, w_q, w_scale, bias)
-            torch.cuda.synchronize()
-            ref = qm.w8a8_matmul_reference(x, w_q, w_scale, bias)
-            check(out.dtype == dtype and tuple(out.shape) == (M, N),
-                  f"w8a8 output {out.dtype} {tuple(out.shape)}")
-            check(bool(torch.isfinite(out).all()),
-                  f"non-finite w8a8 output ({dname}, {M}, {K}, {N})")
-            abs_err = float((out.float() - ref.float()).abs().max())
-            unequal = int((out != ref).sum())
-            results.append({"dtype": dname, "shape": [M, K, N],
-                            "main_path": on_path, "unequal": unequal,
-                            "max_abs_err": abs_err})
-            check(torch.equal(out, ref),
-                  f"w8a8 kernel vs twin ({dname}, {M}, {K}, {N}): {unequal} "
-                  f"values differ, max |out - ref| {abs_err}")
+            result = w8a8_check(qm, torch, M, K, N, dtype)
+            results.append({**result, "main_path": on_path})
             if on_path:
-                path_errors[dname] = max(path_errors[dname], abs_err)
+                path_errors[result["dtype"]] = max(
+                    path_errors[result["dtype"]], result["max_abs_err"])
     emit("quant_kernel", ok=True, tolerance="exact (torch.equal)",
          checks=len(results), results=results)
     return path_errors
+
+
+def phase_c1_shapes(fa, fused, qm, torch):
+    """ROADMAP C1's repair on the card: B1, both modes, at head dims 48, 72
+    and 80; B2's no-mask mode at SigLIP SO400M's (729 tokens, D = 72), both
+    within the attention bound with the x0.9-scale control; B3 at K = 5120
+    and 4112, and int8 layers whose K is no multiple of 16 (zero-padded
+    weights, x padded to match), equal to their twins bit for bit."""
+    from marqo_tpu_torch.models import bert
+    b1_results, b1_errors = b1_checks(fa, torch, C1_B1_CASES)
+    b2_results, b2_errors = b2_checks(fused, torch, C1_B2_CASES)
+    w8a8_results = [w8a8_check(qm, torch, M, K, N, dtype)
+                    for dtype in (torch.float32, torch.bfloat16)
+                    for M, K, N in C1_W8A8_CASES]
+    layer_results = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for K in C1_INT8_LAYER_K:
+            rng = torch.Generator(device=DEVICE).manual_seed(K)
+            weight = (0.05 * torch.randn(96, K, generator=rng,
+                                         device=DEVICE)).to(dtype)
+            bias = torch.randn(96, generator=rng, device=DEVICE).to(dtype)
+            x = torch.randn(33, K, generator=rng, device=DEVICE).to(dtype)
+            layer = bert.Int8Linear.from_weight(weight, bias)
+            before = qm.LAUNCHES["w8a8"]
+            out = layer(x)
+            torch.cuda.synchronize()
+            w_q, w_scale = bert.quantize_weight(weight)
+            ref = bert.int8_linear_reference(x, w_q, w_scale, bias)
+            check(qm.LAUNCHES["w8a8"] == before + 1 and
+                  torch.equal(out, ref),
+                  f"int8 layer at K={K} ({dtype}) vs the unpadded twin")
+            layer_results.append({"dtype": str(dtype).split(".")[-1],
+                                  "K": K, "kernel_K": layer.weight_q.shape[1],
+                                  "max_abs_err": float(
+                                      (out.float() - ref.float()).abs().max())})
+    emit("c1_shapes", ok=True, atol=ATOL, rtol=RTOL,
+         tolerance_w8a8="exact (torch.equal)",
+         checks=len(b1_results) + len(b2_results) + len(w8a8_results) +
+         len(layer_results), b1=b1_results, b2=b2_results,
+         w8a8=w8a8_results, int8_layer=layer_results)
+    return b1_errors, b2_errors
 
 
 def phase_int8_encoder(torch):
@@ -1145,6 +1313,247 @@ def phase_clip_serve(server, torch):
     return launches, add_seconds
 
 
+def _device():
+    """The package's Device for DEVICE."""
+    from marqo_tpu_torch.inference.types import Device
+    return Device.CUDA if DEVICE == "cuda" else Device.CPU
+
+
+def _loaded_model(model_type, name):
+    models = [m for m in _loaded_models(model_type) if m.model_name == name]
+    check(len(models) == 1, f"{name} is not loaded once: {len(models)}")
+    return models[0]
+
+
+def _count_tower_calls(towers: dict):
+    """Forward hooks that count each tower's calls; returns the counts and
+    the hooks' handles."""
+    calls = dict.fromkeys(towers, 0)
+
+    def hook(name):
+        def count(*_):
+            calls[name] += 1
+        return count
+
+    return calls, [tower.register_forward_hook(hook(name))
+                   for name, tower in towers.items()]
+
+
+def _kernel_against_plain(model, torch, texts, images) -> dict:
+    """Normalized vectors of the model's wrapper on the kernels and on
+    the plain twins (``set_attention_impl``), same card, same weights:
+    the least cosine between them, for text and for images."""
+    from marqo_tpu_torch.inference.types import Modality
+    runs = {}
+    for impl in ("plain", "kernel"):
+        model.set_attention_impl(impl)
+        runs[impl] = (model.encode(texts),
+                      model.encode(images, modality=Modality.IMAGE))
+    return {kind: float((runs["kernel"][i] * runs["plain"][i]).sum(-1).min())
+            for i, kind in enumerate(("text", "image"))}
+
+
+def phase_siglip_serve(server, torch):
+    """ViT-B-16-SigLIP (the shape of Marqo/marqo-fashionSigLIP) at full
+    width behind the HTTP server: an image index (captions and images),
+    searches by text and by image. Both towers run B2's no-mask mode: 12
+    launches per tower call (the latent pool launches none); the served
+    vectors match the plain twins' on the same card."""
+    from marqo_tpu_torch.models.siglip import TorchSigLIPModel
+    req = server.req
+    name = "smoke-ViT-B-16-SigLIP"
+    props = {"name": name, "type": "open_clip", "random_init": True,
+             "dimensions": SIGLIP_DIMS, "image_size": 224,
+             "architecture": SIGLIP_B16}
+    req("POST", "/indexes/siglip", {"model": name, "modelProperties": props,
+                                    "treatUrlsAndPointersAsImages": True})
+    colours = ["red", "green", "blue", "yellow", "purple", "orange", "grey",
+               "white"]
+    fields = {"tensorFields": ["image", "caption"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_images(tmp, SIGLIP_DOCS + 1, seed=12)
+        docs = [{"_id": f"img{i}", "image": paths[i],
+                 "caption": f"a {colours[i % 8]} dress, number {i}"}
+                for i in range(SIGLIP_DOCS)]
+        # the first add loads the model onto the card
+        res = req("POST", "/indexes/siglip/documents", {
+            "documents": [{"_id": "warm", "image": paths[-1],
+                           "caption": "a warm-up photo"}], **fields})
+        check(res["errors"] is False, f"siglip add_documents errors: {res}")
+        model = _loaded_model(TorchSigLIPModel, name)
+        calls, hooks = _count_tower_calls({"text": model.encoder.text,
+                                           "vision": model.encoder.vision})
+        reset_counts()
+        try:
+            start = time.perf_counter()
+            for b in range(0, SIGLIP_DOCS, 16):
+                res = req("POST", "/indexes/siglip/documents",
+                          {"documents": docs[b:b + 16], **fields})
+                check(res["errors"] is False,
+                      f"siglip add_documents errors: {res}")
+            add_seconds = time.perf_counter() - start
+            text_hits = req("POST", "/indexes/siglip/search",
+                            {"q": "a red dress", "searchMethod": "TENSOR",
+                             "limit": 5})["hits"]
+            probe = SIGLIP_DOCS // 3
+            image_hits = req("POST", "/indexes/siglip/search",
+                             {"q": paths[probe], "searchMethod": "TENSOR",
+                              "limit": 3})["hits"]
+            launches = read_counts()
+        finally:
+            for handle in hooks:
+                handle.remove()
+        check(len(text_hits) > 0, "siglip text search: no hits")
+        check(image_hits and image_hits[0]["_id"] == f"img{probe}",
+              f"siglip image query: top hit {image_hits[:1]}, expected "
+              f"img{probe}")
+        cos = _kernel_against_plain(
+            model, torch, ["a red dress", "two shoes on a shelf",
+                           "a long green coat with buttons"], paths[:8])
+    stats = req("GET", "/indexes/siglip/stats")
+    check(stats.get("numberOfDocuments") == SIGLIP_DOCS + 1,
+          f"siglip index documents: {stats}")
+    devices = _model_devices(TorchSigLIPModel)
+    check(devices == {DEVICE}, f"SigLIP parameters on {devices}")
+    tower_calls = calls["text"] + calls["vision"]
+    layers = SIGLIP_B16["text_layers"]
+    check(calls["text"] > 0 and calls["vision"] > 0 and
+          launches["fused_attention_nomask"] == layers * tower_calls and
+          sum(launches.values()) == launches["fused_attention_nomask"],
+          f"siglip: expected {layers} B2 no-mask launches per tower call "
+          f"({calls}) and no other kernel: {launches}")
+    for kind, value in cos.items():
+        check(value >= 1 - 1e-3, f"siglip {kind} vectors, kernel against "
+              f"the plain twins: cosine {value}")
+    emit("siglip_serve", ok=True, docs=SIGLIP_DOCS + 1,
+         documents_in_index=stats.get("numberOfDocuments"),
+         vectors_in_index=stats.get("numberOfVectors"),
+         image_query_top_hit=image_hits[0]["_id"], tower_calls=calls,
+         launches=launches, min_cosine_kernel_vs_plain=cos,
+         model_devices=sorted(devices))
+    return launches, add_seconds
+
+
+def _text_lengths(n: int, seed: int) -> list:
+    """Texts of 1 to 40 words, so a batch pads most of its rows."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    words = ["bonjour", "le", "monde", "une", "photo", "rouge", "de", "la",
+             "mer", "sous", "un", "ciel", "gris", "et", "bleu"]
+    return [" ".join(rng.choice(words, int(rng.integers(1, 41))))
+            for _ in range(n)]
+
+
+def phase_nllb_siglip_encode(torch):
+    """NLLB-SigLIP base at full width through its wrapper on the card:
+    texts of mixed lengths (real padding) through the M2M-100 tower on
+    B1's padding mode, images (384 px) through the SigLIP tower on B2's
+    no-mask mode; held against the plain twins on the same card."""
+    from marqo_tpu_torch.inference.loaders import load_model
+    from marqo_tpu_torch.inference.types import Modality
+    props = {"name": "smoke-nllb-clip-base-siglip", "type": "open_clip",
+             "random_init": True, "dimensions": NLLB_SIGLIP_DIMS,
+             "image_size": 384, "architecture": NLLB_SIGLIP_BASE}
+    model = load_model(props["name"], props, _device())
+    texts = _text_lengths(24, seed=13)
+    tokens = model._tokenize(texts)
+    padding = float((tokens == model.text_config.pad_token_id).mean())
+    check(padding > 0.2, f"nllb texts barely pad ({padding})")
+    with tempfile.TemporaryDirectory() as tmp:
+        images = write_images(tmp, 8, seed=14)
+        calls, hooks = _count_tower_calls({"text": model.encoder.text,
+                                           "vision": model.encoder.vision})
+        reset_counts()
+        try:
+            text = model.encode(texts)
+            image = model.encode(images, modality=Modality.IMAGE)
+            launches = read_counts()
+        finally:
+            for handle in hooks:
+                handle.remove()
+        cos = _kernel_against_plain(model, torch, texts, images)
+    devices = {t.device.type for t in (*model.encoder.parameters(),
+                                       *model.encoder.buffers())}
+    check(devices == {DEVICE}, f"NLLB-SigLIP parameters on {devices}")
+    check(text.shape == (24, NLLB_SIGLIP_DIMS) and
+          image.shape == (8, NLLB_SIGLIP_DIMS) and
+          bool(np_finite(text)) and bool(np_finite(image)),
+          f"nllb outputs {text.shape} {image.shape}")
+    layers = NLLB_SIGLIP_BASE["text_layers"]
+    check(launches["masked_attention_padding"] == layers * calls["text"] > 0
+          and launches["fused_attention_nomask"] ==
+          NLLB_SIGLIP_BASE["vision_layers"] * calls["vision"] > 0,
+          f"nllb: expected B1 padding {layers} per text call and B2 "
+          f"no-mask 12 per image call ({calls}): {launches}")
+    for kind, value in cos.items():
+        check(value >= 1 - 1e-3, f"nllb {kind} vectors, kernel against "
+              f"the plain twins: cosine {value}")
+    emit("nllb_siglip_encode", ok=True, texts=len(texts),
+         tokens=list(tokens.shape), pad_share=padding, images=len(images),
+         tower_calls=calls, launches=launches,
+         min_cosine_kernel_vs_plain=cos, model_devices=sorted(devices))
+    return model, launches
+
+
+def phase_conv_clip_encode(torch):
+    """RN50 and convnext_base (224 px) at full width through their
+    wrappers on the card, text and images; no kernel of this package runs
+    in these towers, so each bf16 tower is held against the same module in
+    fp32 on the card (cosine >= 1 - CONV_COS_TOL). Returns the models for
+    the timing phase."""
+    import copy
+
+    import numpy as np
+
+    from marqo_tpu_torch.inference.loaders import load_model
+    from marqo_tpu_torch.inference.types import Modality
+    results, models = {}, {}
+    texts = _text_lengths(16, seed=15)
+    with tempfile.TemporaryDirectory() as tmp:
+        images = write_images(tmp, 16, seed=16)
+        for key, name, arch, dims in (
+                ("rn50", "smoke-open_clip/RN50/openai", RN50, RN50_DIMS),
+                ("convnext_base", "smoke-open_clip/convnext_base/laion400m",
+                 CONVNEXT_BASE, CONVNEXT_BASE_DIMS)):
+            props = {"name": name, "type": "open_clip", "random_init": True,
+                     "dimensions": dims, "image_size": 224,
+                     "architecture": arch}
+            model = load_model(name, props, _device())
+            reset_counts()
+            text = model.encode(texts)
+            image = model.encode(images, modality=Modality.IMAGE)
+            launches = read_counts()
+            fp32 = copy.deepcopy(model.encoder).float()
+            pixels = torch.from_numpy(np.stack(
+                [model._preprocess_host(p) for p in images])).to(DEVICE)
+            ids = torch.from_numpy(model._tokenize(texts)).to(DEVICE)
+            with torch.inference_mode():
+                ref_image = fp32.vision(pixels).cpu().numpy()
+                ref_text = fp32.text(ids).cpu().numpy()
+            del fp32
+            cos = {}
+            for kind, out, ref in (("text", text, ref_text),
+                                   ("image", image, ref_image)):
+                ref = ref / np.linalg.norm(ref, axis=-1, keepdims=True)
+                cos[kind] = float((out * ref).sum(-1).min())
+                check(out.shape == (len(ref), dims) and np_finite(out),
+                      f"{key} {kind} output {out.shape}")
+                check(cos[kind] >= 1 - CONV_COS_TOL,
+                      f"{key} {kind}: bf16 against fp32 on the card, "
+                      f"cosine {cos[kind]}")
+            devices = {p.device.type for p in model.encoder.parameters()}
+            check(devices == {DEVICE}, f"{key} parameters on {devices}")
+            check(not any(launches.values()),
+                  f"{key}: a kernel of this package ran: {launches}")
+            results[key] = {"min_cosine_bf16_vs_fp32": cos,
+                            "launches": launches,
+                            "model_devices": sorted(devices)}
+            models[key] = model
+    emit("conv_clip_encode", ok=True, tolerance=1 - CONV_COS_TOL,
+         texts=len(texts), images=len(images), **results)
+    return models
+
+
 def _sdpa(torch, q, k, v, allowed):
     """The library yardstick of the attention kernels: one
     scaled_dot_product_attention call with an additive -1e9 mask made
@@ -1263,6 +1672,60 @@ def phase_timing(fa, fused, qm, torch, clip_model, pixels, int8_encoder,
                          "shape": [M, K], "dtype": "bfloat16",
                          "ms": split["w8a8_quantize_rows"],
                          **quantize_bound(M, K)})
+    # ROADMAP C1's head dims on B1, both modes, and B2's no-mask mode at
+    # the SigLIP towers' shapes, in the projections' layout; B3 at K = 5120
+    # (queued: at these shapes one call holds the host longer than the
+    # device)
+    def attention_row(name, mode, shape, bounds, kernel, plain, allowed,
+                      q, k, v):
+        return {"kernel": name, "mode": mode, "shape": shape,
+                "layout": "projection", "dtype": "bfloat16", **bounds,
+                **paired_queued_ms(kernel, plain,
+                                   _sdpa(torch, q, k, v, allowed), 20)}
+
+    for B, N, S, D in C1_B1_CASES:
+        q, k, v, pad, seg = attention_inputs(B, N, S, D, torch.bfloat16,
+                                             seed=D)
+        q, k, v = projection_views(q, k, v, "projection")
+        for mode, mask, kernel, plain, allowed in (
+                ("padding", pad, fa.attention_padding,
+                 fa.attention_padding_reference, (pad > 0)[:, None, None, :]),
+                ("segment", seg, fa.attention_segment,
+                 fa.attention_segment_reference,
+                 ((seg[:, :, None] == seg[:, None, :]) &
+                  (seg[:, None, :] > 0))[:, None])):
+            rows.append(attention_row(
+                "masked_attention", mode, [B, N, S, D],
+                attention_bound(B, N, S, D, mode, mask),
+                lambda: kernel(q, k, v, mask), lambda: plain(q, k, v, mask),
+                allowed, q, k, v))
+    for B, N, S, D in SIGLIP_ATTENTION_SHAPES:
+        q, k, v, _, _ = attention_inputs(B, N, S, D, torch.bfloat16, seed=S)
+        q, k, v = projection_views(q, k, v, "projection")
+        rows.append(attention_row(
+            "fused_attention", "nomask", [B, N, S, D],
+            attention_bound(B, N, S, D, "fused_nomask"),
+            lambda: fused.fused_attention(q, k, v),
+            lambda: fused.fused_attention_reference(q, k, v), None, q, k, v))
+    M, K, N = C1_W8A8_CASES[0]
+    x, w_q, w_scale, bias = w8a8_inputs(M, K, N, torch.bfloat16, seed=M)
+    weight = (0.05 * torch.randn(N, K, device=DEVICE)).to(torch.bfloat16)
+    bias16 = bias.to(torch.bfloat16)
+    x_q = qm.quantize_rows(x.float())[0]
+    split = kernel_times_ms(lambda: qm.w8a8_matmul(x, w_q, w_scale, bias), 20,
+                            W8A8_KERNELS)
+    rows.append({"kernel": "w8a8_matmul", "mode": "w8a8", "shape": [M, K, N],
+                 "dtype": "bfloat16", **w8a8_bound(M, K, N),
+                 "quantize_ms": split["w8a8_quantize_rows"],
+                 "gemm_ms": split["w8a8_gemm"],
+                 **paired_queued_ms(
+                     lambda: qm.w8a8_matmul(x, w_q, w_scale, bias),
+                     lambda: qm.w8a8_matmul_reference(x, w_q, w_scale, bias),
+                     _int8_yardstick(torch, qm, x, w_q, w_scale, bias), 20),
+                 "int_mm_ms": queued_ms(lambda: torch._int_mm(x_q, w_q.t()),
+                                        20),
+                 "bf16_linear_ms": queued_ms(
+                     lambda: F.linear(x, weight, bias16), 20)})
     config = clip_model.vision.config
     plain_config = replace(config, attention_impl="plain")
 
@@ -1380,6 +1843,7 @@ def main() -> int:
     errors = phase_kernel(fa, torch)
     fused_errors = phase_fused_kernel(fused, torch)
     w8a8_errors = phase_quant_kernel(qm, torch)
+    phase_c1_shapes(fa, fused, qm, torch)
     encoder_launches = phase_encoder(torch)
     int8_encoder, bf16_encoder = phase_int8_encoder(torch)
     clip_model, pixels = phase_clip_encoder(torch)
@@ -1391,8 +1855,11 @@ def main() -> int:
         phase_rerank(server, torch)
         stella = phase_stella_serve(server, torch)
         hf_clip_add_seconds = phase_hf_clip_serve(server, torch)
+        _, siglip_add_seconds = phase_siglip_serve(server, torch)
     finally:
         server.close()
+    phase_nllb_siglip_encode(torch)
+    phase_conv_clip_encode(torch)
 
     timing, vit, encoder_times = phase_timing(
         fa, fused, qm, torch, clip_model, pixels, int8_encoder, bf16_encoder)
@@ -1409,6 +1876,7 @@ def main() -> int:
          stella_add_docs_per_s=(stella["docs"] - 1) / stella["add_seconds"],
          stella_search_median_ms=statistics.median(stella["latencies"]),
          hf_clip_add_docs_per_s=HF_CLIP_DOCS / hf_clip_add_seconds,
+         siglip_add_docs_per_s=SIGLIP_DOCS / siglip_add_seconds,
          search_median_ms=statistics.median(latencies), search_ms=latencies,
          note="information only")
 

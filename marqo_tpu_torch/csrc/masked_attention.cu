@@ -24,8 +24,10 @@
 // short documents is about half padding) with results unchanged bit for
 // bit; an all-pad row or a block holding a pad query visits every tile,
 // which keeps the uniform-row result exact. q, k and v are read in the
-// projections' (B, S, N, D) layout through strides. The fp32 instances keep
-// the exact FMA loop.
+// projections' (B, S, N, D) layout through strides. Head dims are any
+// multiple of 8 up to 128 (64 for e5 and NLLB, 32 for MiniLM, 48 for a
+// 384-wide 8-head encoder), on eight instances of the head dim padded to a
+// multiple of 16, as B2 has. The fp32 instances keep the exact FMA loop.
 
 #include "attention_tile.cuh"
 
@@ -51,6 +53,8 @@ struct SegmentMask {
   }
 };
 
+constexpr int kMaxHeadDim = 128;
+
 template <typename T, int DP>
 cudaError_t launch_mode(const void* q, const void* k, const void* v,
                         const void* mask, void* out, const Operands& strides,
@@ -64,38 +68,30 @@ cudaError_t launch_mode(const void* q, const void* k, const void* v,
                        head_dim, scale, stream);
 }
 
-template <typename T>
+// the instance whose padded head dim DP covers head_dim (DP - 16 < D <= DP),
+// as in fused_attention.cu: every multiple of 8 up to 128
+template <typename T, int DP = 16>
 cudaError_t launch_dtype(const void* q, const void* k, const void* v,
                          const void* mask, void* out, const Operands& strides,
                          int batch, int heads, int seq_len, int head_dim,
                          int segment, float scale, cudaStream_t stream) {
-  // the instance's head dim is D padded to a multiple of 16
-  switch (head_dim) {
-    case 8:
-    case 16:
-      return launch_mode<T, 16>(q, k, v, mask, out, strides, batch, heads,
-                                seq_len, head_dim, segment, scale, stream);
-    case 32:
-      return launch_mode<T, 32>(q, k, v, mask, out, strides, batch, heads,
-                                seq_len, head_dim, segment, scale, stream);
-    case 64:
-      return launch_mode<T, 64>(q, k, v, mask, out, strides, batch, heads,
-                                seq_len, head_dim, segment, scale, stream);
-    case 128:
-      return launch_mode<T, 128>(q, k, v, mask, out, strides, batch, heads,
-                                 seq_len, head_dim, segment, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (head_dim <= DP)
+    return launch_mode<T, DP>(q, k, v, mask, out, strides, batch, heads,
+                              seq_len, head_dim, segment, scale, stream);
+  if constexpr (DP < kMaxHeadDim)
+    return launch_dtype<T, DP + 16>(q, k, v, mask, out, strides, batch,
+                                    heads, seq_len, head_dim, segment, scale,
+                                    stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q, k, v, out: (batch, heads, seq_len, head_dim), fp32 or bf16 (bf16 !=
-// 0), given by `strides`: 12 element strides, the batch, head and token
-// strides of q, k, v and out in that order (the last axis has stride 1;
-// strides are multiples of 8 and pointers 16-byte aligned). mask: (batch,
-// seq_len) int32, contiguous. Returns the cudaError_t of the launch (0 on
+// 0), head_dim a multiple of 8 up to 128, given by `strides`: 12 element
+// strides, the batch, head and token strides of q, k, v and out in that
+// order (the last axis has stride 1; strides are multiples of 8 and
+// pointers 16-byte aligned). mask: (batch, seq_len) int32, contiguous. Returns the cudaError_t of the launch (0 on
 // success); the kernel runs asynchronously on `stream`.
 extern "C" int marqo_masked_attention(const void* q, const void* k,
                                       const void* v, const void* mask,
@@ -104,6 +100,8 @@ extern "C" int marqo_masked_attention(const void* q, const void* k,
                                       int bf16, float scale,
                                       const long long* strides,
                                       void* stream) {
+  if (head_dim < 8 || head_dim > kMaxHeadDim || head_dim % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Operands st = marqo_attention::make_operands(strides);
   const cudaError_t err =

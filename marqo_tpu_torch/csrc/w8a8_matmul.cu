@@ -37,6 +37,9 @@
 //      where the product lies within 1e-4 of a half-integer, the one place
 //      the two could round apart, so it stays exact without a division per
 //      value.
+//      A row of more than 4096 values (32 lanes x 8 chunks) does not fit a
+//      warp's registers: it takes a two-pass instance that reads the row
+//      for its absmax, then again (from L2) to quantize it.
 //   2. w8a8_gemm: the int8 product on Hopper's warpgroup MMA
 //      (wgmma.mma_async m64nNk32 .s32.s8.s8, A and B both K-major from
 //      shared memory: x_q is (M, K) and w_q is (N, K), no transposes). A
@@ -138,6 +141,29 @@ __device__ __forceinline__ float chunk_absmax(const uint4 (&w)[2]) {
   return __uint_as_float(max(m >> 16, m & 0xffffu) << 16);
 }
 
+// A chunk's 16 values quantized by the row's scale, packed as 16 int8.
+template <int kWords>
+__device__ __forceinline__ uint4 quantize_chunk(const uint4 (&raw)[kWords],
+                                                float scale, float inverse) {
+  float v[kChunk];
+  to_floats(raw, v);
+  uint32_t packed[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int j = 0; j < kChunk; ++j) {
+    // v * (1 / scale) is within 3e-5 of the IEEE quotient v / scale (|q|
+    // <= 127.5, two roundings of 2^-24 each), so its rint is the
+    // quotient's unless it lies that near a half-integer: divide there
+    const float y = __fmul_rn(v[j], inverse);
+    float q = rintf(y);
+    if (fabsf(y - q) > 0.4999f) q = rintf(__fdiv_rn(v[j], scale));
+    q = fminf(fmaxf(q, -127.f), 127.f);
+    packed[j / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(
+                         static_cast<int8_t>(static_cast<int>(q))))
+                     << (8 * (j % 4));
+  }
+  return make_uint4(packed[0], packed[1], packed[2], packed[3]);
+}
+
 // kLanes (16 or 32) lanes per row; lane l holds chunks l, l + kLanes, ...
 // of the row (K / 16 chunks; kChunks is at least their count over kLanes).
 // The row is read from device memory once.
@@ -180,23 +206,49 @@ __global__ void __launch_bounds__(kQuantWarps * 32)
   for (int c = 0; c < kChunks; ++c) {
     const int chunk = c * kLanes + lane;
     if (chunk >= chunks) break;
-    float v[kChunk];
-    to_floats(raw[c], v);
-    uint32_t packed[4] = {0u, 0u, 0u, 0u};
+    dst[chunk] = quantize_chunk(raw[c], scale, inverse);
+  }
+}
+
+// Rows longer than a warp holds in registers (more than 8 chunks a lane: K
+// over 4096, e.g. an FFN of 5120) take two passes, a warp per row: the
+// absmax, then the quantization, which reads the row again. A block's 8
+// rows (80 KB in bf16 at K = 5120) are still in L2 for the second read, so
+// device memory still sees each row about once.
+template <typename T>
+__global__ void __launch_bounds__(kQuantWarps * 32)
+    w8a8_quantize_rows_two_pass(const T* __restrict__ x,
+                                int8_t* __restrict__ x_q,
+                                float* __restrict__ x_scale, int M, int K) {
+  constexpr int kWords = ChunkWords<T>::kWords;
+  const int lane = threadIdx.x % 32;
+  // warp-uniform: a warp past M leaves whole
+  const int row = blockIdx.x * kQuantWarps + threadIdx.x / 32;
+  if (row >= M) return;
+  const int chunks = K / kChunk;
+  const uint4* src = reinterpret_cast<const uint4*>(
+      x + static_cast<size_t>(row) * K);
+  float absmax = 0.f;
+  for (int chunk = lane; chunk < chunks; chunk += 32) {
+    uint4 raw[kWords];
 #pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      // v * (1 / scale) is within 3e-5 of the IEEE quotient v / scale (|q|
-      // <= 127.5, two roundings of 2^-24 each), so its rint is the
-      // quotient's unless it lies that near a half-integer: divide there
-      const float y = __fmul_rn(v[j], inverse);
-      float q = rintf(y);
-      if (fabsf(y - q) > 0.4999f) q = rintf(__fdiv_rn(v[j], scale));
-      q = fminf(fmaxf(q, -127.f), 127.f);
-      packed[j / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(
-                           static_cast<int8_t>(static_cast<int>(q))))
-                       << (8 * (j % 4));
-    }
-    dst[chunk] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+    for (int w = 0; w < kWords; ++w) raw[w] = __ldg(src + chunk * kWords + w);
+    absmax = fmaxf(absmax, chunk_absmax(raw));
+  }
+#pragma unroll
+  for (int offset = 16; offset > 0; offset >>= 1)
+    absmax = fmaxf(absmax, __shfl_xor_sync(0xffffffffu, absmax, offset));
+  const float scale = fmaxf(__fdiv_rn(absmax, 127.f), 1e-8f);
+  const float inverse = __frcp_rn(scale);
+  if (lane == 0) x_scale[row] = scale;
+
+  uint4* dst = reinterpret_cast<uint4*>(x_q + static_cast<size_t>(row) * K);
+  for (int chunk = lane; chunk < chunks; chunk += 32) {
+    uint4 raw[kWords];
+#pragma unroll
+    for (int w = 0; w < kWords; ++w)
+      raw[w] = __ldcs(src + chunk * kWords + w);
+    dst[chunk] = quantize_chunk(raw, scale, inverse);
   }
 }
 
@@ -212,7 +264,8 @@ void launch_quantize(const void* x, void* x_q, void* x_scale, int M, int K,
 
 // the instance for K / 16 chunks: a half warp per row where that shares
 // them out evenly and a whole warp would not (K = 256 and 768), else a
-// warp with the fewest chunks a lane that hold them
+// warp with the fewest chunks a lane that hold them, and past 8 chunks a
+// lane (K > 4096) the two-pass kernel
 template <typename T>
 void quantize(const void* x, void* x_q, void* x_scale, int M, int K,
               cudaStream_t stream) {
@@ -231,8 +284,13 @@ void quantize(const void* x, void* x_q, void* x_scale, int M, int K,
     launch_quantize<T, 32, 4>(x, x_q, x_scale, M, K, stream);
   else if (per_lane <= 6)
     launch_quantize<T, 32, 6>(x, x_q, x_scale, M, K, stream);
-  else
+  else if (per_lane <= 8)
     launch_quantize<T, 32, 8>(x, x_q, x_scale, M, K, stream);
+  else
+    w8a8_quantize_rows_two_pass<T>
+        <<<(M + kQuantWarps - 1) / kQuantWarps, kQuantWarps * 32, 0,
+           stream>>>(static_cast<const T*>(x), static_cast<int8_t*>(x_q),
+                     static_cast<float*>(x_scale), M, K);
 }
 
 // --- the GEMM: TMA, mbarriers, wgmma -----------------------------------------
@@ -697,6 +755,8 @@ constexpr CUtensorMapDataType map_type() {
 }
 
 constexpr int kMaxDevices = 64;
+// the int32 sum of K products of at most 127 * 127 stays below 2^31
+constexpr int kMaxK = 131072;
 
 template <typename T, int BN>
 cudaError_t launch_gemm(const void* x_q, const void* w_q, const void* x_scale,
@@ -756,13 +816,13 @@ cudaError_t launch(const void* x, const void* w_q, const void* w_scale,
 // x: (M, K) fp32 or bf16 (bf16 != 0); w_q: (N, K) int8; w_scale, bias: (N,)
 // fp32; out: (M, N) in x's dtype; x_q: (M, K) int8 and x_scale: (M,) fp32
 // scratch. All contiguous and 16-byte aligned; M >= 1, N >= 1, K a positive
-// multiple of 16 up to 4096. Returns the cudaError_t of the launches (0 on success); the kernels run
-// asynchronously on `stream`.
+// multiple of 16 up to kMaxK. Returns the cudaError_t of the launches (0 on
+// success); the kernels run asynchronously on `stream`.
 extern "C" int marqo_w8a8_matmul(const void* x, const void* w_q,
                                  const void* w_scale, const void* bias,
                                  void* out, void* x_q, void* x_scale, int M,
                                  int K, int N, int bf16, void* stream) {
-  if (M < 1 || N < 1 || K < 16 || K % 16 != 0 || K > 4096)
+  if (M < 1 || N < 1 || K < 16 || K % 16 != 0 || K > kMaxK)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =

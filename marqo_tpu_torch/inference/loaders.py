@@ -10,8 +10,9 @@ Every model exposes:
 One device per model: the multi-device serving mesh of marqo_tpu is not
 ported yet (ROADMAP A10). Served: the BERT-family text encoder (bf16, or
 int8 W8A8 with ``quantize``), Stella (``hf_stella``), the ViT CLIP towers
-(models/clip.py) and the HF-text CLIP composites (models/hf_clip.py). Other
-families raise ModelLoadError until their slice lands.
+(models/clip.py), the HF-text CLIP composites (models/hf_clip.py), SigLIP,
+ResNet-CLIP, ConvNeXt-CLIP and NLLB-SigLIP. CoCa, EVA02 (ROADMAP A7) and
+LanguageBind (A8) raise ModelLoadError until their slice lands.
 """
 
 import hashlib
@@ -30,8 +31,9 @@ from marqo_tpu_torch.inference.batching import (batch_buckets,
 from marqo_tpu_torch.inference.types import Device, Modality
 from marqo_tpu_torch.logging import get_logger
 from marqo_tpu_torch.models.bert import (TextEncoder, TextEncoderConfig,
-                                         config_from_hf, encode_tokens,
-                                         encode_tokens_packed, init_encoder,
+                                         check_kernel_shapes, config_from_hf,
+                                         encode_tokens, encode_tokens_packed,
+                                         init_encoder,
                                          params_from_torch_state_dict)
 from marqo_tpu_torch.models.tokenizer import TextTokenizer
 
@@ -201,9 +203,13 @@ class TorchHFTextModel(EmbeddingModel):
         self.tokenizer = TextTokenizer.build_test_wordpiece(max_length=max_len)
 
     def _finalize_config(self, config: TextEncoderConfig) -> TextEncoderConfig:
+        """The served config; refused here, before any weights load, where
+        no kernel takes its shapes on this model's device."""
         from dataclasses import replace
-        return replace(config, pooling=self._pooling(), normalize=False,
-                       quantize=self._use_quantization())
+        config = replace(config, pooling=self._pooling(), normalize=False,
+                         quantize=self._use_quantization())
+        check_kernel_shapes(config, self._device)
+        return config
 
     def _use_quantization(self) -> bool:
         """int8 W8A8 opt-in: model_properties.quantize or
@@ -392,6 +398,7 @@ class TorchStellaModel(TorchHFTextModel):
         else:
             from dataclasses import replace
             self.config = replace(stella_400m_config(proj), normalize=False)
+        check_kernel_shapes(self.config, self._device)
         localpath = self.properties.get("localpath")
         if localpath:
             state_dict = _load_state_dict(localpath)
@@ -538,18 +545,32 @@ def resolve_model_class(model_name: str, properties: dict):
         from marqo_tpu_torch.models.hf_clip import TorchHFCLIPModel
         return TorchHFCLIPModel
     if model_type in ("clip", "open_clip", "fp16_clip"):
+        # the reference's check order (marqo_tpu/inference/loaders.py):
+        # coca, nllb, siglip, the RN tokens, convnext, roberta, eva02
         name = str(properties.get("name", model_name))
         lowered = name.lower()
         if "coca_" in lowered:
             _not_ported(model_name, "CoCa", "A7")
         if "nllb" in lowered:
-            _not_ported(model_name, "NLLB-SigLIP", "A7")
+            # M2M-100 text tower (B1 padding mode) + SigLIP vision trunk
+            from marqo_tpu_torch.models.nllb_siglip import \
+                TorchNLLBSigLIPModel
+            return TorchNLLBSigLIPModel
         if "siglip" in lowered:
-            _not_ported(model_name, "SigLIP", "A7")
+            # SigLIP: no-class-token ViT with a latent attention pool and a
+            # last-token text tower, both on B2's no-mask mode
+            from marqo_tpu_torch.models.siglip import TorchSigLIPModel
+            return TorchSigLIPModel
         if any(t in name for t in ("RN50", "RN101")):
-            _not_ported(model_name, "ResNet-CLIP", "A7")
+            # ResNet-CLIP: ModifiedResNet vision tower + CLIP text tower
+            from marqo_tpu_torch.models.resnet_clip import \
+                TorchResNetCLIPModel
+            return TorchResNetCLIPModel
         if "convnext" in lowered:
-            _not_ported(model_name, "ConvNeXt-CLIP", "A7")
+            # ConvNeXt-CLIP: timm ConvNeXt trunk + CLIP text tower
+            from marqo_tpu_torch.models.convnext_clip import \
+                TorchConvNextCLIPModel
+            return TorchConvNextCLIPModel
         if "roberta" in lowered:
             # roberta/xlm-roberta text tower + ViT composites
             # (open_clip custom-text models) — models/hf_clip.py
@@ -560,7 +581,7 @@ def resolve_model_class(model_name: str, properties: dict):
         from marqo_tpu_torch.models.clip import TorchCLIPModel
         return TorchCLIPModel
     if model_type == "languagebind":
-        _not_ported(model_name, "languagebind", "A8")
+        _not_ported(model_name, "LanguageBind", "A8")
     raise InvalidArgumentError(
         f"Unknown model type `{model_type}` for model `{model_name}`")
 

@@ -27,12 +27,15 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
+from marqo_tpu_torch.core.exceptions import ModelLoadError
 from marqo_tpu_torch.ops import flash_attention, fused_attention
 from marqo_tpu_torch.ops.common import (ACTIVATIONS, cls_pool, l2_normalize,
                                         layer_norm, masked_mean_pool)
 from marqo_tpu_torch.ops.quant import (int8_linear, int8_linear_reference,
                                        quantize_weight)
+from marqo_tpu_torch.ops.quant_matmul import MAX_K
 
 
 @dataclass(frozen=True)
@@ -93,17 +96,26 @@ class Embeddings(nn.Module):
         return layer_norm(x, self.ln.weight, self.ln.bias, self.eps)
 
 
+def kernel_k(in_features: int) -> int:
+    """The int8 layers' K: ``in_features`` rounded up to the multiple of 16
+    that kernel B3 takes. The padding columns are zeros, which change
+    neither a row's absmax nor its int32 sum, so the output is the same bit
+    for bit."""
+    return -(-in_features // 16) * 16
+
+
 class Int8Linear(nn.Module):
     """A W8A8 linear layer: int8 weights in ``nn.Linear``'s (out, in)
     layout with per-output-channel fp32 scales, and the bias in the compute
     dtype (buffers: nothing here trains). ``forward`` is
     ops/quant.py ``int8_linear`` (``impl="plain"``: its twin), so the
-    output is in the input's dtype."""
+    output is in the input's dtype. The weights hold ``kernel_k(in)``
+    columns, zero past ``in``, and ``forward`` pads x to match."""
 
     def __init__(self, in_features: int, out_features: int):
         super().__init__()
         self.register_buffer(
-            "weight_q", torch.empty(out_features, in_features,
+            "weight_q", torch.empty(out_features, kernel_k(in_features),
                                     dtype=torch.int8))
         self.register_buffer("weight_scale",
                              torch.empty(out_features, dtype=torch.float32))
@@ -118,13 +130,45 @@ class Int8Linear(nn.Module):
         out_features, in_features = weight.shape
         with torch.device("meta"):
             module = cls(in_features, out_features)
-        module.weight_q, module.weight_scale = quantize_weight(weight)
+        module.weight_q, module.weight_scale = quantize_weight(
+            F.pad(weight, (0, kernel_k(in_features) - in_features)))
         module.bias = bias.detach().clone()
         return module
 
     def forward(self, x: torch.Tensor, impl: str = "kernel") -> torch.Tensor:
         linear = int8_linear if impl == "kernel" else int8_linear_reference
+        pad = self.weight_q.shape[1] - x.shape[-1]
+        if pad:
+            x = F.pad(x, (0, pad))
         return linear(x, self.weight_q, self.weight_scale, self.bias)
+
+
+def check_kernel_shapes(config, device) -> None:
+    """The load-time rule of the CUDA kernels: raise ModelLoadError, naming
+    the head dim or the width, where no kernel takes the shapes of an
+    encoder ``config`` (TextEncoderConfig, or any config with
+    ``hidden_size`` and ``num_heads``) on ``device``, so such a model is
+    refused when it loads, never at a launch. On CUDA, attention runs
+    kernel B1 or B2, which take head dims that are multiples of 8 up to
+    128, and a quantized encoder's linear layers run kernel B3, which takes
+    K up to ``MAX_K``. The JAX package's default einsum attention takes any
+    head dim; on the CPU the plain twins take any shape here too."""
+    if torch.device(device).type != "cuda":
+        return
+    H, N = config.hidden_size, config.num_heads
+    if getattr(config, "attention_impl", "kernel") != "plain" and (
+            H % N or H // N not in flash_attention.HEAD_DIMS):
+        raise ModelLoadError(
+            f"hidden size {H} over {N} heads gives head dim {H / N:g}, which "
+            f"no attention kernel of marqo_tpu_torch takes on CUDA (a "
+            f"multiple of 8 up to 128)")
+    if getattr(config, "quantize", False) and \
+            getattr(config, "linear_impl", "kernel") != "plain":
+        widest = max(H, config.intermediate_size)
+        if kernel_k(widest) > MAX_K:
+            raise ModelLoadError(
+                f"width {widest} is more than the int8 kernel's K (up to "
+                f"{MAX_K}) on CUDA")
 
 
 # the float encoder's q, k and v projections, which quantize=True packs
@@ -501,8 +545,9 @@ def params_from_jax(params_numpy: dict, config: TextEncoderConfig,
     for i in range(config.num_layers):
         if quantized:
             keys = [_JAX_LAYER[name] for name in QKV]
-            values[f"layers.{i}.qkv.weight_q"] = np.concatenate(
-                [np.asarray(layers[w + "_q"][i]).T for w, _ in keys])
+            values[f"layers.{i}.qkv.weight_q"] = _kernel_k_columns(
+                np.concatenate([np.asarray(layers[w + "_q"][i]).T
+                                for w, _ in keys]))
             values[f"layers.{i}.qkv.weight_scale"] = np.concatenate(
                 [np.asarray(layers[w + "_s"][i])[0] for w, _ in keys])
             values[f"layers.{i}.qkv.bias"] = np.concatenate(
@@ -512,8 +557,8 @@ def params_from_jax(params_numpy: dict, config: TextEncoderConfig,
                 continue
             values[f"layers.{i}.{name}.bias"] = layers[b][i]
             if quantized and name in QUANTIZED_LINEARS:
-                values[f"layers.{i}.{name}.weight_q"] = \
-                    np.asarray(layers[w + "_q"][i]).T
+                values[f"layers.{i}.{name}.weight_q"] = _kernel_k_columns(
+                    np.asarray(layers[w + "_q"][i]).T)
                 values[f"layers.{i}.{name}.weight_scale"] = \
                     np.asarray(layers[w + "_s"][i])[0]
             else:
@@ -526,6 +571,12 @@ def params_from_jax(params_numpy: dict, config: TextEncoderConfig,
     encoder = fill_parameters(_empty_encoder(build_config, dtype, device),
                               values)
     return _quantized_if_asked(encoder, config)
+
+
+def _kernel_k_columns(w_q: np.ndarray) -> np.ndarray:
+    """(out, in) int8 weights padded with zero columns to ``kernel_k(in)``,
+    as ``Int8Linear`` holds them."""
+    return np.pad(w_q, ((0, 0), (0, kernel_k(w_q.shape[1]) - w_q.shape[1])))
 
 
 def _with_type_vocab(config: TextEncoderConfig, table) -> TextEncoderConfig:

@@ -389,17 +389,23 @@ def params_from_open_clip(state_dict, text_config: CLIPTextConfig,
     (visual.transformer.resblocks.*, in_proj_weight fused QKV) into the JAX
     package's layout (numpy float32). Projections are already (in, out)."""
     sd = _numpy_state_dict(state_dict)
+    return {"text": open_clip_text(sd, text_config.num_layers),
+            "vision": open_clip_vision(sd, vision_config)}
+
+
+def open_clip_text(sd: dict, num_layers: int) -> dict:
+    """The text half of an openai/open_clip state dict (numpy arrays:
+    token_embedding, positional_embedding, transformer.resblocks, ln_final,
+    text_projection) in the JAX package's layout; the ResNet and ConvNeXt
+    CLIP checkpoints carry the same text half."""
     return {
-        "text": {
-            "token_embedding": _f32(sd["token_embedding.weight"]),
-            "position_embedding": _f32(sd["positional_embedding"]),
-            "layers": convert_open_clip_resblocks(
-                sd, "transformer.resblocks", text_config.num_layers),
-            "final_ln_scale": _f32(sd["ln_final.weight"]),
-            "final_ln_bias": _f32(sd["ln_final.bias"]),
-            "text_projection": _f32(sd["text_projection"]),
-        },
-        "vision": open_clip_vision(sd, vision_config),
+        "token_embedding": _f32(sd["token_embedding.weight"]),
+        "position_embedding": _f32(sd["positional_embedding"]),
+        "layers": convert_open_clip_resblocks(sd, "transformer.resblocks",
+                                              num_layers),
+        "final_ln_scale": _f32(sd["ln_final.weight"]),
+        "final_ln_bias": _f32(sd["ln_final.bias"]),
+        "text_projection": _f32(sd["text_projection"]),
     }
 
 
@@ -441,12 +447,7 @@ def params_from_jax(params_numpy: dict, text_config: CLIPTextConfig,
     the JAX package's own params, or a converter's output above."""
     text, vision = params_numpy["text"], params_numpy["vision"]
     values = {
-        "text.token_embedding": text["token_embedding"],
-        "text.position_embedding": text["position_embedding"],
-        "text.final_ln.weight": text["final_ln_scale"],
-        "text.final_ln.bias": text["final_ln_bias"],
-        "text.projection": text["text_projection"],
-        **_block_values("text.", text, text_config.num_layers),
+        **text_values("text.", text, text_config.num_layers),
         **_vision_values("vision.", vision, vision_config.num_layers),
     }
     model = _empty_clip(text_config, vision_config, dtype, device,
@@ -468,7 +469,22 @@ def vision_tower_from_jax(vision_numpy: dict,
         tower, _vision_values("", vision_numpy, vision_config.num_layers))
 
 
-def _block_values(prefix: str, tree: dict, L: int) -> dict:
+def text_values(prefix: str, text: dict, L: int) -> dict:
+    """The values of a ``CLIPTextTower`` under ``prefix``, from the
+    ``"text"`` part of the JAX package's layout (numpy arrays)."""
+    return {
+        f"{prefix}token_embedding": text["token_embedding"],
+        f"{prefix}position_embedding": text["position_embedding"],
+        f"{prefix}final_ln.weight": text["final_ln_scale"],
+        f"{prefix}final_ln.bias": text["final_ln_bias"],
+        f"{prefix}projection": text["text_projection"],
+        **block_values(prefix, text, L),
+    }
+
+
+def block_values(prefix: str, tree: dict, L: int) -> dict:
+    """The values of L ``PreNormBlock``s under ``{prefix}layers.``, from
+    the stacked layer keys of ``tree["layers"]`` (numpy arrays)."""
     values = {}
     for i in range(L):
         for name, (w, b) in _JAX_BLOCK.items():
@@ -488,12 +504,45 @@ def _vision_values(prefix: str, vision: dict, L: int) -> dict:
         f"{prefix}post_ln.weight": vision["post_ln_scale"],
         f"{prefix}post_ln.bias": vision["post_ln_bias"],
         f"{prefix}projection": vision["visual_projection"],
-        **_block_values(prefix, vision, L),
+        **block_values(prefix, vision, L),
     }
     if "pre_ln_scale" in vision:
         values[f"{prefix}pre_ln.weight"] = vision["pre_ln_scale"]
         values[f"{prefix}pre_ln.bias"] = vision["pre_ln_bias"]
     return values
+
+
+def load_open_clip_state(path: str, family: str = "open_clip",
+                         weights_only: bool = True) -> dict:
+    """An open_clip checkpoint's state dict from a file or a directory
+    holding one, without a ``module.`` prefix (a jit-archived openai
+    checkpoint, loaded with ``weights_only=False``, gives its
+    ``state_dict()``)."""
+    import os
+
+    from marqo_tpu_torch.inference.checkpoint_load import \
+        load_torch_checkpoint
+    if os.path.isdir(path):
+        for fname in ("open_clip_pytorch_model.bin", "pytorch_model.bin",
+                      "model.pt"):
+            candidate = os.path.join(path, fname)
+            if os.path.isfile(candidate):
+                path = candidate
+                break
+    state = load_torch_checkpoint(path, family=family,
+                                  weights_only=weights_only)
+    if hasattr(state, "state_dict"):
+        state = state.state_dict()
+    if isinstance(state, dict) and "state_dict" in state:
+        state = state["state_dict"]
+    return {k[len("module."):] if k.startswith("module.") else k: v
+            for k, v in state.items()}
+
+
+def random_seed(model_name: str) -> int:
+    """The random-init seed of a model name, as every wrapper derives it."""
+    return int.from_bytes(hashlib.sha256(model_name.encode()).digest()[:4],
+                          "little")
 
 
 # --- model wrapper -----------------------------------------------------------
@@ -607,9 +656,8 @@ class TorchCLIPModel:
             intermediate_size=int(arch.get("vision_intermediate", 128)),
             projection_dim=proj,
         )
-        seed = int.from_bytes(
-            hashlib.sha256(self.model_name.encode()).digest()[:4], "little")
-        generator = torch.Generator(device=self._device).manual_seed(seed)
+        generator = torch.Generator(device=self._device).manual_seed(
+            random_seed(self.model_name))
         self.encoder = init_clip_params(self.text_config, self.vision_config,
                                         generator, dtype=self.compute_dtype,
                                         device=self._device)

@@ -147,6 +147,7 @@ class TorchCrossEncoder:
             repo = self.properties.get("name", self.model_name)
             hf_config = AutoConfig.from_pretrained(repo)
             self.config = _no_pool_config(bert.config_from_hf(hf_config))
+            bert.check_kernel_shapes(self.config, self._device)
             torch_model = AutoModelForSequenceClassification.from_pretrained(
                 repo)
             self.model = params_from_torch_state_dict(
@@ -169,6 +170,7 @@ class TorchCrossEncoder:
             num_heads=int(arch.get("num_heads", 2)),
             intermediate_size=int(arch.get("intermediate_size", 32)),
         ))
+        bert.check_kernel_shapes(self.config, self._device)
         seed = int.from_bytes(
             hashlib.sha256(self.model_name.encode()).digest()[:4], "little")
         generator = torch.Generator(device=self._device).manual_seed(seed)

@@ -43,7 +43,8 @@ from marqo_tpu_torch.ops import _build
 _MASKED_SCORE = -1e9  # finite: fully masked rows softmax to uniform
 
 MAX_SEQ_LEN = 512
-HEAD_DIMS = (8, 16, 32, 64, 128)
+# every multiple of 8 up to 128, as ops/fused_attention.py's kernel
+HEAD_DIMS = tuple(range(8, 129, 8))
 DTYPES = (torch.float32, torch.bfloat16)
 
 # kernel launches per mask mode (plain ints; the twin never counts);
@@ -118,7 +119,7 @@ def check_kernel_inputs(q, k, v, mask) -> None:
                          f"{tuple(mask.shape)}")
     if S > MAX_SEQ_LEN or D not in HEAD_DIMS:
         raise ValueError(f"masked attention: S={S} (max {MAX_SEQ_LEN}), "
-                         f"D={D} (one of {HEAD_DIMS}) not supported")
+                         f"D={D} (a multiple of 8 up to 128) not supported")
     check_layout("masked attention", q, k, v)
 
 

@@ -13,8 +13,9 @@ twin's bit for bit.
 
 The TPU kernel's tiling rule (M % 256, N % 512) is gone: the CUDA kernels
 mask their own edges, so M and N are any positive size and K any multiple
-of 16 up to ``MAX_K`` (127 · 127 · 4096 < 2³¹, so the int32 sum cannot
-overflow). The CUDA path is two launches, a one-read row quantizer then
+of 16 up to ``MAX_K`` (127 · 127 · 131072 < 2³¹, so the int32 sum cannot
+overflow). The quantized encoder pads a K that is not a multiple of 16
+with zero columns when it loads (models/bert.py ``Int8Linear``). The CUDA path is two launches, a one-read row quantizer then
 the int8 GEMM on Hopper's warpgroup MMA fed by TMA, with the quantized rows
 in scratch the wrapper allocates.
 
@@ -30,7 +31,7 @@ import torch
 
 from marqo_tpu_torch.ops import _build
 
-MAX_K = 4096
+MAX_K = 131072
 DTYPES = (torch.float32, torch.bfloat16)
 
 # kernel launches (plain ints; the twin never counts); serving threads

@@ -2,14 +2,17 @@
 """Where the device time of marqo_tpu_torch's encoders goes, on a CUDA
 card: an e5-base-v2-width random-init text encoder (bf16) runs a padded
 ingest batch and a packed one, the same weights quantized (int8 W8A8,
-kernel B3) the padded batch, and the ViT-L/14 image tower (bf16, random
-init) a batch of images, under torch.profiler. The script prints one JSON
-line per batch with the device time by kernel family (attention kernel,
-matmuls, the rest), the top kernels, and the device's busy share of the
-wall time.
+kernel B3) the padded batch, the ViT-L/14 image tower (bf16, random init)
+a batch of images, and the towers of ViT-B-16-SigLIP (texts at 64
+positions, images at 224 px), NLLB-SigLIP base (texts of mixed lengths,
+images at 384 px), RN50 and convnext_base (images at 224 px), all at full
+width with random weights, under torch.profiler. The script prints one
+JSON line per batch with the device time by kernel family (attention
+kernel, matmuls, the rest), the top kernels, and the device's busy share of
+the wall time.
 
     python3 scripts/profile_torch_encoder.py [--batch 256] [--seq 128]
-                                             [--images 16]
+                                             [--images 16] [--texts 16]
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -22,6 +25,8 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import numpy as np  # noqa: E402
 
 E5_BASE = {"vocab_size": 30522, "hidden_size": 768, "num_layers": 12,
            "num_heads": 12, "intermediate_size": 3072}
@@ -45,6 +50,8 @@ def family(name: str) -> str:
     if any(t in name.lower() for t in ("gemm", "cutlass", "sm90_xmma",
                                        "cublas", "nvjet")):
         return "matmul"
+    if "conv" in name.lower() or "cudnn" in name.lower():
+        return "conv"
     return "other"
 
 
@@ -70,6 +77,47 @@ def profile(fn, steps: int):
     return kernels, wall_ms
 
 
+def clip_family_towers(torch, rng, n_images: int, n_texts: int) -> list:
+    """(name, fn, docs, rows, seq) for the SigLIP, NLLB-SigLIP, RN50 and
+    convnext_base towers at chip_smoke.py's full widths, random weights,
+    through their wrappers' modules; texts are tokenized as the wrappers
+    do it."""
+    import chip_smoke as cs
+    from marqo_tpu_torch.inference.loaders import load_model
+    from marqo_tpu_torch.inference.types import Device
+    out = []
+    for key, name, arch, dims, size, text in (
+            ("siglip_b16", "ViT-B-16-SigLIP", cs.SIGLIP_B16, cs.SIGLIP_DIMS,
+             224, True),
+            ("nllb_siglip_base", "nllb-clip-base-siglip", cs.NLLB_SIGLIP_BASE,
+             cs.NLLB_SIGLIP_DIMS, 384, True),
+            ("rn50", "RN50", cs.RN50, cs.RN50_DIMS, 224, False),
+            ("convnext_base", "convnext_base", cs.CONVNEXT_BASE,
+             cs.CONVNEXT_BASE_DIMS, 224, False)):
+        model = load_model(name, {"name": name, "type": "open_clip",
+                                  "random_init": True, "dimensions": dims,
+                                  "image_size": size, "architecture": arch},
+                           Device.CUDA)
+        pixels = torch.from_numpy(rng.integers(
+            0, 256, (n_images, size, size, 3), dtype=np.uint8)).cuda()
+        grid = model.encoder.vision.config.grid ** 2 if text else size
+
+        def run(tower, inputs):
+            def fn():
+                with torch.inference_mode():
+                    tower(inputs)
+            return fn
+
+        out.append((f"{key}_images", run(model.encoder.vision, pixels),
+                    n_images, n_images, grid))
+        if text:
+            ids = torch.from_numpy(model._tokenize(
+                cs._text_lengths(n_texts, seed=0))).cuda()
+            out.append((f"{key}_texts", run(model.encoder.text, ids),
+                        n_texts, n_texts, int(ids.shape[1])))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -79,10 +127,9 @@ def main() -> int:
     parser.add_argument("--batch", type=int, default=256)
     parser.add_argument("--seq", type=int, default=128)
     parser.add_argument("--images", type=int, default=16)
+    parser.add_argument("--texts", type=int, default=16)
     parser.add_argument("--steps", type=int, default=5)
     args = parser.parse_args()
-
-    import numpy as np
 
     import copy
 
@@ -138,6 +185,7 @@ def main() -> int:
         with torch.inference_mode():
             encode_clip_image(clip_model, pixels)
 
+    towers = clip_family_towers(torch, rng, args.images, args.texts)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
@@ -145,7 +193,8 @@ def main() -> int:
             ("padded", padded, B, B, S),
             ("packed", packed_run, B, int(packed.input_ids.shape[0]), S),
             ("padded_int8", padded_int8, B, B, S),
-            ("vit_l14_images", images, args.images, args.images, 257)):
+            ("vit_l14_images", images, args.images, args.images, 257),
+            *towers):
         kernels, wall_ms = profile(fn, args.steps)
         total_us = sum(kernels.values())
         by_family = {}

@@ -332,32 +332,59 @@ def test_random_init_is_deterministic_by_name():
 
 # --- registry dispatch -------------------------------------------------------
 
-def _clip_registry_entries():
-    from marqo_tpu_torch.inference.model_registry import load_model_properties
-    return sorted((name, props) for name, props in
-                  load_model_properties().items()
-                  if str(props.get("type")).lower() in
-                  ("clip", "open_clip", "fp16_clip", "multilingual_clip"))
+def _reference_to_port():
+    """Each JAX package model class → the port's class for it."""
+    from marqo_tpu.inference import loaders as jl
+    from marqo_tpu.models.convnext_clip import JaxConvNextCLIPModel
+    from marqo_tpu.models.hf_clip import JaxHFCLIPModel
+    from marqo_tpu.models.nllb_siglip import JaxNLLBSigLIPModel
+    from marqo_tpu.models.resnet_clip import JaxResNetCLIPModel
+    from marqo_tpu.models.siglip import JaxSigLIPModel
+    from marqo_tpu_torch.inference import loaders as tl
+    from marqo_tpu_torch.models.convnext_clip import TorchConvNextCLIPModel
+    from marqo_tpu_torch.models.hf_clip import TorchHFCLIPModel
+    from marqo_tpu_torch.models.nllb_siglip import TorchNLLBSigLIPModel
+    from marqo_tpu_torch.models.resnet_clip import TorchResNetCLIPModel
+    from marqo_tpu_torch.models.siglip import TorchSigLIPModel
+    return {jl.JaxHFTextModel: tl.TorchHFTextModel,
+            jl.JaxStellaModel: tl.TorchStellaModel,
+            jl.TestModel: tl.TestModel, jl.RandomModel: tl.RandomModel,
+            jl.NoModel: tl.NoModel,
+            jax_clip.JaxCLIPModel: clip.TorchCLIPModel,
+            JaxHFCLIPModel: TorchHFCLIPModel,
+            JaxSigLIPModel: TorchSigLIPModel,
+            JaxResNetCLIPModel: TorchResNetCLIPModel,
+            JaxConvNextCLIPModel: TorchConvNextCLIPModel,
+            JaxNLLBSigLIPModel: TorchNLLBSigLIPModel}
 
 
 def test_registry_dispatch_splits_as_the_reference():
+    """Every registry entry resolves, in the port, to the counterpart of
+    the JAX package's class, or (CoCa, EVA02, LanguageBind) raises
+    ModelLoadError "… is not yet ported … (ROADMAP A7 or A8)": 276
+    ported, 13 not."""
+    from collections import Counter
+
     from marqo_tpu.inference.loaders import \
         resolve_model_class as jax_resolve
     from marqo_tpu_torch.inference.loaders import resolve_model_class
-    from marqo_tpu.models.hf_clip import JaxHFCLIPModel
-    from marqo_tpu_torch.models.hf_clip import TorchHFCLIPModel
-    ported_pairs = {jax_clip.JaxCLIPModel: clip.TorchCLIPModel,
-                    JaxHFCLIPModel: TorchHFCLIPModel}
-    entries = _clip_registry_entries()
-    ported = 0
-    for name, props in entries:
+    from marqo_tpu_torch.inference.model_registry import load_model_properties
+    pairs = _reference_to_port()
+    not_ported = {"JaxCoCaModel": r"\(CoCa\) is .*\(ROADMAP A7\)",
+                  "JaxEVA02Model": r"\(EVA02-CLIP\) is .*\(ROADMAP A7\)",
+                  "JaxLanguageBindModel":
+                      r"\(LanguageBind\) is .*\(ROADMAP A8\)"}
+    ported, refused = 0, Counter()
+    for name, props in sorted(load_model_properties().items()):
         reference = jax_resolve(name, props)
-        if reference in ported_pairs:
-            assert resolve_model_class(name, props) is \
-                ported_pairs[reference]
+        if reference in pairs:
+            assert resolve_model_class(name, props) is pairs[reference], name
             ported += 1
             continue
         with pytest.raises(ModelLoadError,
-                           match=r"not yet ported .*\(ROADMAP A7\)"):
+                           match=not_ported[reference.__name__]):
             resolve_model_class(name, props)
-    assert 0 < ported < len(entries)
+        refused[reference.__name__] += 1
+    assert ported == 276
+    assert refused == {"JaxCoCaModel": 4, "JaxEVA02Model": 3,
+                       "JaxLanguageBindModel": 6}

@@ -70,6 +70,48 @@ def test_matches_pallas_kernel_on_every_row(mode, S):
     np.testing.assert_allclose(out, ref, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("D", [48, 72, 80])
+@pytest.mark.parametrize("mode", ["padding", "segment"])
+def test_matches_pallas_kernel_at_the_head_dims_c1_added(mode, D):
+    """Head dims the CUDA kernel took only after ROADMAP C1 (48: a 384-wide
+    8-head encoder; 72: SigLIP SO400M; 80) through the twin, against the
+    TPU kernel in interpret mode."""
+    B, N, S = 5, 2, 32
+    q, k, v = _qkv(B, N, S, D, seed=D)
+    mask = _pad_mask(B, S, D) if mode == "padding" else _segment_ids(B, S, D)
+    ref, out = _run_both(mode, q, k, v, mask)
+    assert out.shape == (B, N, S, D)
+    np.testing.assert_allclose(out, ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [48, 80])
+@pytest.mark.parametrize("mode", ["padding", "segment"])
+def test_kernel_at_the_head_dims_c1_added_matches_twin(mode, D, dtype):
+    """On the card: the CUDA kernel at D = 48 and 80, in the encoders'
+    projection layout, against its twin (chip_smoke.check_attention's
+    bounds, the x0.9 softmax-scale control included in bf16)."""
+    from chip_smoke import (SCALE_CONTROL, attention_inputs,
+                            check_attention, projection_views)
+    if not torch.cuda.is_available() or \
+            torch.cuda.get_device_capability(0) != (9, 0):
+        pytest.skip("needs a Hopper card (the kernel has no CPU mode)")
+    q, k, v, pad, seg = attention_inputs(8, 4, 128, D, dtype, seed=D)
+    q, k, v = projection_views(q, k, v, "projection")
+    mask = pad if mode == "padding" else seg
+    kernel = {"padding": fa.attention_padding,
+              "segment": fa.attention_segment}[mode]
+    plain = {"padding": fa.attention_padding_reference,
+             "segment": fa.attention_segment_reference}[mode]
+    before = fa.LAUNCHES[mode]
+    out = kernel(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES[mode] == before + 1
+    check_attention(out, plain(q, k, v, mask),
+                    plain(q * SCALE_CONTROL, k, v, mask), f"{mode} D={D}")
+
+
 @pytest.mark.parametrize("mode", ["padding", "segment"])
 def test_fully_masked_rows_average_v_uniformly(mode):
     B, N, S, D = 4, 2, 16, 8
@@ -140,7 +182,8 @@ def test_kernel_input_checks(bad):
     if bad == "seq_len":
         shape = (1, 1, fa.MAX_SEQ_LEN + 1, 8)
     elif bad == "head_dim":
-        shape = (2, 2, 16, 24)
+        # not a multiple of 8 (every multiple of 8 up to 128 is taken)
+        shape = (2, 2, 16, 20)
     elif bad == "dtype":
         dtype = torch.float16
     q, k, v = (torch.zeros(shape, dtype=dtype) for _ in range(3))

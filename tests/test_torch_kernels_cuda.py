@@ -64,9 +64,11 @@ def card():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("D", [8, 16, 32, 48, 64, 72, 80, 128])
 @pytest.mark.parametrize("S", [1, 16, 32, 100, 128, 512])
 def test_kernel_matches_twin(card, S, D, dtype):
+    """Every padded instance of B1, and the head dims 48, 72 and 80 that
+    it took only after ROADMAP C1."""
     q, k, v, pad, seg = attention_inputs(4, 3, S, D, dtype, seed=S * D)
     for mode, mask, kernel, plain in (
             ("padding", pad, fa.attention_padding,
@@ -277,7 +279,8 @@ def test_bf16_attention_instances_run_on_tensor_cores(card):
     bf16 = [f for f in functions
             if "attention_tile_kernelI13__nv_bfloat16" in f.split()[0]]
     fp32 = [f for f in functions if "attention_tile_kernelIf" in f.split()[0]]
-    assert len(bf16) == len(fp32) == 2 * 4 + 2 * 8
+    # B1 and B2: eight padded head dims in each of two modes
+    assert len(bf16) == len(fp32) == 2 * 8 + 2 * 8
     assert all("HMMA" in f for f in bf16)
     assert not any("HMMA" in f for f in fp32)
 
@@ -309,6 +312,36 @@ def test_w8a8_kernel_ragged_edges(card, M, K, N, dtype):
     not a multiple of 16 bytes (the element-wise store path), tiles that
     overhang M and N, and a query's M = 1 and 32."""
     _check_w8a8(M, K, N, dtype, seed=M * N)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(4096, 5120, 1280), (37, 5120, 64),
+                                   (5, 4112, 16), (300, 131072, 24)])
+def test_w8a8_kernel_rows_longer_than_a_warp_holds(card, M, K, N, dtype):
+    """K over 4096 (ROADMAP C1): the two-pass row quantizer, up to MAX_K,
+    equal to the twin bit for bit."""
+    _check_w8a8(M, K, N, dtype, seed=M + K)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [40, 200])
+def test_int8_layer_pads_k_on_the_card(card, K, dtype):
+    """A K that is not a multiple of 16: Int8Linear's zero-padded weights
+    through the kernel equal the twin on the unpadded weights."""
+    from marqo_tpu_torch.models import bert
+    rng = np.random.default_rng(K)
+    weight = torch.from_numpy(0.05 * rng.standard_normal((96, K)).astype(
+        np.float32)).to(card, dtype)
+    bias = torch.zeros(96, device=card, dtype=dtype)
+    x = torch.from_numpy(rng.standard_normal((33, K)).astype(
+        np.float32)).to(card, dtype)
+    layer = bert.Int8Linear.from_weight(weight, bias)
+    before = qm.LAUNCHES["w8a8"]
+    out = layer(x)
+    torch.cuda.synchronize()
+    assert qm.LAUNCHES["w8a8"] == before + 1
+    w_q, w_scale = bert.quantize_weight(weight)
+    assert torch.equal(out, bert.int8_linear_reference(x, w_q, w_scale, bias))
 
 
 def _gemm_tile_widths(fn) -> set:

@@ -24,7 +24,9 @@ PORTED = {
     "ops/image_ops.py", "ops/_build.py", "ops/quant.py",
     "ops/quant_matmul.py", "models/bert.py", "models/clip.py",
     "models/cross_encoder.py", "models/stella.py", "models/hf_clip.py",
-    "inference/types.py", "inference/batching.py", "inference/loaders.py",
+    "models/siglip.py", "models/resnet_clip.py", "models/convnext_clip.py",
+    "models/nllb_siglip.py", "inference/types.py", "inference/batching.py",
+    "inference/loaders.py",
     "engine/torch_scorer.py",
 }
 

@@ -74,9 +74,12 @@ def test_quantize_activations_matches_jax():
 
 
 @pytest.mark.parametrize("shape,K,N", [((2, 8), 64, 32), ((1, 256), 768, 512),
-                                       ((1, 37), 96, 200), ((3, 5), 16, 1)])
+                                       ((1, 37), 96, 200), ((3, 5), 16, 1),
+                                       ((1, 9), 5120, 48), ((2, 3), 40, 24)])
 def test_int8_linear_fp32_equals_jax(shape, K, N):
-    """Array-equal in fp32, ragged M and N included."""
+    """Array-equal in fp32, ragged M and N included, and the K the CUDA
+    kernel took only after ROADMAP C1: 5120 (longer than one warp's
+    registers) and 40 (not a multiple of 16)."""
     x, w, bias = _inputs(shape, K, N, seed=K + N)
     (jq, js), (tq, ts) = _both_weights(w)
     ref = jquant.int8_linear(jnp.asarray(x), jq, js[0], jnp.asarray(bias),
@@ -153,8 +156,8 @@ def _meta(shape, dtype=torch.float32):
 @pytest.mark.parametrize("x,w_q,w_scale,bias,match", [
     (_meta((4, 40)), _meta((8, 40), torch.int8), _meta(8), _meta(8),
      "multiple of 16"),
-    (_meta((4, 8192)), _meta((8, 8192), torch.int8), _meta(8), _meta(8),
-     "up to 4096"),
+    (_meta((4, 131088)), _meta((8, 131088), torch.int8), _meta(8), _meta(8),
+     "up to 131072"),
     (_meta((4, 64), torch.float16), _meta((8, 64), torch.int8), _meta(8),
      _meta(8), "fp32 or bf16"),
     (_meta((4, 64)), _meta((8, 64)), _meta(8), _meta(8), "int8"),
@@ -176,7 +179,7 @@ def test_check_kernel_inputs_refuses(x, w_q, w_scale, bias, match):
 
 def test_check_kernel_inputs_accepts_the_encoder_shapes():
     for K, N in ((768, 768), (768, 3072), (3072, 768), (384, 1536),
-                 (1024, 4096)):
+                 (1024, 4096), (5120, 1280), (1280, 5120)):
         tqm.check_kernel_inputs(_meta((37, K), torch.bfloat16),
                                 _meta((N, K), torch.int8), _meta(N),
                                 _meta(N))

@@ -70,23 +70,47 @@ phases and prints one JSON object per phase:
                    searches by text and by image; exactly 12 B2 no-mask
                    launches per tower call; the vectors against the plain
                    twins' on the card (cosine >= 1 - 1e-3)
- 17. nllb_siglip_encode
+ 17. coca_serve    an open_clip coca_ViT-L-14 random-init image index at
+                   full width (text 768/12/12, vision 1024/24/16 at patch
+                   14, 256 pooler queries, a 12-layer decoder): searches by
+                   text and by image, exactly 24 B2 no-mask launches per
+                   image tower call and none elsewhere; teacher-forced
+                   caption logits on 4 pairs and an 8-token greedy caption;
+                   vectors and logit rows against the plain twins (cosine
+                   >= 1 - 1e-3)
+ 18. languagebind_serve
+                   a LanguageBind random-init index at ViT-L/14 width: 3
+                   WAV files (12 s, two 10 s chunks each, log-mel on the
+                   card) and image documents, searches by audio and by
+                   text; 24 B2 no-mask launches per audio (497 tokens) or
+                   image tower call; against the plain twins
+ 19. languagebind_video
+                   the video tower at VideoTowerConfig's defaults (ViT-L/14,
+                   8 frames, temporal attention) on 2 videos: 48 B2 no-mask
+                   launches per video (temporal at (257, 16, 8, 64), spatial
+                   at (8, 16, 257, 64)); against the plain twins
+ 20. nllb_siglip_encode
                    NLLB-SigLIP base at full width (M2M-100 1024/16 heads,
                    vocab 256206; ViT-B-16 at 384 px): texts of mixed
                    lengths on B1 padding, images on B2 no-mask, against the
                    plain twins on the card
- 18. conv_clip_encode
+ 21. conv_clip_encode
                    RN50 and convnext_base (224 px) at full width, text and
                    images; no kernel of ours runs there, so each bf16 tower
                    is held against itself in fp32 on the card
- 19. timing        kernel, twin and library-call times (attention on
+ 22. eva02_encode  EVA02-L-14-336 at full width through load_model: 16
+                   images (577 tokens, RoPE, SwiGLU 2730) with 24 B2
+                   no-mask launches per image tower call, 16 texts; against
+                   the plain twins
+ 23. timing        kernel, twin and library-call times (attention on
                    contiguous inputs as earlier runs timed them, and at the
                    main-path shapes also in the encoders' own layout, which
                    the kernels line reports), B3 against the bf16 F.linear
                    it replaces and torch._int_mm, B3's row quantizer and
                    GEMM apart (torch.profiler) against their bounds; C1's
-                   head dims on B1, B2 at the SigLIP towers' shapes and B3
-                   at K = 5120, each with its library call; the int8
+                   head dims on B1, B2 at the SigLIP towers' shapes and at
+                   the CoCa, EVA02 and LanguageBind towers' (NEW_B2_SHAPES),
+                   B3 at K = 5120, each with its library call; the int8
                    against the bf16 e5 encoder, the bf16 e5 encoder padded
                    and packed on a log-normal ingest batch, ViT-L/14 images
                    per second on the kernel and twin paths, add throughput
@@ -230,6 +254,55 @@ CONV_COS_TOL = 1e-3
 # image (196 patches) towers; SO400M/14 at 384 px (729 patches, D = 72)
 SIGLIP_ATTENTION_SHAPES = ((16, 12, 64, 64), (16, 12, 196, 64),
                            (16, 16, 729, 72))
+# open_clip coca_ViT-L-14 (models/coca.py coca_vit_l14_configs): text 768
+# wide, 12 layers, 12 heads, vocab 49408 (76 positions and the CLS);
+# vision 1024/24/16 at patch 14 (257 tokens); 256 pooler queries over 8
+# heads; a 12-layer decoder as wide as the text tower; 768-d
+COCA_L14 = {"vocab_size": 49408, "text_hidden_size": 768, "text_layers": 12,
+            "text_heads": 12, "text_intermediate": 3072,
+            "context_length": 76, "patch_size": 14,
+            "vision_hidden_size": 1024, "vision_layers": 24,
+            "vision_heads": 16, "vision_intermediate": 4096,
+            "n_queries": 256, "pooler_heads": 8, "decoder_layers": 12}
+COCA_DIMS = 768
+COCA_DOCS = 32
+# open_clip EVA02-L-14-336 (models/eva02.py EVA02_ARCHS): vision 1024/24/16
+# at patch 14 and 336 px (577 tokens), SwiGLU 2730; text 768/12/12, vocab
+# 49408; 768-d
+EVA02_L14_336 = {"vocab_size": 49408, "text_hidden_size": 768,
+                 "text_layers": 12, "text_heads": 12,
+                 "text_intermediate": 3072, "patch_size": 14,
+                 "vision_hidden_size": 1024, "vision_layers": 24,
+                 "vision_heads": 16, "swiglu_hidden": 2730}
+EVA02_DIMS = 768
+EVA02_IMAGE_SIZE = 336
+EVA02_BATCH = 16
+# LanguageBind at ViT-L/14 width (the random-init wrapper gives every tower
+# one width): 1024 wide, 24 layers, 16 heads, FFN 4096; images at patch 14
+# (257 tokens); audio 128 mels x 992 frames at patch 16 (496 patches and
+# the class token)
+LANGUAGEBIND_L14 = {"vocab_size": 49408, "hidden_size": 1024,
+                    "num_layers": 24, "num_heads": 16,
+                    "intermediate_size": 4096, "patch_size": 14,
+                    "audio_patch": 16, "audio_frames": 992}
+LANGUAGEBIND_DIMS = 768
+LANGUAGEBIND_IMAGE_SIZE = 224
+# audio documents: WAV files of 12 s, two 10 s chunks each at the default
+# audioPreprocessing (splitLength 10, splitOverlap 3); image documents
+LANGUAGEBIND_CLIPS = 3
+LANGUAGEBIND_CLIP_SECONDS = 12.0
+LANGUAGEBIND_IMAGES = 4
+# models/languagebind.py VideoTowerConfig's fields over its defaults
+# (LanguageBind_Video: ViT-L/14, 8 frames, temporal attention) and the
+# videos per run
+VIDEO_TOWER = {}
+VIDEO_COUNT = 2
+# B2's no-mask mode at this slice's towers, (B, N, S, D): CoCa ViT-B-32 at
+# batch 16 (50 tokens), EVA02-L-14-336 (577), LanguageBind audio (497), and
+# one video's temporal (257 tokens x 8 frames) and spatial (8 frames x 257)
+# attention; CoCa ViT-L-14 and LanguageBind images are the ViT-L/14 row
+NEW_B2_SHAPES = ((16, 12, 50, 64), (16, 16, 577, 64), (16, 16, 497, 64),
+                 (257, 16, 8, 64), (8, 16, 257, 64))
 B3_SOURCE = "marqo_tpu_torch/csrc/w8a8_matmul.cu"
 B3_REPLACES = "marqo_tpu/ops/quant_matmul.py:36"
 # one NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet, dense):
@@ -1339,18 +1412,21 @@ def _count_tower_calls(towers: dict):
                    for name, tower in towers.items()]
 
 
-def _kernel_against_plain(model, torch, texts, images) -> dict:
+def _kernel_against_plain(model, torch, texts, images, media=None) -> dict:
     """Normalized vectors of the model's wrapper on the kernels and on
     the plain twins (``set_attention_impl``), same card, same weights:
-    the least cosine between them, for text and for images."""
+    the least cosine between them, for text, for images and for each
+    ``media`` kind ({kind: (modality, contents)})."""
     from marqo_tpu_torch.inference.types import Modality
+    inputs = {"text": (Modality.TEXT, texts),
+              "image": (Modality.IMAGE, images), **(media or {})}
     runs = {}
     for impl in ("plain", "kernel"):
         model.set_attention_impl(impl)
-        runs[impl] = (model.encode(texts),
-                      model.encode(images, modality=Modality.IMAGE))
-    return {kind: float((runs["kernel"][i] * runs["plain"][i]).sum(-1).min())
-            for i, kind in enumerate(("text", "image"))}
+        runs[impl] = {kind: model.encode(contents, modality=modality)
+                      for kind, (modality, contents) in inputs.items()}
+    return {kind: float((runs["kernel"][kind] * runs["plain"][kind])
+                        .sum(-1).min()) for kind in inputs}
 
 
 def phase_siglip_serve(server, torch):
@@ -1554,6 +1630,338 @@ def phase_conv_clip_encode(torch):
     return models
 
 
+def _b2_per_tower_call(label, launches, calls, layers) -> None:
+    """Exactly ``layers[tower]`` B2 no-mask launches per call of each
+    tower, and no launch of another kernel."""
+    expected = sum(layers[tower] * calls[tower] for tower in calls)
+    check(all(calls[tower] > 0 for tower in layers) and
+          launches["fused_attention_nomask"] == expected and
+          sum(launches.values()) == expected,
+          f"{label}: expected {layers} B2 no-mask launches per tower call "
+          f"({calls}) and no other kernel: {launches}")
+
+
+def phase_coca_serve(server, torch):
+    """open_clip coca_ViT-L-14 at full width behind the HTTP server: an
+    image index (captions and images), searches by text and by image. The
+    vision tower's 24 blocks run B2's no-mask mode (24 launches per image
+    tower call); the text tower, the attentional pooler and the decoder are
+    plain torch (no launch). The served vectors, teacher-forced caption
+    logits on 4 pairs and an 8-token greedy caption are held against the
+    plain twins on the same card."""
+    import numpy as np
+
+    from marqo_tpu_torch.models.coca import TorchCoCaModel
+    req = server.req
+    name = "smoke-coca_ViT-L-14"
+    props = {"name": "open_clip/coca_ViT-L-14/laion2b_s13b_b90k",
+             "type": "open_clip", "random_init": True,
+             "dimensions": COCA_DIMS, "image_size": 224,
+             "architecture": COCA_L14}
+    req("POST", "/indexes/coca", {"model": name, "modelProperties": props,
+                                  "treatUrlsAndPointersAsImages": True})
+    colours = ["red", "green", "blue", "yellow", "purple", "orange", "grey",
+               "white"]
+    fields = {"tensorFields": ["image", "caption"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_images(tmp, COCA_DOCS + 1, seed=17)
+        docs = [{"_id": f"img{i}", "image": paths[i],
+                 "caption": f"a {colours[i % 8]} scene, number {i}"}
+                for i in range(COCA_DOCS)]
+        # the first add loads the model onto the card
+        res = req("POST", "/indexes/coca/documents", {
+            "documents": [{"_id": "warm", "image": paths[-1],
+                           "caption": "a warm-up photo"}], **fields})
+        check(res["errors"] is False, f"coca add_documents errors: {res}")
+        model = _loaded_model(TorchCoCaModel, name)
+        calls, hooks = _count_tower_calls({"text": model.encoder.text,
+                                           "vision": model.encoder.vision})
+        reset_counts()
+        try:
+            start = time.perf_counter()
+            for b in range(0, COCA_DOCS, 16):
+                res = req("POST", "/indexes/coca/documents",
+                          {"documents": docs[b:b + 16], **fields})
+                check(res["errors"] is False,
+                      f"coca add_documents errors: {res}")
+            add_seconds = time.perf_counter() - start
+            text_hits = req("POST", "/indexes/coca/search",
+                            {"q": "a red scene", "searchMethod": "TENSOR",
+                             "limit": 5})["hits"]
+            probe = COCA_DOCS // 3
+            image_hits = req("POST", "/indexes/coca/search",
+                             {"q": paths[probe], "searchMethod": "TENSOR",
+                              "limit": 3})["hits"]
+            launches = read_counts()
+        finally:
+            for handle in hooks:
+                handle.remove()
+        check(len(text_hits) > 0, "coca text search: no hits")
+        check(image_hits and image_hits[0]["_id"] == f"img{probe}",
+              f"coca image query: top hit {image_hits[:1]}, expected "
+              f"img{probe}")
+        _b2_per_tower_call("coca", launches, calls,
+                           {"text": 0, "vision": COCA_L14["vision_layers"]})
+        cos = _kernel_against_plain(
+            model, torch, ["a red scene", "two shoes on a shelf"], paths[:8])
+        # the decoder on the card: teacher-forced logits for 4 (caption,
+        # image) pairs, each row held against the plain twins', and a
+        # greedy 8-token caption of 2 images on each
+        captions = [docs[i]["caption"] for i in range(4)]
+        runs = {}
+        for impl in ("plain", "kernel"):
+            model.set_attention_impl(impl)
+            reset_counts()
+            logits = model.caption_logits(captions, paths[:4])
+            runs[impl] = (logits, model.generate_caption_ids(
+                paths[:2], max_len=8), read_counts())
+    kernel_logits, plain_logits = runs["kernel"][0], runs["plain"][0]
+    rows = (kernel_logits * plain_logits).sum(-1) / (
+        np.linalg.norm(kernel_logits, axis=-1) *
+        np.linalg.norm(plain_logits, axis=-1))
+    vocab = COCA_L14["vocab_size"]
+    check(kernel_logits.shape == (4, COCA_L14["context_length"], vocab) and
+          np_finite(kernel_logits), f"coca caption logits "
+          f"{kernel_logits.shape}")
+    cos["caption_logit_rows"] = float(rows.min())
+    captions_ids = runs["kernel"][1]
+    check(len(captions_ids) == 2 and all(
+        c[0] == 1 and len(c) == 8 and all(0 <= t < vocab for t in c)
+        for c in captions_ids), f"coca greedy captions {captions_ids}")
+    # one image tower call for the logits and one for the captions
+    check(runs["kernel"][2]["fused_attention_nomask"] ==
+          2 * COCA_L14["vision_layers"] and
+          runs["plain"][2]["fused_attention_nomask"] == 0,
+          f"coca decoder runs: {runs['kernel'][2]} {runs['plain'][2]}")
+    for kind, value in cos.items():
+        check(value >= 1 - 1e-3, f"coca {kind}, kernel against the plain "
+              f"twins: cosine {value}")
+    stats = req("GET", "/indexes/coca/stats")
+    check(stats.get("numberOfDocuments") == COCA_DOCS + 1,
+          f"coca index documents: {stats}")
+    devices = _model_devices(TorchCoCaModel)
+    check(devices == {DEVICE}, f"CoCa parameters on {devices}")
+    emit("coca_serve", ok=True, docs=COCA_DOCS + 1,
+         documents_in_index=stats.get("numberOfDocuments"),
+         vectors_in_index=stats.get("numberOfVectors"),
+         image_query_top_hit=image_hits[0]["_id"], tower_calls=calls,
+         launches=launches, min_cosine_kernel_vs_plain=cos,
+         greedy_caption_ids=captions_ids,
+         greedy_captions_equal_plain=captions_ids == runs["plain"][1],
+         model_devices=sorted(devices))
+    return launches, add_seconds
+
+
+def phase_eva02_encode(torch):
+    """EVA02-L-14-336 at full width through load_model and the wrapper:
+    16 images (577 tokens, RoPE on q and k) through B2's no-mask mode, 24
+    launches per image tower call, and 16 texts (causal, plain torch);
+    held against the plain twins on the same card."""
+    from marqo_tpu_torch.inference.loaders import load_model
+    from marqo_tpu_torch.inference.types import Modality
+    from marqo_tpu_torch.models.eva02 import TorchEVA02Model
+    props = {"name": "open_clip/EVA02-L-14-336/merged2b_s6b_b61k",
+             "type": "open_clip", "random_init": True,
+             "dimensions": EVA02_DIMS, "image_size": EVA02_IMAGE_SIZE,
+             "architecture": EVA02_L14_336}
+    model = load_model("smoke-EVA02-L-14-336", props, _device())
+    check(isinstance(model, TorchEVA02Model), f"eva02 loaded {type(model)}")
+    vision = model.vision_config
+    tokens = vision.grid ** 2 + 1
+    texts = _text_lengths(EVA02_BATCH, seed=18)
+    with tempfile.TemporaryDirectory() as tmp:
+        images = write_images(tmp, EVA02_BATCH, seed=19)
+        calls, hooks = _count_tower_calls({"text": model.encoder.text,
+                                           "vision": model.encoder.vision})
+        reset_counts()
+        try:
+            text = model.encode(texts)
+            image = model.encode(images, modality=Modality.IMAGE)
+            launches = read_counts()
+        finally:
+            for handle in hooks:
+                handle.remove()
+        cos = _kernel_against_plain(model, torch, texts[:4], images)
+    check(text.shape == (EVA02_BATCH, EVA02_DIMS) and
+          image.shape == (EVA02_BATCH, EVA02_DIMS) and np_finite(text) and
+          np_finite(image), f"eva02 outputs {text.shape} {image.shape}")
+    _b2_per_tower_call("eva02", launches, calls,
+                       {"text": 0, "vision": vision.num_layers})
+    for kind, value in cos.items():
+        check(value >= 1 - 1e-3, f"eva02 {kind} vectors, kernel against "
+              f"the plain twins: cosine {value}")
+    devices = {t.device.type for t in (*model.encoder.parameters(),
+                                       *model.encoder.buffers())}
+    check(devices == {DEVICE}, f"EVA02 parameters on {devices}")
+    emit("eva02_encode", ok=True, texts=len(texts), images=len(images),
+         tokens=tokens, swiglu_hidden=vision.swiglu_hidden,
+         tower_calls=calls, launches=launches,
+         min_cosine_kernel_vs_plain=cos, model_devices=sorted(devices))
+    return model
+
+
+def write_wavs(directory: str, n: int, seconds: float, seed: int) -> list:
+    """16 kHz mono 16-bit WAV files from a numpy seed: a tone (a different
+    pitch each) under noise."""
+    import wave
+
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(16000 * seconds)) / 16000
+    paths = []
+    for i in range(n):
+        tone = 0.4 * np.sin(2 * np.pi * 220 * 2 ** i * t)
+        pcm = ((tone + 0.05 * rng.standard_normal(len(t))) * 32767).astype(
+            np.int16)
+        paths.append(os.path.join(directory, f"clip{i}.wav"))
+        with wave.open(paths[-1], "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes(pcm.tobytes())
+    return paths
+
+
+def phase_languagebind_serve(server, torch):
+    """LanguageBind at ViT-L/14 width behind the HTTP server: audio
+    documents (WAV files, split into 10 s chunks, log-mel on the card) and
+    image documents, searches by audio and by text. The audio (497 tokens)
+    and image (257) towers run B2's no-mask mode, 24 launches per tower
+    call; the text tower is plain torch. Returns the loaded model."""
+    import numpy as np
+
+    from marqo_tpu_torch.inference.types import Modality
+    from marqo_tpu_torch.models.languagebind import TorchLanguageBindModel
+    from marqo_tpu_torch.ops.audio_ops import chunk_waveform
+    req = server.req
+    name = "smoke-languagebind-l14"
+    props = {"type": "languagebind", "random_init": True,
+             "dimensions": LANGUAGEBIND_DIMS,
+             "image_size": LANGUAGEBIND_IMAGE_SIZE,
+             "architecture": LANGUAGEBIND_L14,
+             "supported_modalities": ["language", "image", "audio",
+                                      "video"]}
+    req("POST", "/indexes/lb", {"model": name, "modelProperties": props,
+                                "treatUrlsAndPointersAsImages": True,
+                                "treatUrlsAndPointersAsMedia": True})
+    fields = {"tensorFields": ["sound", "image", "caption"]}
+    layers = LANGUAGEBIND_L14["num_layers"]
+    with tempfile.TemporaryDirectory() as tmp:
+        wavs = write_wavs(tmp, LANGUAGEBIND_CLIPS, LANGUAGEBIND_CLIP_SECONDS,
+                          seed=20)
+        images = write_images(tmp, LANGUAGEBIND_IMAGES + 1, seed=21)
+        # the first add loads the model onto the card
+        res = req("POST", "/indexes/lb/documents", {
+            "documents": [{"_id": "warm", "image": images[-1],
+                           "caption": "a warm-up photo"}], **fields})
+        check(res["errors"] is False, f"languagebind add errors: {res}")
+        model = _loaded_model(TorchLanguageBindModel, name)
+        towers = {"text": model.encoder.text, "image": model.encoder.vision,
+                  "audio": model.encoder.audio}
+        calls, hooks = _count_tower_calls(towers)
+        reset_counts()
+        try:
+            start = time.perf_counter()
+            res = req("POST", "/indexes/lb/documents", {"documents": [
+                {"_id": f"clip{i}", "sound": path}
+                for i, path in enumerate(wavs)], **fields})
+            check(res["errors"] is False, f"languagebind audio adds: {res}")
+            res = req("POST", "/indexes/lb/documents", {"documents": [
+                {"_id": f"img{i}", "image": images[i],
+                 "caption": f"a photo, number {i}"}
+                for i in range(LANGUAGEBIND_IMAGES)], **fields})
+            check(res["errors"] is False, f"languagebind image adds: {res}")
+            add_seconds = time.perf_counter() - start
+            probe = LANGUAGEBIND_CLIPS - 1
+            audio_hits = req("POST", "/indexes/lb/search",
+                             {"q": wavs[probe], "searchMethod": "TENSOR",
+                              "limit": 3})["hits"]
+            text_hits = req("POST", "/indexes/lb/search",
+                            {"q": "a low hum", "searchMethod": "TENSOR",
+                             "limit": 3})["hits"]
+            launches = read_counts()
+        finally:
+            for handle in hooks:
+                handle.remove()
+        check(audio_hits and audio_hits[0]["_id"] == f"clip{probe}",
+              f"languagebind audio query: top hit {audio_hits[:1]}, "
+              f"expected clip{probe}")
+        check(len(text_hits) > 0, "languagebind text search: no hits")
+        _b2_per_tower_call("languagebind", launches, calls,
+                           {"text": 0, "image": layers, "audio": layers})
+        cos = _kernel_against_plain(
+            model, torch, ["a low hum"], images[:4],
+            {"audio": (Modality.AUDIO, wavs)})
+    for kind, value in cos.items():
+        check(value >= 1 - 1e-3, f"languagebind {kind} vectors, kernel "
+              f"against the plain twins: cosine {value}")
+    stats = req("GET", "/indexes/lb/stats")
+    # the default audioPreprocessing: 10 s chunks overlapping by 3 s; an
+    # image document holds an image and a caption vector
+    chunks = len(chunk_waveform(np.zeros(int(
+        16000 * LANGUAGEBIND_CLIP_SECONDS), np.float32)))
+    check(stats.get("numberOfDocuments") ==
+          LANGUAGEBIND_CLIPS + LANGUAGEBIND_IMAGES + 1 and
+          stats.get("numberOfVectors") ==
+          LANGUAGEBIND_CLIPS * chunks + 2 * (LANGUAGEBIND_IMAGES + 1),
+          f"languagebind index documents and vectors: {stats}")
+    devices = _model_devices(TorchLanguageBindModel)
+    check(devices == {DEVICE}, f"LanguageBind parameters on {devices}")
+    emit("languagebind_serve", ok=True,
+         audio_docs=LANGUAGEBIND_CLIPS, image_docs=LANGUAGEBIND_IMAGES + 1,
+         audio_tokens=model.audio_config.n_tokens + 1,
+         chunks_per_clip=chunks,
+         documents_in_index=stats.get("numberOfDocuments"),
+         vectors_in_index=stats.get("numberOfVectors"),
+         audio_query_top_hit=audio_hits[0]["_id"], tower_calls=calls,
+         launches=launches, min_cosine_kernel_vs_plain=cos,
+         model_devices=sorted(devices))
+    return model, launches, add_seconds
+
+
+def phase_languagebind_video(model, torch):
+    """LanguageBind's video tower at VideoTowerConfig's defaults (ViT-L/14,
+    8 frames, temporal attention in every layer), random weights, on the
+    served LanguageBind model: the wrapper encodes one video per call, each
+    layer's temporal attention (257 tokens x 8 frames) and spatial
+    attention (8 frames x 257 tokens) on B2's no-mask mode, 48 launches per
+    video; held against the plain twins on the same card."""
+    import numpy as np
+
+    from marqo_tpu_torch.inference.types import Modality
+    from marqo_tpu_torch.models.languagebind import (VideoTowerConfig,
+                                                     init_video_tower)
+    config = VideoTowerConfig(projection_dim=LANGUAGEBIND_DIMS, **VIDEO_TOWER)
+    model.video_config = config
+    model.encoder.video = init_video_tower(
+        config, torch.Generator(device=DEVICE).manual_seed(22),
+        dtype=model.compute_dtype, device=DEVICE)
+    rng = np.random.default_rng(23)
+    videos = [[rng.integers(0, 256, (240, 320, 3), dtype=np.uint8)
+               for _ in range(config.num_frames)] for _ in range(VIDEO_COUNT)]
+    reset_counts()
+    out = model.encode(videos, modality=Modality.VIDEO)
+    launches = read_counts()
+    cos = _kernel_against_plain(model, torch, ["a video"], videos[0][:1],
+                                {"video": (Modality.VIDEO, videos)})
+    check(out.shape == (VIDEO_COUNT, LANGUAGEBIND_DIMS) and np_finite(out),
+          f"video output {out.shape}")
+    per_video = 2 * config.num_layers if config.add_time_attn else \
+        config.num_layers
+    check(launches["fused_attention_nomask"] == per_video * VIDEO_COUNT and
+          sum(launches.values()) == launches["fused_attention_nomask"],
+          f"video: expected {per_video} B2 no-mask launches per video: "
+          f"{launches}")
+    check(cos["video"] >= 1 - 1e-3, f"video vectors, kernel against the "
+          f"plain twins: cosine {cos['video']}")
+    emit("languagebind_video", ok=True, videos=VIDEO_COUNT,
+         frames=config.num_frames, tokens=(config.image_size //
+                                           config.patch_size) ** 2 + 1,
+         launches=launches, launches_per_video=per_video,
+         min_cosine_kernel_vs_plain=cos)
+    return launches
+
+
 def _sdpa(torch, q, k, v, allowed):
     """The library yardstick of the attention kernels: one
     scaled_dot_product_attention call with an additive -1e9 mask made
@@ -1673,7 +2081,8 @@ def phase_timing(fa, fused, qm, torch, clip_model, pixels, int8_encoder,
                          "ms": split["w8a8_quantize_rows"],
                          **quantize_bound(M, K)})
     # ROADMAP C1's head dims on B1, both modes, and B2's no-mask mode at
-    # the SigLIP towers' shapes, in the projections' layout; B3 at K = 5120
+    # the SigLIP towers' shapes and at the CoCa, EVA02 and LanguageBind
+    # towers' (NEW_B2_SHAPES), in the projections' layout; B3 at K = 5120
     # (queued: at these shapes one call holds the host longer than the
     # device)
     def attention_row(name, mode, shape, bounds, kernel, plain, allowed,
@@ -1699,7 +2108,7 @@ def phase_timing(fa, fused, qm, torch, clip_model, pixels, int8_encoder,
                 attention_bound(B, N, S, D, mode, mask),
                 lambda: kernel(q, k, v, mask), lambda: plain(q, k, v, mask),
                 allowed, q, k, v))
-    for B, N, S, D in SIGLIP_ATTENTION_SHAPES:
+    for B, N, S, D in SIGLIP_ATTENTION_SHAPES + NEW_B2_SHAPES:
         q, k, v, _, _ = attention_inputs(B, N, S, D, torch.bfloat16, seed=S)
         q, k, v = projection_views(q, k, v, "projection")
         rows.append(attention_row(
@@ -1856,10 +2265,15 @@ def main() -> int:
         stella = phase_stella_serve(server, torch)
         hf_clip_add_seconds = phase_hf_clip_serve(server, torch)
         _, siglip_add_seconds = phase_siglip_serve(server, torch)
+        _, coca_add_seconds = phase_coca_serve(server, torch)
+        languagebind, _, languagebind_add_seconds = \
+            phase_languagebind_serve(server, torch)
+        phase_languagebind_video(languagebind, torch)
     finally:
         server.close()
     phase_nllb_siglip_encode(torch)
     phase_conv_clip_encode(torch)
+    phase_eva02_encode(torch)
 
     timing, vit, encoder_times = phase_timing(
         fa, fused, qm, torch, clip_model, pixels, int8_encoder, bf16_encoder)
@@ -1877,6 +2291,10 @@ def main() -> int:
          stella_search_median_ms=statistics.median(stella["latencies"]),
          hf_clip_add_docs_per_s=HF_CLIP_DOCS / hf_clip_add_seconds,
          siglip_add_docs_per_s=SIGLIP_DOCS / siglip_add_seconds,
+         coca_add_docs_per_s=COCA_DOCS / coca_add_seconds,
+         languagebind_add_docs_per_s=(
+             LANGUAGEBIND_CLIPS + LANGUAGEBIND_IMAGES) /
+         languagebind_add_seconds,
          search_median_ms=statistics.median(latencies), search_ms=latencies,
          note="information only")
 

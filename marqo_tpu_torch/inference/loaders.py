@@ -11,8 +11,8 @@ One device per model: the multi-device serving mesh of marqo_tpu is not
 ported yet (ROADMAP A10). Served: the BERT-family text encoder (bf16, or
 int8 W8A8 with ``quantize``), Stella (``hf_stella``), the ViT CLIP towers
 (models/clip.py), the HF-text CLIP composites (models/hf_clip.py), SigLIP,
-ResNet-CLIP, ConvNeXt-CLIP and NLLB-SigLIP. CoCa, EVA02 (ROADMAP A7) and
-LanguageBind (A8) raise ModelLoadError until their slice lands.
+ResNet-CLIP, ConvNeXt-CLIP, NLLB-SigLIP, CoCa, EVA02-CLIP and LanguageBind:
+every registry entry.
 """
 
 import hashlib
@@ -517,17 +517,11 @@ def _load_state_dict(path: str) -> dict:
     raise ModelLoadError(f"No model weights found under `{path}`")
 
 
-def _not_ported(model_name: str, family: str, item: str):
-    raise ModelLoadError(
-        f"Model `{model_name}` ({family}) is not yet ported to "
-        f"marqo_tpu_torch (ROADMAP {item})")
-
-
 def resolve_model_class(model_name: str, properties: dict):
     """Dispatch a registry entry to its model class WITHOUT loading
     weights (reference model_registry.py:2133-2145
-    _get_model_load_mappings). Raises ModelLoadError for the families not
-    yet ported and InvalidArgumentError for unknown types."""
+    _get_model_load_mappings). Raises InvalidArgumentError for unknown
+    types."""
     model_type = str(properties.get("type", "hf")).lower()
     if model_type in ("hf", "sbert"):
         return TorchHFTextModel
@@ -550,7 +544,10 @@ def resolve_model_class(model_name: str, properties: dict):
         name = str(properties.get("name", model_name))
         lowered = name.lower()
         if "coca_" in lowered:
-            _not_ported(model_name, "CoCa", "A7")
+            # CoCa: appended-CLS text tower, attentional pooler and the
+            # caption decoder; the vision blocks on B2's no-mask mode
+            from marqo_tpu_torch.models.coca import TorchCoCaModel
+            return TorchCoCaModel
         if "nllb" in lowered:
             # M2M-100 text tower (B1 padding mode) + SigLIP vision trunk
             from marqo_tpu_torch.models.nllb_siglip import \
@@ -577,11 +574,19 @@ def resolve_model_class(model_name: str, properties: dict):
             from marqo_tpu_torch.models.hf_clip import TorchHFCLIPModel
             return TorchHFCLIPModel
         if "eva02" in lowered:
-            _not_ported(model_name, "EVA02-CLIP", "A7")
+            # RoPE + SwiGLU vision trunk on B2's no-mask mode + CLIP text
+            # tower; real checkpoints load behind
+            # MARQO_ALLOW_UNVERIFIED_CONVERSION (models/eva02.py)
+            from marqo_tpu_torch.models.eva02 import TorchEVA02Model
+            return TorchEVA02Model
         from marqo_tpu_torch.models.clip import TorchCLIPModel
         return TorchCLIPModel
     if model_type == "languagebind":
-        _not_ported(model_name, "LanguageBind", "A8")
+        # text, image, audio and video towers in one space
+        # (models/languagebind.py)
+        from marqo_tpu_torch.models.languagebind import \
+            TorchLanguageBindModel
+        return TorchLanguageBindModel
     raise InvalidArgumentError(
         f"Unknown model type `{model_type}` for model `{model_name}`")
 

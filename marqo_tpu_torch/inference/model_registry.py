@@ -9,15 +9,22 @@ the reference (``name``, ``dimensions``, ``tokens``, ``type``, ``notes``,
 
 Loader ``type`` values map to model classes in
 marqo_tpu_torch.inference.loaders (vs. reference's torch/open_clip/onnx classes):
-  hf | sbert        → TorchHFTextModel (BERT/RoBERTa-family, models/bert.py)
-  hf_stella         → TorchStellaModel (models/stella.py)
-  clip | open_clip | fp16_clip → TorchCLIPModel (ViT towers, models/clip.py),
-                    except *roberta* names → TorchHFCLIPModel
-                    (models/hf_clip.py), and coca_*, *SigLIP*, nllb-*,
-                    RN50*/RN101*, convnext_* and EVA02* names
+  hf | sbert        → TorchHFTextModel   (BERT/RoBERTa-family, models/bert.py)
+  hf_stella         → TorchStellaModel   (models/stella.py)
+  clip | open_clip | fp16_clip → by arch in the name:
+      coca_*        → TorchCoCaModel        (models/coca.py)
+      *SigLIP*      → TorchSigLIPModel      (models/siglip.py)
+      nllb-*        → TorchNLLBSigLIPModel  (models/nllb_siglip.py; M2M-100
+                      text transformers-verified; open_clip pairing behind
+                      MARQO_ALLOW_UNVERIFIED_CONVERSION)
+      RN50*/RN101*  → TorchResNetCLIPModel  (models/resnet_clip.py)
+      convnext_*    → TorchConvNextCLIPModel (models/convnext_clip.py)
+      *roberta*     → TorchHFCLIPModel      (models/hf_clip.py)
+      EVA02*        → TorchEVA02Model       (models/eva02.py; real ckpts
+                      behind MARQO_ALLOW_UNVERIFIED_CONVERSION)
+      otherwise     → TorchCLIPModel        (ViT towers, models/clip.py)
   multilingual_clip → TorchHFCLIPModel (XLM-R + LinearTransformation)
-  the other CLIP families named above, languagebind
-                    → not yet ported: loading raises ModelLoadError
+  languagebind      → TorchLanguageBindModel (models/languagebind.py)
   random            → RandomModel (deterministic, tests)
   test              → TestModel (tiny real torch encoder + WordPiece)
   no_model          → NoModel (raises on vectorise)

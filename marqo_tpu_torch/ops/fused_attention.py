@@ -43,6 +43,9 @@ from marqo_tpu_torch.ops.flash_attention import (check_layout,
 
 HEAD_DIMS = tuple(range(8, 129, 8))
 DTYPES = (torch.float32, torch.bfloat16)
+# the kernel's batch rides on grid.z (csrc/attention_tile.cuh), whose
+# CUDA limit is 65535 blocks
+MAX_BATCH = 65535
 
 # kernel launches per mode (plain ints; the twin never counts); serving
 # threads launch concurrently, so increments take the lock
@@ -72,9 +75,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def check_kernel_inputs(q, k, v, segment_ids=None) -> None:
     """Raise ValueError unless the kernel takes these tensors (device
-    aside): fp32/bf16 q, k, v of one (B, N, S, D) shape with S >= 1 and D
-    in HEAD_DIMS, laid out as ``check_layout`` asks, and (B, S) segment ids
-    if any."""
+    aside): fp32/bf16 q, k, v of one (B, N, S, D) shape with B <=
+    MAX_BATCH, S >= 1 and D in HEAD_DIMS, laid out as ``check_layout`` asks,
+    and (B, S) segment ids if any."""
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"fused attention: q, k, v must all be fp32 or "
                          f"bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -83,6 +86,9 @@ def check_kernel_inputs(q, k, v, segment_ids=None) -> None:
                          f"(B, N, S, D) shape, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, _, S, D = q.shape
+    if B > MAX_BATCH:
+        raise ValueError(f"fused attention: B={B} exceeds the kernel's "
+                         f"batch limit of {MAX_BATCH} (grid.z)")
     if S < 1 or D not in HEAD_DIMS:
         raise ValueError(f"fused attention: S={S} (at least 1), D={D} (a "
                          f"multiple of 8 up to 128) not supported")

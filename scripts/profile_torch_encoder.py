@@ -5,8 +5,11 @@ ingest batch and a packed one, the same weights quantized (int8 W8A8,
 kernel B3) the padded batch, the ViT-L/14 image tower (bf16, random init)
 a batch of images, and the towers of ViT-B-16-SigLIP (texts at 64
 positions, images at 224 px), NLLB-SigLIP base (texts of mixed lengths,
-images at 384 px), RN50 and convnext_base (images at 224 px), all at full
-width with random weights, under torch.profiler. The script prints one
+images at 384 px), RN50 and convnext_base (images at 224 px), CoCa
+ViT-L-14 (images and texts), EVA02-L-14-336 (images at 336 px) and
+LanguageBind at ViT-L/14 width (audio clips of 992 frames; 2 videos of 8
+frames through the video tower), all at full width with random weights,
+under torch.profiler. The script prints one
 JSON line per batch with the device time by kernel family (attention
 kernel, matmuls, the rest), the top kernels, and the device's busy share of
 the wall time.
@@ -118,6 +121,66 @@ def clip_family_towers(torch, rng, n_images: int, n_texts: int) -> list:
     return out
 
 
+def new_family_towers(torch, rng, n_images: int, n_texts: int) -> list:
+    """(name, fn, docs, rows, seq) for the CoCa ViT-L-14 (images and texts),
+    EVA02-L-14-336 (images) and LanguageBind ViT-L/14 (audio clips of 992
+    frames, and 2 videos of 8 frames through the video tower) towers at
+    chip_smoke.py's full widths, random weights, through their wrappers'
+    modules."""
+    import chip_smoke as cs
+    from marqo_tpu_torch.inference.loaders import load_model
+    from marqo_tpu_torch.inference.types import Device
+    from marqo_tpu_torch.models.languagebind import (VideoTowerConfig,
+                                                     init_video_tower)
+
+    def run(tower, inputs):
+        def fn():
+            with torch.inference_mode():
+                tower(inputs)
+        return fn
+
+    def pixels(size, n=n_images):
+        return torch.from_numpy(rng.integers(
+            0, 256, (n, size, size, 3), dtype=np.uint8)).cuda()
+
+    out = []
+    coca = load_model("coca_ViT-L-14", {
+        "name": "open_clip/coca_ViT-L-14/laion2b_s13b_b90k",
+        "type": "open_clip", "random_init": True, "dimensions": cs.COCA_DIMS,
+        "image_size": 224, "architecture": cs.COCA_L14}, Device.CUDA)
+    ids = torch.from_numpy(coca._tokenize(
+        cs._text_lengths(n_texts, seed=0))).cuda()
+    out += [("coca_l14_images", run(coca.encoder.vision, pixels(224)),
+             n_images, n_images, 257),
+            ("coca_l14_texts", run(coca.encoder.text, ids), n_texts,
+             n_texts, int(ids.shape[1]) + 1)]
+    eva = load_model("EVA02-L-14-336", {
+        "name": "open_clip/EVA02-L-14-336/merged2b_s6b_b61k",
+        "type": "open_clip", "random_init": True,
+        "dimensions": cs.EVA02_DIMS, "image_size": cs.EVA02_IMAGE_SIZE,
+        "architecture": cs.EVA02_L14_336}, Device.CUDA)
+    out.append(("eva02_l14_336_images",
+                run(eva.encoder.vision, pixels(cs.EVA02_IMAGE_SIZE)),
+                n_images, n_images, eva.vision_config.grid ** 2 + 1))
+    lb = load_model("languagebind-l14", {
+        "type": "languagebind", "random_init": True,
+        "dimensions": cs.LANGUAGEBIND_DIMS, "image_size": 224,
+        "architecture": cs.LANGUAGEBIND_L14}, Device.CUDA)
+    mels = torch.from_numpy(rng.standard_normal(
+        (n_images, 128, lb.audio_config.n_frames)).astype(np.float32)).cuda()
+    config = VideoTowerConfig(projection_dim=cs.LANGUAGEBIND_DIMS)
+    video = init_video_tower(config, torch.Generator("cuda").manual_seed(0),
+                             dtype=torch.bfloat16, device="cuda")
+    frames = torch.from_numpy(rng.integers(
+        0, 256, (cs.VIDEO_COUNT, config.num_frames, 224, 224, 3),
+        dtype=np.uint8)).cuda()
+    out += [("languagebind_audio", run(lb.encoder.audio, mels), n_images,
+             n_images, lb.audio_config.n_tokens + 1),
+            ("languagebind_video", run(video, frames), cs.VIDEO_COUNT,
+             cs.VIDEO_COUNT * config.num_frames, 257)]
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -186,6 +249,7 @@ def main() -> int:
             encode_clip_image(clip_model, pixels)
 
     towers = clip_family_towers(torch, rng, args.images, args.texts)
+    towers += new_family_towers(torch, rng, args.images, args.texts)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()

@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from marqo_tpu.models import clip as jax_clip
-from marqo_tpu_torch.core.exceptions import ModelLoadError, VectoriseError
+from marqo_tpu_torch.core.exceptions import VectoriseError
 from marqo_tpu_torch.inference.types import Device, Modality
 from marqo_tpu_torch.models import clip
 
@@ -335,14 +335,20 @@ def test_random_init_is_deterministic_by_name():
 def _reference_to_port():
     """Each JAX package model class → the port's class for it."""
     from marqo_tpu.inference import loaders as jl
+    from marqo_tpu.models.coca import JaxCoCaModel
     from marqo_tpu.models.convnext_clip import JaxConvNextCLIPModel
+    from marqo_tpu.models.eva02 import JaxEVA02Model
     from marqo_tpu.models.hf_clip import JaxHFCLIPModel
+    from marqo_tpu.models.languagebind import JaxLanguageBindModel
     from marqo_tpu.models.nllb_siglip import JaxNLLBSigLIPModel
     from marqo_tpu.models.resnet_clip import JaxResNetCLIPModel
     from marqo_tpu.models.siglip import JaxSigLIPModel
     from marqo_tpu_torch.inference import loaders as tl
+    from marqo_tpu_torch.models.coca import TorchCoCaModel
     from marqo_tpu_torch.models.convnext_clip import TorchConvNextCLIPModel
+    from marqo_tpu_torch.models.eva02 import TorchEVA02Model
     from marqo_tpu_torch.models.hf_clip import TorchHFCLIPModel
+    from marqo_tpu_torch.models.languagebind import TorchLanguageBindModel
     from marqo_tpu_torch.models.nllb_siglip import TorchNLLBSigLIPModel
     from marqo_tpu_torch.models.resnet_clip import TorchResNetCLIPModel
     from marqo_tpu_torch.models.siglip import TorchSigLIPModel
@@ -355,14 +361,16 @@ def _reference_to_port():
             JaxSigLIPModel: TorchSigLIPModel,
             JaxResNetCLIPModel: TorchResNetCLIPModel,
             JaxConvNextCLIPModel: TorchConvNextCLIPModel,
-            JaxNLLBSigLIPModel: TorchNLLBSigLIPModel}
+            JaxNLLBSigLIPModel: TorchNLLBSigLIPModel,
+            JaxCoCaModel: TorchCoCaModel,
+            JaxEVA02Model: TorchEVA02Model,
+            JaxLanguageBindModel: TorchLanguageBindModel}
 
 
 def test_registry_dispatch_splits_as_the_reference():
     """Every registry entry resolves, in the port, to the counterpart of
-    the JAX package's class, or (CoCa, EVA02, LanguageBind) raises
-    ModelLoadError "… is not yet ported … (ROADMAP A7 or A8)": 276
-    ported, 13 not."""
+    the JAX package's class: all 289 are ported (CoCa 4, EVA02 3 and
+    LanguageBind 6 among them) and none is refused."""
     from collections import Counter
 
     from marqo_tpu.inference.loaders import \
@@ -370,21 +378,16 @@ def test_registry_dispatch_splits_as_the_reference():
     from marqo_tpu_torch.inference.loaders import resolve_model_class
     from marqo_tpu_torch.inference.model_registry import load_model_properties
     pairs = _reference_to_port()
-    not_ported = {"JaxCoCaModel": r"\(CoCa\) is .*\(ROADMAP A7\)",
-                  "JaxEVA02Model": r"\(EVA02-CLIP\) is .*\(ROADMAP A7\)",
-                  "JaxLanguageBindModel":
-                      r"\(LanguageBind\) is .*\(ROADMAP A8\)"}
-    ported, refused = 0, Counter()
+    ported, refused, families = 0, [], Counter()
     for name, props in sorted(load_model_properties().items()):
         reference = jax_resolve(name, props)
-        if reference in pairs:
-            assert resolve_model_class(name, props) is pairs[reference], name
-            ported += 1
+        if reference not in pairs:
+            refused.append(name)
             continue
-        with pytest.raises(ModelLoadError,
-                           match=not_ported[reference.__name__]):
-            resolve_model_class(name, props)
-        refused[reference.__name__] += 1
-    assert ported == 276
-    assert refused == {"JaxCoCaModel": 4, "JaxEVA02Model": 3,
-                       "JaxLanguageBindModel": 6}
+        assert resolve_model_class(name, props) is pairs[reference], name
+        ported += 1
+        families[reference.__name__] += 1
+    assert refused == []
+    assert ported == 289
+    assert (families["JaxCoCaModel"], families["JaxEVA02Model"],
+            families["JaxLanguageBindModel"]) == (4, 3, 6)

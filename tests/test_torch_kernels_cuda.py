@@ -127,6 +127,38 @@ def test_fused_kernel_refuses_non_contiguous_input(card):
                               k, v, segment_ids=seg)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,S,D", [(257, 16, 8, 64), (514, 16, 8, 64),
+                                     (16, 16, 497, 64), (16, 16, 577, 64)])
+def test_fused_kernel_at_the_new_towers_shapes(card, B, N, S, D, dtype):
+    """B2's no-mask mode where the CoCa, EVA02 and LanguageBind towers
+    take it: the video tower's temporal attention over 8 frames for one
+    and two videos (257 and 514 rows: a 64-row query tile 7/8 idle), the
+    audio tower's 497 tokens and EVA02-L-14-336's 577, in the projections'
+    layout."""
+    q, k, v, _, _ = attention_inputs(B, N, S, D, dtype, seed=B + S)
+    before = fused.LAUNCHES["nomask"]
+    _check_b2(*projection_views(q, k, v, "projection"), {"nomask": {}},
+              dtype)
+    assert fused.LAUNCHES["nomask"] == before + 1
+
+
+def test_fused_kernel_refuses_a_batch_past_its_grid():
+    """The batch rides on grid.z, at most 65535 blocks: a larger B is a
+    ValueError before any launch (on the CPU too, where the check stands
+    alone), and B = 65535 passes it."""
+    q = torch.zeros(fused.MAX_BATCH + 1, 1, 1, 8)
+    with pytest.raises(ValueError, match="batch limit of 65535"):
+        fused.check_kernel_inputs(q, q, q)
+    fused.check_kernel_inputs(q[:-1], q[:-1], q[:-1])
+    if torch.cuda.is_available():
+        q = q.cuda()
+        before = fused.LAUNCHES["nomask"]
+        with pytest.raises(ValueError, match="batch limit"):
+            fused.fused_attention(q, q, q)
+        assert fused.LAUNCHES["nomask"] == before
+
+
 B1_MODES = (("padding", fa.attention_padding, fa.attention_padding_reference),
             ("segment", fa.attention_segment, fa.attention_segment_reference))
 

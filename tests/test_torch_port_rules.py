@@ -2,10 +2,12 @@
 
 (a) marqo_tpu_torch runs without JAX and without the JAX package;
 (b) every copied module equals its marqo_tpu original once the package
-    name is normalised, apart from a short, named list of deliberate edits;
+    name is normalised, apart from a short, named list of deliberate edits,
+    and so does every function or constant a ported module copies;
 (c) no file under marqo_tpu_torch imports jax.
 """
 
+import ast
 import os
 import re
 import subprocess
@@ -25,9 +27,18 @@ PORTED = {
     "ops/quant_matmul.py", "models/bert.py", "models/clip.py",
     "models/cross_encoder.py", "models/stella.py", "models/hf_clip.py",
     "models/siglip.py", "models/resnet_clip.py", "models/convnext_clip.py",
-    "models/nllb_siglip.py", "inference/types.py", "inference/batching.py",
-    "inference/loaders.py",
+    "models/nllb_siglip.py", "models/eva02.py", "models/coca.py",
+    "models/languagebind.py", "ops/audio_ops.py", "inference/types.py",
+    "inference/batching.py", "inference/loaders.py",
     "engine/torch_scorer.py",
+}
+
+# numpy functions and constants that ported modules copy as they are
+COPIED_DEFINITIONS = {
+    "ops/audio_ops.py": ("SAMPLE_RATE", "N_FFT", "WIN_LENGTH", "HOP_LENGTH",
+                         "N_MELS", "load_wav", "_hz_to_mel", "_mel_to_hz",
+                         "mel_filterbank", "chunk_waveform"),
+    "models/eva02.py": ("EVA02_ARCHS", "rope_2d_freqs"),
 }
 
 # copies with deliberate edits, and why
@@ -93,6 +104,29 @@ def test_copied_module_matches_original(rel):
         assert normalised == original, \
             f"{rel} differs from marqo_tpu/{rel}; list it in DELIBERATE_EDITS"
     assert "jax" not in copy.lower(), f"{rel} still mentions jax"
+
+
+def _definition(path, name):
+    """The source of the top-level function or assignment ``name``."""
+    text = _read(path)
+    for node in ast.parse(text).body:
+        names = ([node.name] if isinstance(node, ast.FunctionDef) else
+                 [t.id for t in getattr(node, "targets", [])
+                  if isinstance(t, ast.Name)])
+        if name in names:
+            return ast.get_source_segment(text, node)
+    raise AssertionError(f"{name} not defined in {path}")
+
+
+@pytest.mark.parametrize("rel, name", [(rel, name) for rel, names in
+                                       COPIED_DEFINITIONS.items()
+                                       for name in names])
+def test_copied_definition_matches_original(rel, name):
+    assert rel in PORTED
+    copy = _definition(os.path.join(PORT, rel), name)
+    normalised = re.sub(r"\bmarqo_tpu_torch\b", "marqo_tpu", copy)
+    assert normalised == _definition(os.path.join(REFERENCE, rel), name), \
+        f"{rel}: {name} differs from marqo_tpu/{rel}'s"
 
 
 @pytest.mark.parametrize("rel", [f for f in PORT_FILES

@@ -22,8 +22,10 @@ phases and prints one JSON object per phase:
                    pad_mask and packed segment ids, fp32 and bf16, at
                    (4, 16, S, D) for the ViT towers' (tokens, head dim),
                    and at the main path's own shapes: (16, 16, 257, 64)
-                   with no mask, (16, 12, 128, 64) padded and packed; in
-                   the same three layouts and to the same bounds as phase 3
+                   with no mask, (16, 12, 128, 64) padded and packed, and
+                   the detectors' (1, 6, 197, 64) and (10, 12, 577, 64)
+                   with no mask; in the same three layouts and to the same
+                   bounds as phase 3
   5. quant_kernel  B3, the fused W8A8 linear layer, against its plain
                    twin, fp32 and bf16, equal bit for bit: M in
                    1/32/37/4096/17408 over the registry's BERT (K, N)
@@ -102,7 +104,27 @@ phases and prints one JSON object per phase:
                    images (577 tokens, RoPE, SwiGLU 2730) with 24 B2
                    no-mask launches per image tower call, 16 texts; against
                    the plain twins
- 23. timing        kernel, twin and library-call times (attention on
+ 23. patch_serve   the detector patch methods behind the same
+                   server, random weights at full width: one index per
+                   method (dino-v1, dino-v2, marqo-yolo, frcnn) on the
+                   ViT-L/14 model, 8 images of 640x480; every add a 200,
+                   every chunk a box inside its image, the full image
+                   first; inside chunk_image exactly 11 B2 no-mask
+                   launches per DINO image (ViT-S/16's first 11 blocks at
+                   (1, 6, 197, 64)) and none for YOLOX-S or Faster R-CNN
+                   R50-FPN, 24 per ViT-L/14 tower call outside it; an
+                   image query finds its document; DINO's maps against
+                   the twin's (cosine >= 0.999), YOLOX's and Faster
+                   R-CNN's card outputs (TF32 off) against the same
+                   module's fp32 CPU run (1e-3 of each output's largest
+                   magnitude)
+ 24. owl_rerank    OWL-ViT B/32 (google/owlvit-base-patch32's widths, 768
+                   px, 577 tokens) as the "owl/ViT-B/32" reranker of an
+                   HTTP search over 10 image hits: 12 B2 no-mask launches
+                   per scoring call at (10, 12, 577, 64), scores in [0, 1]
+                   and highlight boxes inside their images; logits
+                   (cosine >= 0.999) and boxes (1e-2) against the twin's
+ 25. timing        kernel, twin and library-call times (attention on
                    contiguous inputs as earlier runs timed them, and at the
                    main-path shapes also in the encoders' own layout, which
                    the kernels line reports), B3 against the bf16 F.linear
@@ -115,6 +137,11 @@ phases and prints one JSON object per phase:
                    and packed on a log-normal ingest batch, ViT-L/14 images
                    per second on the kernel and twin paths, add throughput
                    and search latency (information only)
+ 26. detector_timing
+                   B2 no-mask at DINO's and OWL-ViT's shapes (queued and
+                   back to back, bound, twin, SDPA, launches on the
+                   phase); the detectors' device ms per image come from
+                   scripts/profile_torch_encoder.py
 
 then the card's name and power limit as nvidia-smi gives them, a
 {"kernels": [...]} line, and as the last line
@@ -303,6 +330,27 @@ VIDEO_COUNT = 2
 # attention; CoCa ViT-L-14 and LanguageBind images are the ViT-L/14 row
 NEW_B2_SHAPES = ((16, 12, 50, 64), (16, 16, 577, 64), (16, 16, 497, 64),
                  (257, 16, 8, 64), (8, 16, 257, 64))
+# The detector patch methods served on one index each, with
+# 640x480 images, and the OWL-ViT reranker over this many image hits.
+# B2's no-mask mode runs in DINO ViT-S/16's first 11 blocks at (1, 6, 197,
+# 64) per image and in OWL-ViT B/32's 12 vision blocks at (hits, 12, 577,
+# 64) per scoring call
+PATCH_METHODS = ("dino-v1", "dino-v2", "marqo-yolo", "frcnn")
+PATCH_IMAGES = 8
+PATCH_IMAGE_SIZE = (640, 480)
+OWL_HITS = 10
+DINO_B2_SHAPE = (1, 6, 197, 64)
+OWL_B2_SHAPE = (OWL_HITS, 12, 577, 64)
+# kernel against twin: DINO maps and OWL-ViT logits at cosine >= 1 - this,
+# OWL-ViT boxes within OWL_BOX_TOL; YOLOX and Faster R-CNN on the card
+# (TF32 off) within DETECTOR_REL_TOL of the same module's fp32 CPU run,
+# relative to each output's largest magnitude
+DETECTOR_COS_TOL = 1e-3
+OWL_BOX_TOL = 1e-2
+DETECTOR_REL_TOL = 1e-3
+# the OWL-ViT model of the rerank phase (OwlViTConfig fields; empty: the
+# published google/owlvit-base-patch32 widths)
+OWL_VIT = {}
 B3_SOURCE = "marqo_tpu_torch/csrc/w8a8_matmul.cu"
 B3_REPLACES = "marqo_tpu/ops/quant_matmul.py:36"
 # one NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet, dense):
@@ -618,16 +666,19 @@ def check_attention(out, ref, control, label: str) -> dict:
             "excess": excess, "control_excess": missed}
 
 
-def write_images(directory: str, n: int, seed: int) -> list:
+def write_images(directory: str, n: int, seed: int, size=None) -> list:
     """PNG files from a numpy seed: a colour field under a gradient and
-    noise, 160x120 to 640x480, both orientations."""
+    noise, 160x120 to 640x480, both orientations, or all (w, h) =
+    ``size``."""
     import numpy as np
     from PIL import Image
     rng = np.random.default_rng(seed)
     paths = []
     for i in range(n):
         w, h = int(rng.integers(160, 641)), int(rng.integers(120, 481))
-        if i % 2:
+        if size is not None:
+            w, h = size
+        elif i % 2:
             w, h = h, w
         base = rng.integers(0, 256, size=3)
         ramp = np.linspace(0, 1, w)[None, :, None] * rng.integers(
@@ -764,7 +815,9 @@ def phase_kernel(fa, torch):
 
 
 def phase_fused_kernel(fused, torch):
-    results, errors = b2_checks(fused, torch, FUSED_CASES)
+    detectors = tuple((*shape, ("nomask",))
+                      for shape in (DINO_B2_SHAPE, OWL_B2_SHAPE))
+    results, errors = b2_checks(fused, torch, FUSED_CASES + detectors)
     emit("fused_kernel", ok=True, atol=ATOL, rtol=RTOL, checks=len(results),
          results=results)
     return errors
@@ -1298,9 +1351,9 @@ def phase_hf_clip_serve(server, torch):
     return add_seconds
 
 
-def phase_clip_serve(server, torch):
-    from marqo_tpu_torch.models.clip import TorchCLIPModel
-    req = server.req
+def vit_l14_props() -> dict:
+    """The random-init open_clip ViT-L/14 index model of the CLIP serve
+    phase (the patch and rerank phases' indexes load the same model)."""
     arch = {"vocab_size": VIT_L14_TEXT["vocab_size"],
             "text_hidden_size": VIT_L14_TEXT["hidden_size"],
             "text_layers": VIT_L14_TEXT["num_layers"],
@@ -1311,11 +1364,17 @@ def phase_clip_serve(server, torch):
             "vision_layers": VIT_L14_VISION["num_layers"],
             "vision_heads": VIT_L14_VISION["num_heads"],
             "vision_intermediate": VIT_L14_VISION["intermediate_size"]}
-    dims = VIT_L14_VISION["projection_dim"]
-    props = {"name": "smoke-open-clip-vit-l-14", "type": "open_clip",
-             "random_init": True, "dimensions": dims,
-             "image_size": VIT_L14_VISION["image_size"], "architecture": arch}
-    req("POST", "/indexes/clip", {"model": "smoke-open-clip-vit-l-14",
+    return {"name": "smoke-open-clip-vit-l-14", "type": "open_clip",
+            "random_init": True, "dimensions": VIT_L14_VISION["projection_dim"],
+            "image_size": VIT_L14_VISION["image_size"], "architecture": arch}
+
+
+def phase_clip_serve(server, torch):
+    from marqo_tpu_torch.models.clip import TorchCLIPModel
+    req = server.req
+    props = vit_l14_props()
+    dims = props["dimensions"]
+    req("POST", "/indexes/clip", {"model": props["name"],
                                   "modelProperties": props,
                                   "treatUrlsAndPointersAsImages": True})
     colours = ["red", "green", "blue", "yellow", "purple", "orange", "grey",
@@ -1962,6 +2021,333 @@ def phase_languagebind_video(model, torch):
     return launches
 
 
+def _count_chunk_image_calls(image_patching):
+    """Wrap ``image_patching.chunk_image`` (the add path imports it at each
+    call): per method, its calls and the kernel launches made inside them.
+    Returns the stats and a function that restores the original."""
+    stats = {}
+    original = image_patching.chunk_image
+
+    def counted(image, method):
+        before = read_counts()
+        out = original(image, method)
+        delta = count_delta(before, read_counts())
+        entry = stats.setdefault(method, {"calls": 0, "launches":
+                                          dict.fromkeys(delta, 0)})
+        entry["calls"] += 1
+        for name, count in delta.items():
+            entry["launches"][name] += count
+        return out
+
+    image_patching.chunk_image = counted
+    return stats, lambda: setattr(image_patching, "chunk_image", original)
+
+
+def _count_vision_tower_calls():
+    """A global forward hook counting every CLIPVisionTower call (the
+    index model's image embeddings; DINO and OWL-ViT call no tower
+    forward). Returns the count (a one-item list) and the hook's handle."""
+    from torch.nn.modules.module import register_module_forward_hook
+
+    from marqo_tpu_torch.models.clip import CLIPVisionTower
+    calls = [0]
+
+    def hook(module, *_):
+        if isinstance(module, CLIPVisionTower):
+            calls[0] += 1
+
+    return calls, register_module_forward_hook(hook)
+
+
+def _relative_error(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return float((a.float() - b.float()).abs().max() /
+                 b.float().abs().max().clamp_min(1e-30))
+
+
+def phase_patch_serve(server, torch):
+    """The detector patch methods behind the HTTP server
+    (MARQO_PATCH_MODELS_RANDOM_INIT, full-width ResNet-50): one index per
+    method on the random-init open_clip ViT-L/14, PATCH_IMAGES 640x480
+    images each. Every add is a 200, every stored chunk a box inside its
+    image, the full image first; inside chunk_image B2's no-mask mode runs
+    exactly 11 times per DINO image and no kernel of ours for YOLOX or
+    Faster R-CNN, and the patches' ViT-L/14 embeddings launch 24 a tower
+    call; an image query finds its document. Then DINO's maps on B2
+    against the twin's, and YOLOX's and Faster R-CNN's card outputs (TF32
+    off) against the same module's fp32 CPU run."""
+    import copy
+    from dataclasses import replace
+
+    import cv2
+    import numpy as np
+    from PIL import Image
+
+    from marqo_tpu_torch.inference import image_patching
+    from marqo_tpu_torch.models.frcnn import IMAGENET_MEAN, IMAGENET_STD
+    os.environ["MARQO_PATCH_MODELS_RANDOM_INIT"] = "TRUE"
+    os.environ.pop("MARQO_FRCNN_WIDTH", None)
+    image_patching.clear_patchers()
+    req = server.req
+    props = vit_l14_props()
+    W, H = PATCH_IMAGE_SIZE
+    per_method = {}
+    stats, restore = _count_chunk_image_calls(image_patching)
+    tower_calls, hook = _count_vision_tower_calls()
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        paths = write_images(tmp.name, PATCH_IMAGES, seed=11,
+                             size=PATCH_IMAGE_SIZE)
+        docs = [{"_id": f"p{i}", "image": p} for i, p in enumerate(paths)]
+        for method in PATCH_METHODS:
+            index = f"patch-{method}"
+            req("POST", f"/indexes/{index}", {
+                "model": props["name"], "modelProperties": props,
+                "treatUrlsAndPointersAsImages": True,
+                "imagePreprocessing": {"patchMethod": method}})
+            reset_counts()
+            towers_before = tower_calls[0]
+            start = time.perf_counter()
+            res = req("POST", f"/indexes/{index}/documents",
+                      {"documents": docs, "tensorFields": ["image"]})
+            seconds = time.perf_counter() - start
+            check(res["errors"] is False and
+                  [item["status"] for item in res["items"]] ==
+                  [200] * PATCH_IMAGES, f"{index} add: {res}")
+            add = read_counts()
+            towers = tower_calls[0] - towers_before
+            patch = stats.pop(method)
+            chunks = 0
+            for doc in docs:
+                got = req("GET", f"/indexes/{index}/documents/{doc['_id']}"
+                          "?expose_facets=true")
+                boxes = [json.loads(f["image"])
+                         for f in got["_tensor_facets"]]
+                check(boxes and boxes[0] == [0, 0, W, H],
+                      f"{index} {doc['_id']}: first chunk {boxes[:1]}")
+                for x1, y1, x2, y2 in boxes:
+                    check(0 <= x1 < x2 <= W and 0 <= y1 < y2 <= H,
+                          f"{index} {doc['_id']}: box {[x1, y1, x2, y2]} "
+                          f"outside {W}x{H}")
+                chunks += len(boxes)
+            check(patch["calls"] == PATCH_IMAGES,
+                  f"{index}: chunk_image ran {patch['calls']} times")
+            expected = ({"fused_attention_nomask": 11 * PATCH_IMAGES}
+                        if method.startswith("dino") else {})
+            inside = {k: v for k, v in patch["launches"].items() if v}
+            check(inside == expected, f"{index}: launches inside the "
+                  f"patcher {inside}, expected {expected}")
+            embed = count_delta(patch["launches"], add)
+            layers = VIT_L14_VISION["num_layers"]
+            check(towers > 0 and embed["fused_attention_nomask"] ==
+                  layers * towers, f"{index}: {embed} outside the patcher "
+                  f"for {towers} tower calls")
+            probe = PATCH_IMAGES // 2
+            hits = req("POST", f"/indexes/{index}/search",
+                       {"q": paths[probe], "searchMethod": "TENSOR",
+                        "limit": 3})["hits"]
+            check(hits and hits[0]["_id"] == f"p{probe}",
+                  f"{index} image query: hits {[h['_id'] for h in hits]}")
+            per_method[method] = {
+                "add_seconds": seconds, "chunks": chunks,
+                "patcher_calls": patch["calls"],
+                "launches_in_patcher": patch["launches"],
+                "launches_outside_patcher": embed,
+                "vision_tower_calls": towers,
+                "image_query_top_hit": hits[0]["_id"]}
+        # kernel against twin and card against CPU, on the served models
+        images = [np.asarray(Image.open(p).convert("RGB")) for p in paths]
+    finally:
+        hook.remove()
+        restore()
+        tmp.cleanup()
+    dino = image_patching._get_patcher("dino-v1")
+    check(next(dino.model.parameters()).device.type == DEVICE,
+          "DINO is not on the card")
+    pixels = torch.from_numpy(np.stack([
+        cv2.resize(img, (224, 224), interpolation=cv2.INTER_LINEAR)
+        for img in images[:4]])).to(DEVICE)
+    config = dino.model.config
+    maps = {}
+    for impl in ("plain", "kernel"):
+        dino.model.config = replace(config, attention_impl=impl)
+        with torch.inference_mode():
+            maps[impl] = dino.model.last_selfattention(pixels).flatten(2)
+    dino.model.config = config
+    dino_cos = min_cos(maps["kernel"].flatten(0, 1),
+                       maps["plain"].flatten(0, 1))
+    check(dino_cos >= 1 - DETECTOR_COS_TOL,
+          f"DINO maps, kernel vs twin: cosine {dino_cos}")
+    yolox = image_patching._get_patcher("marqo-yolo")
+    frcnn = image_patching._get_patcher("frcnn")
+    # YOLOX's input / 255: with random weights the raw 0-255 pixels drive
+    # the head logits to 1e4, where the sigmoids saturate and a 1e-6
+    # relative difference in a logit moves a probability by 1e-3
+    size = yolox.config.input_size
+    bgr = cv2.resize(images[0], (size, size))[..., ::-1] / 255.0
+    yolo_in = torch.from_numpy(bgr[None].astype(np.float32))
+    rgb = cv2.resize(images[1], (frcnn.config.input_size,) * 2)
+    frcnn_in = torch.from_numpy(((rgb / 255.0 - np.asarray(IMAGENET_MEAN)) /
+                                 np.asarray(IMAGENET_STD))[None].astype(
+                                     np.float32))
+    with torch.inference_mode():
+        card = yolox.model(yolo_in.to(DEVICE)).cpu()
+        host = copy.deepcopy(yolox.model).cpu()(yolo_in)
+        yolox_err = max(_relative_error(card[..., s], host[..., s])
+                        for s in (slice(0, 2), slice(2, 4), slice(4, 5),
+                                  slice(5, None)))
+        card = frcnn.model(frcnn_in.to(DEVICE))
+        host = copy.deepcopy(frcnn.model).cpu()(frcnn_in)
+        frcnn_err = max(_relative_error(c.cpu(), h)
+                        for c_level, h_level in zip(card, host)
+                        for c, h in zip(c_level, h_level))
+    for name, err in (("YOLOX", yolox_err), ("Faster R-CNN", frcnn_err)):
+        check(err <= DETECTOR_REL_TOL, f"{name} card vs fp32 CPU: relative "
+              f"error {err}")
+    emit("patch_serve", ok=True, images=PATCH_IMAGES,
+         image_size=list(PATCH_IMAGE_SIZE), methods=per_method,
+         frcnn_width=frcnn.config.width,
+         dino_min_cosine_kernel_vs_plain=dino_cos,
+         yolox_card_vs_cpu_rel_err=yolox_err,
+         frcnn_card_vs_cpu_rel_err=frcnn_err,
+         model_devices=sorted({str(next(p.model.parameters()).device.type)
+                               for p in (dino, yolox, frcnn)}))
+    return per_method["dino-v1"]["launches_in_patcher"][
+        "fused_attention_nomask"]
+
+
+def phase_owl_rerank(server, torch):
+    """OWL-ViT B/32 (google/owlvit-base-patch32's widths, random weights
+    from a seeded torch.Generator) as the rerank cache's "owl/ViT-B/32",
+    behind an HTTP search over OWL_HITS image documents with reRanker and
+    searchableAttributes ["image"]: B2's no-mask mode runs 12 times per
+    scoring call at (OWL_HITS, 12, 577, 64); every hit scores in [0, 1]
+    with a highlight box inside its image; the logits and boxes on B2
+    against the twin's."""
+    from dataclasses import replace
+
+    import numpy as np
+    from PIL import Image
+
+    from marqo_tpu_torch.inference import rerank
+    from marqo_tpu_torch.models.owl_vit import (OwlViTConfig, detect,
+                                                init_owl_params)
+    from marqo_tpu_torch.models.tokenizer import TextTokenizer
+    name = "owl/ViT-B/32"
+    config = OwlViTConfig.base_patch32()
+    config = OwlViTConfig(
+        text=replace(config.text, **OWL_VIT.get("text", {})),
+        vision=replace(config.vision, **OWL_VIT.get("vision", {})))
+    # the reranker load() would build from google/owlvit-base-patch32's
+    # checkpoint, which this run has not got: the same object, random
+    reranker = rerank.TorchOwlReranker(name, _device())
+    reranker.config = config
+    reranker.model = init_owl_params(
+        config, torch.Generator(device=DEVICE).manual_seed(8),
+        dtype=torch.bfloat16, device=DEVICE)
+    reranker.tokenizer = TextTokenizer.build_test_wordpiece(
+        max_length=config.text.max_positions)
+    reranker._tokenize = reranker._tokenize_wordpiece
+    rerank._rerankers[f"{name}||{_device().value}"] = reranker
+    calls = []
+    score_images = reranker.score_images
+
+    def counted(query, pointers):
+        before = read_counts()
+        out = score_images(query, pointers)
+        calls.append({"images": len(pointers),
+                      "launches": count_delta(before, read_counts())})
+        return out
+
+    reranker.score_images = counted
+    req = server.req
+    props = vit_l14_props()
+    query = "a red photo"
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_images(tmp, OWL_HITS, seed=12)
+        sizes = {f"o{i}": Image.open(p).size for i, p in enumerate(paths)}
+        req("POST", "/indexes/owl-images", {
+            "model": props["name"], "modelProperties": props,
+            "treatUrlsAndPointersAsImages": True})
+        res = req("POST", "/indexes/owl-images/documents", {
+            "documents": [{"_id": f"o{i}", "image": p}
+                          for i, p in enumerate(paths)],
+            "tensorFields": ["image"]})
+        check(res["errors"] is False, f"owl-images add: {res}")
+        reset_counts()
+        start = time.perf_counter()
+        hits = req("POST", "/indexes/owl-images/search", {
+            "q": query, "searchMethod": "TENSOR", "limit": OWL_HITS,
+            "reRanker": name, "searchableAttributes": ["image"]})["hits"]
+        search_ms = (time.perf_counter() - start) * 1000
+        launches = read_counts()
+        pixels = torch.from_numpy(np.stack(
+            [reranker._load_image(p)[0] for p in paths])).to(DEVICE)
+    del reranker.score_images
+    layers = config.vision.num_layers
+    check(len(calls) == 1 and calls[0]["images"] == OWL_HITS,
+          f"owl scoring calls: {calls}")
+    check(launches == {**dict.fromkeys(launches, 0),
+                       "fused_attention_nomask": layers * len(calls)},
+          f"owl search launches {launches}, expected {layers} B2 no-mask "
+          f"per scoring call")
+    scores = [h["_score"] for h in hits]
+    check(len(hits) == OWL_HITS and scores == sorted(scores, reverse=True),
+          f"owl rerank: hits {len(hits)}, scores {scores}")
+    for hit in hits:
+        w, h = sizes[hit["_id"]]
+        x1, y1, x2, y2 = hit["_highlights"][0]["image"]
+        check(0.0 <= hit["_score"] <= 1.0 and 0 <= x1 <= x2 <= w and
+              0 <= y1 <= y2 <= h, f"owl hit {hit['_id']}: score "
+              f"{hit['_score']}, box {[x1, y1, x2, y2]} in {w}x{h}")
+    ids = torch.from_numpy(reranker._tokenize([query])).to(DEVICE)
+    out = {}
+    for impl in ("plain", "kernel"):
+        reranker.model.vision.config = replace(config.vision,
+                                               attention_impl=impl)
+        with torch.inference_mode():
+            out[impl] = detect(reranker.model, pixels, ids)
+    reranker.model.vision.config = config.vision
+    logits_cos = min_cos(out["kernel"][0].flatten(1),
+                         out["plain"][0].flatten(1))
+    box_err = float((out["kernel"][1] - out["plain"][1]).abs().max())
+    check(logits_cos >= 1 - DETECTOR_COS_TOL and box_err <= OWL_BOX_TOL,
+          f"owl kernel vs twin: logits cosine {logits_cos}, boxes "
+          f"{box_err}")
+    emit("owl_rerank", ok=True, hits=len(hits), top_scores=scores[:3],
+         scoring_calls=calls, launches=launches, search_ms=search_ms,
+         tokens=(config.vision.image_size // config.vision.patch_size) ** 2
+         + 1, logits_min_cosine_kernel_vs_plain=logits_cos,
+         boxes_max_abs_err_kernel_vs_plain=box_err,
+         model_device=str(next(reranker.model.parameters()).device.type))
+    rerank.clear_rerankers()
+    return launches["fused_attention_nomask"]
+
+
+def phase_detector_timing(fused, torch, patch_launches, owl_launches):
+    """B2's no-mask mode at the DINO and OWL-ViT shapes: queued, with its
+    back-to-back time, bound, twin and SDPA times and the launches of its
+    phase. (The detectors' device ms per image come from
+    scripts/profile_torch_encoder.py: a whole model's forward queues more
+    launches than the device's queue holds, so queued_ms cannot time
+    it.)"""
+    rows = []
+    for shape, launches in ((DINO_B2_SHAPE, patch_launches),
+                            (OWL_B2_SHAPE, owl_launches)):
+        B, N, S, D = shape
+        q, k, v, _, _ = attention_inputs(B, N, S, D, torch.bfloat16, seed=S)
+        q, k, v = projection_views(q, k, v, "projection")
+        rows.append({"kernel": "fused_attention", "mode": "nomask",
+                     "shape": list(shape), "layout": "projection",
+                     "dtype": "bfloat16", "launches": launches,
+                     **attention_bound(B, N, S, D, "fused_nomask"),
+                     **paired_queued_ms(
+                         lambda: fused.fused_attention(q, k, v),
+                         lambda: fused.fused_attention_reference(q, k, v),
+                         _sdpa(torch, q, k, v, None), 20)})
+    return rows
+
+
 def _sdpa(torch, q, k, v, allowed):
     """The library yardstick of the attention kernels: one
     scaled_dot_product_attention call with an additive -1e9 mask made
@@ -2269,6 +2655,8 @@ def main() -> int:
         languagebind, _, languagebind_add_seconds = \
             phase_languagebind_serve(server, torch)
         phase_languagebind_video(languagebind, torch)
+        patch_launches = phase_patch_serve(server, torch)
+        owl_launches = phase_owl_rerank(server, torch)
     finally:
         server.close()
     phase_nllb_siglip_encode(torch)
@@ -2277,6 +2665,9 @@ def main() -> int:
 
     timing, vit, encoder_times = phase_timing(
         fa, fused, qm, torch, clip_model, pixels, int8_encoder, bf16_encoder)
+    emit("detector_timing", device=torch.cuda.get_device_name(0),
+         nvidia_smi=smi, kernel_vs_twin=phase_detector_timing(
+             fused, torch, patch_launches, owl_launches))
     latencies = serve["latencies"]
     emit("timing", device=torch.cuda.get_device_name(0), nvidia_smi=smi,
          kernel_vs_twin=timing, vit_l14=vit, e5_encoder=encoder_times,

@@ -14,12 +14,18 @@ All model-based methods share the reference's box pipeline
 replace tiny boxes with centered 100×100 → clip → class-agnostic NMS
 (iou 0.6) → top-10 → prepend the full image.
 
-The detector models are not yet ported to this package: the detector
-methods raise ModelLoadError, while the grid methods and the numpy box
-pipeline work as in marqo_tpu. Each patch becomes one chunk+vector; the
-bounding-box string is the stored chunk.
+Device shape: detectors are PyTorch modules (models/dino_vit.py,
+models/yolox.py, models/frcnn.py) on the serving device
+(Device.normalize(None)), one image per call and one copy back to the host
+per image, with the box pipeline in numpy on the host. Real detector
+weights are hub-gated offline (like the reference's torch-hub/onnx
+downloads); MARQO_PATCH_MODELS_RANDOM_INIT=TRUE runs deterministic
+random-init detectors (weights drawn from a torch.Generator seeded from
+the method's name) so the full path is testable. Each patch becomes one
+chunk+vector; the bounding-box string is the stored chunk.
 """
 
+import hashlib
 import threading
 from typing import List, Tuple
 
@@ -37,6 +43,12 @@ TOP_K_SCORES = 100
 
 _patchers = {}
 _patchers_lock = threading.Lock()
+
+
+def _random_init_enabled() -> bool:
+    from marqo_tpu_torch.api import configs
+    return str(configs.read_env_vars_and_defaults(
+        "MARQO_PATCH_MODELS_RANDOM_INIT") or "").upper() == "TRUE"
 
 
 # --- box pipeline (numpy ports of reference image_utils.py) -------------------
@@ -143,12 +155,245 @@ def _grid_boxes(width: int, height: int, hn: int = 3, wn: int = 3,
     return out
 
 
+def _serving_device():
+    """The serving device (Device.normalize(None)) as a torch.device."""
+    import torch
+
+    from marqo_tpu_torch.inference.types import Device
+    return torch.device("cuda" if Device.normalize(None) == Device.CUDA
+                        else "cpu")
+
+
+def _seeded_generator(name: bytes, device):
+    """A torch.Generator on ``device`` seeded from ``name``'s sha256."""
+    import torch
+    seed = int.from_bytes(hashlib.sha256(name).digest()[:4], "little")
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+# --- DINO attention patcher ----------------------------------------------------
+
+class _DinoPatcher:
+    """dino-v1/dino-v2 (reference PatchifyViT): last-block CLS attention →
+    pixel-space maps → Otsu threshold → contour boxes, scored by area."""
+
+    def __init__(self, attention_method: str):
+        import torch
+
+        from marqo_tpu_torch.models.dino_vit import DinoViTConfig, init_params
+        self.method = attention_method  # 'abs' (v1) | 'pos' (v2)
+        self.config = DinoViTConfig.vit_small(patch_size=16)
+        self.device = _serving_device()
+        if _random_init_enabled():
+            self.model = init_params(
+                self.config, _seeded_generator(b"dino", self.device),
+                dtype=torch.bfloat16, device=self.device)
+        else:
+            self.model = self._load_real_weights()
+
+    def _load_real_weights(self):
+        import os
+
+        from marqo_tpu_torch.api import configs
+        from marqo_tpu_torch.models.dino_vit import model_from_dino_state_dict
+        path = configs.read_env_vars_and_defaults("MARQO_DINO_WEIGHTS_PATH")
+        if path and os.path.exists(str(path)):
+            import torch
+            state = torch.load(str(path), map_location="cpu")
+            return model_from_dino_state_dict(state, self.config,
+                                              dtype=torch.bfloat16,
+                                              device=self.device)
+        raise ModelLoadError(
+            "DINO patch models need their checkpoint on disk: set "
+            "MARQO_DINO_WEIGHTS_PATH to a facebookresearch/dino "
+            "dino_vits16 state dict (torch hub has no egress in this "
+            "deployment), or set MARQO_PATCH_MODELS_RANDOM_INIT=TRUE for "
+            "a synthetic-weight smoke mode.")
+
+    def boxes(self, image: np.ndarray) -> Tuple[List[Tuple], List[float]]:
+        import cv2
+        import torch
+        size = self.config.image_size
+        resized = cv2.resize(image, (size, size),
+                             interpolation=cv2.INTER_LINEAR)
+        with torch.inference_mode():
+            attn = self.model.last_selfattention(
+                torch.from_numpy(resized[None]).to(self.device))
+        attn = attn.cpu().numpy()[0]
+        # upsample patch grid → pixels (reference: nearest, scale=patch)
+        maps = np.repeat(np.repeat(attn, self.config.patch_size, axis=1),
+                         self.config.patch_size, axis=2)
+        if self.method == "abs":      # dino-v1 (image.py:352-355)
+            maps = np.abs(maps).mean(0)[None]
+        else:                          # dino-v2: positive parts per head
+            maps = np.where(maps < 0, 0, maps)
+        boxes: List[Tuple] = []
+        for attention in maps:
+            boxes += self._attention_to_bboxes(attention)
+        # no detector scores: area ranks boxes (reference _calc_scores_bb)
+        scores = [(b[2] - b[0]) * (b[3] - b[1]) for b in boxes]
+        if len(scores) > TOP_K_SCORES:
+            order = np.argsort(scores)[::-1][:TOP_K_SCORES]
+            boxes = [boxes[i] for i in order]
+            scores = [scores[i] for i in order]
+        work = (size, size)
+        return [_rescale_box(b, work, WORK_SIZE) for b in boxes], scores
+
+    @staticmethod
+    def _attention_to_bboxes(attention: np.ndarray) -> List[Tuple]:
+        """Otsu threshold + external contours (reference
+        DINO_utils.py:146-173 attention_to_bboxs)."""
+        import cv2
+        peak = float(attention.max())
+        if peak <= 0:
+            return []
+        gray = (attention / peak * 255.0).astype(np.uint8)
+        _, thresh = cv2.threshold(gray, 0, 255,
+                                  cv2.THRESH_BINARY + cv2.THRESH_OTSU)
+        cnts = cv2.findContours(thresh, cv2.RETR_EXTERNAL,
+                                cv2.CHAIN_APPROX_SIMPLE)
+        cnts = cnts[0] if len(cnts) == 2 else cnts[1]
+        boxes = []
+        for contour in cnts:
+            x, y, w, h = cv2.boundingRect(contour)
+            boxes.append((x, y, x + w, y + h))
+        return boxes
+
+
+# --- YOLOX patcher ---------------------------------------------------------------
+
+class _YoloxPatcher:
+    """marqo-yolo / yolox (reference PatchifyYolox): letterboxed 384² input,
+    objectness-scored boxes decoded exactly like demo_postprocess."""
+
+    def __init__(self):
+        from marqo_tpu_torch.models.yolox import YoloxConfig, init_params
+        self.config = YoloxConfig()
+        self.device = _serving_device()
+        if _random_init_enabled():
+            self.model = init_params(self.config,
+                                     _seeded_generator(b"yolox", self.device),
+                                     device=self.device)
+        else:
+            raise ModelLoadError(
+                "marqo-yolo/yolox patch models need converted weights: the "
+                "reference ships Marqo/marqo-yolo-v2 yolox_s.onnx, which "
+                "cannot be downloaded in this deployment. Set "
+                "MARQO_PATCH_MODELS_RANDOM_INIT=TRUE for a synthetic-weight "
+                "smoke mode.")
+
+    def boxes(self, image: np.ndarray) -> Tuple[List[Tuple], List[float]]:
+        import cv2
+        import torch
+
+        from marqo_tpu_torch.models.yolox import decode_outputs
+        size = self.config.input_size
+        work = cv2.resize(image, WORK_SIZE,
+                          interpolation=cv2.INTER_LINEAR)[..., ::-1]  # BGR
+        # letterbox (reference preprocess_yolox: pad value 114)
+        ratio = min(size / work.shape[0], size / work.shape[1])
+        resized = cv2.resize(work, (int(work.shape[1] * ratio),
+                                    int(work.shape[0] * ratio)),
+                             interpolation=cv2.INTER_LINEAR)
+        padded = np.full((size, size, 3), 114, dtype=np.float32)
+        padded[:resized.shape[0], :resized.shape[1]] = resized
+        with torch.inference_mode():
+            outputs = self.model(
+                torch.from_numpy(padded[None]).to(self.device))
+        outputs = outputs.cpu().numpy()
+        preds = decode_outputs(outputs, (size, size))[0]
+        boxes_cxcywh = preds[:, :4]
+        scores = preds[:, 4:5]
+        boxes = np.empty_like(boxes_cxcywh)
+        boxes[:, 0] = boxes_cxcywh[:, 0] - boxes_cxcywh[:, 2] / 2
+        boxes[:, 1] = boxes_cxcywh[:, 1] - boxes_cxcywh[:, 3] / 2
+        boxes[:, 2] = boxes_cxcywh[:, 0] + boxes_cxcywh[:, 2] / 2
+        boxes[:, 3] = boxes_cxcywh[:, 1] + boxes_cxcywh[:, 3] / 2
+        boxes /= ratio
+        flat_scores = scores.reshape(-1)
+        if flat_scores.size > TOP_K_SCORES:
+            order = np.argsort(flat_scores)[::-1][:TOP_K_SCORES]
+            boxes = boxes[order]
+            flat_scores = flat_scores[order]
+        return [tuple(map(float, b)) for b in boxes], \
+            [float(s) for s in flat_scores]
+
+
+class _FrcnnPatcher:
+    """frcnn (reference PatchifyPytorch over torchvision
+    fasterrcnn_resnet50_fpn): class-agnostic region proposals from the
+    Faster R-CNN proposal stage (models/frcnn.py), ranked by RPN
+    objectness. Scale: tests use a width-reduced backbone
+    (MARQO_FRCNN_WIDTH) since resnet-50 at 384² is slow on a 1-core CPU."""
+
+    def __init__(self):
+        from marqo_tpu_torch.api import configs
+        from marqo_tpu_torch.models.frcnn import FrcnnConfig, init_params
+        width = float(configs.read_env_vars_and_defaults(
+            "MARQO_FRCNN_WIDTH") or 1.0)
+        self.config = FrcnnConfig(width=width)
+        self.device = _serving_device()
+        if _random_init_enabled():
+            self.model = init_params(self.config,
+                                     _seeded_generator(b"frcnn", self.device),
+                                     device=self.device)
+        else:
+            raise ModelLoadError(
+                "frcnn patching needs torchvision fasterrcnn_resnet50_fpn "
+                "weights, which cannot be downloaded in this deployment "
+                "(torchvision absent, no egress). Set "
+                "MARQO_PATCH_MODELS_RANDOM_INIT=TRUE for a synthetic-weight "
+                "smoke mode, or use marqo-yolo / dino-v1 / dino-v2.")
+
+    def boxes(self, image: np.ndarray) -> Tuple[List[Tuple], List[float]]:
+        import cv2
+        import torch
+
+        from marqo_tpu_torch.models.frcnn import (IMAGENET_MEAN, IMAGENET_STD,
+                                                  decode_proposals)
+        size = self.config.input_size
+        work = cv2.resize(image, WORK_SIZE, interpolation=cv2.INTER_LINEAR)
+        resized = cv2.resize(work, (size, size),
+                             interpolation=cv2.INTER_LINEAR)
+        pixels = (resized.astype(np.float32) / 255.0 -
+                  np.asarray(IMAGENET_MEAN)) / np.asarray(IMAGENET_STD)
+        with torch.inference_mode():
+            levels = self.model(torch.from_numpy(
+                pixels[None].astype(np.float32)).to(self.device))
+            # one copy back to the host for the ten level outputs
+            flat = torch.cat([t.reshape(-1) for level in levels
+                              for t in level]).cpu().numpy()
+        outputs, start = [], 0
+        for level in levels:
+            pair = []
+            for t in level:
+                pair.append(flat[start:start + t.numel()].reshape(t.shape))
+                start += t.numel()
+            outputs.append(pair)
+        boxes, scores = decode_proposals(outputs, self.config)
+        if scores.size > TOP_K_SCORES:
+            order = np.argsort(scores)[::-1][:TOP_K_SCORES]
+            boxes, scores = boxes[order], scores[order]
+        scale = (WORK_SIZE[0] / size, WORK_SIZE[1] / size)
+        out_boxes = [(float(b[0] * scale[0]), float(b[1] * scale[1]),
+                      float(b[2] * scale[0]), float(b[3] * scale[1]))
+                     for b in boxes]
+        return out_boxes, [float(s) for s in scores]
+
+
 def _get_patcher(method: str):
-    """The detector patchers (DINO, YOLOX, Faster R-CNN) run models that
-    this package does not have yet."""
-    raise ModelLoadError(
-        f"Patch method `{method}` is not yet ported to marqo_tpu_torch "
-        f"(ROADMAP A9); use `simple` or `overlap`")
+    key = method
+    with _patchers_lock:
+        if key not in _patchers:
+            if method == "dino-v1":
+                _patchers[key] = _DinoPatcher("abs")
+            elif method == "dino-v2":
+                _patchers[key] = _DinoPatcher("pos")
+            elif method in ("marqo-yolo", "yolox"):
+                _patchers[key] = _YoloxPatcher()
+            elif method == "frcnn":
+                _patchers[key] = _FrcnnPatcher()
+        return _patchers.get(key)
 
 
 def clear_patchers() -> None:

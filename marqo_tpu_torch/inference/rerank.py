@@ -9,12 +9,14 @@ names containing 'owl' dispatch to the OWL-ViT IMAGE reranker
 image pointer, each hit is re-scored by its best query-matching box, and
 the highlight becomes that box's corners in original-image pixels.
 Everything else goes to the text cross-encoder. Reranker model cache
-mirrors the embedding-model cache keying. The OWL-ViT model is not ported
-to this package yet: loading it raises ModelLoadError.
+mirrors the embedding-model cache keying.
 """
 
+import hashlib
 import threading
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
 
 from marqo_tpu_torch.core.exceptions import (InvalidArgumentError, ModelLoadError,
                                        RerankerError, RerankerNameError)
@@ -44,16 +46,182 @@ OWL_MODEL_MAP = {
 }
 
 
+class TorchOwlReranker:
+    """OWL-ViT image reranker (models/owl_vit.py) on one device, in bf16.
+    Scores each hit's image by its best box for the query; highlight = that
+    box in original-image pixel corners (reference sort_owl_boxes_scores +
+    rescale_box)."""
+
+    def __init__(self, model_name: str, device: Device,
+                 properties: Optional[dict] = None):
+        import torch
+
+        from marqo_tpu_torch.models.owl_vit import OwlViTConfig
+        self.model_name = model_name
+        self.properties = dict(properties or {})
+        self.device = device
+        self._device = torch.device(
+            "cuda" if device == Device.CUDA else "cpu")
+        self.config: Optional[OwlViTConfig] = None
+        self.model = None
+        self.tokenizer = None
+
+    def load(self) -> None:
+        import torch
+
+        from marqo_tpu_torch.models.owl_vit import (OwlViTConfig, init_owl_params,
+                                                    model_from_hf_owlvit)
+        localpath = self.properties.get("localpath")
+        if self.model_name not in OWL_MODEL_MAP and not localpath:
+            # reference RerankerNameError (cross_encoders.py:363-364)
+            raise InvalidArgumentError(
+                f"could not find model_name={self.model_name} in mappings "
+                f"{list(OWL_MODEL_MAP.keys())}")
+        repo = OWL_MODEL_MAP.get(self.model_name, self.model_name)
+        if self.properties.get("random_init"):
+            arch = self.properties.get("architecture", {})
+            from marqo_tpu_torch.models.clip import (CLIPTextConfig,
+                                               CLIPVisionConfig)
+            hidden = int(arch.get("hidden_size", 32))
+            self.config = OwlViTConfig(
+                text=CLIPTextConfig(
+                    vocab_size=int(arch.get("vocab_size", 1024)),
+                    hidden_size=hidden, num_layers=int(arch.get("layers", 2)),
+                    num_heads=int(arch.get("heads", 2)),
+                    intermediate_size=2 * hidden, max_positions=16,
+                    projection_dim=hidden,
+                    eos_token_id=int(arch.get("vocab_size", 1024)) - 1),
+                vision=CLIPVisionConfig(
+                    image_size=int(arch.get("image_size", 32)),
+                    patch_size=int(arch.get("patch_size", 8)),
+                    hidden_size=hidden, num_layers=int(arch.get("layers", 2)),
+                    num_heads=int(arch.get("heads", 2)),
+                    intermediate_size=2 * hidden, projection_dim=hidden))
+            seed = int.from_bytes(hashlib.sha256(
+                self.model_name.encode()).digest()[:4], "little")
+            generator = torch.Generator(device=self._device).manual_seed(seed)
+            self.model = init_owl_params(self.config, generator,
+                                         dtype=torch.bfloat16,
+                                         device=self._device)
+            from marqo_tpu_torch.models.tokenizer import TextTokenizer
+            self.tokenizer = TextTokenizer.build_test_wordpiece(max_length=16)
+            self._tokenize = self._tokenize_wordpiece
+            return
+        try:
+            from transformers import (CLIPTokenizerFast,
+                                      OwlViTConfig as HFOwlConfig,
+                                      OwlViTForObjectDetection)
+            source = localpath or repo
+            hf_cfg = HFOwlConfig.from_pretrained(source)
+            from marqo_tpu_torch.models.clip import (CLIPTextConfig,
+                                               CLIPVisionConfig)
+            self.config = OwlViTConfig(
+                text=CLIPTextConfig(
+                    vocab_size=hf_cfg.text_config.vocab_size,
+                    hidden_size=hf_cfg.text_config.hidden_size,
+                    num_layers=hf_cfg.text_config.num_hidden_layers,
+                    num_heads=hf_cfg.text_config.num_attention_heads,
+                    intermediate_size=hf_cfg.text_config.intermediate_size,
+                    max_positions=hf_cfg.text_config.max_position_embeddings,
+                    projection_dim=hf_cfg.projection_dim,
+                    eos_token_id=hf_cfg.text_config.eos_token_id),
+                vision=CLIPVisionConfig(
+                    image_size=hf_cfg.vision_config.image_size,
+                    patch_size=hf_cfg.vision_config.patch_size,
+                    hidden_size=hf_cfg.vision_config.hidden_size,
+                    num_layers=hf_cfg.vision_config.num_hidden_layers,
+                    num_heads=hf_cfg.vision_config.num_attention_heads,
+                    intermediate_size=hf_cfg.vision_config.intermediate_size,
+                    projection_dim=hf_cfg.projection_dim))
+            torch_model = OwlViTForObjectDetection.from_pretrained(source)
+            self.model = model_from_hf_owlvit(
+                torch_model.state_dict(), self.config, dtype=torch.bfloat16,
+                device=self._device)
+            del torch_model
+            tok = CLIPTokenizerFast.from_pretrained(source)
+            self._clip_tok = tok
+            self._tokenize = self._tokenize_clip
+        except Exception as e:
+            raise ModelLoadError(
+                f"Could not load OWL-ViT reranker `{self.model_name}` from "
+                f"`{localpath or repo}`: {e}. If running offline, provide "
+                f"model_properties.localpath.", cause=e)
+
+    def _tokenize_clip(self, texts: List[str]) -> np.ndarray:
+        enc = self._clip_tok(texts, padding="max_length", truncation=True,
+                             max_length=self.config.text.max_positions,
+                             return_tensors="np")
+        return enc["input_ids"].astype(np.int32)
+
+    def _tokenize_wordpiece(self, texts: List[str]) -> np.ndarray:
+        batch = self.tokenizer.encode_batch(
+            texts, pad_to=self.config.text.max_positions)
+        return np.asarray(batch["input_ids"], dtype=np.int32)
+
+    def _load_image(self, pointer) -> Tuple[np.ndarray, Tuple[int, int]]:
+        """Decode + squash-resize to the model's square input (reference
+        ReRankerOwl.load_images resizes to a fixed size, no crop). Returns
+        (uint8 array, (orig_w, orig_h))."""
+        from PIL import Image
+
+        from marqo_tpu_torch.ops.image_ops import host_decode
+        arr = host_decode(pointer)
+        img = Image.fromarray(arr)
+        orig = img.size
+        size = self.config.vision.image_size
+        img = img.resize((size, size), Image.BICUBIC)
+        return np.asarray(img, dtype=np.uint8), orig
+
+    def score_images(self, query: str, pointers: List) -> List[dict]:
+        """Per image: {'score': best box score, 'box': [x1,y1,x2,y2] in
+        original pixels, 'boxes'/'scores': top-k lists} — or {'error'}."""
+        import torch
+
+        from marqo_tpu_torch.models.owl_vit import detect
+        ids = self._tokenize([query])
+        loaded, sizes, index = [], [], []
+        results: List[Optional[dict]] = [None] * len(pointers)
+        for i, pointer in enumerate(pointers):
+            try:
+                pixels, orig = self._load_image(pointer)
+                loaded.append(pixels)
+                sizes.append(orig)
+                index.append(i)
+            except Exception as e:
+                results[i] = {"error": str(e)}
+        if loaded:
+            with torch.inference_mode():
+                logits, boxes = detect(
+                    self.model,
+                    torch.from_numpy(np.stack(loaded)).to(self._device),
+                    torch.from_numpy(ids).to(self._device))
+                # (B, P) probabilities and (B, P, 4) cxcywh boxes in
+                # [0,1], in one copy back to the host
+                best = torch.cat([torch.sigmoid(logits[..., :1]), boxes],
+                                 dim=-1).cpu().numpy()
+            probs, boxes = best[..., 0], best[..., 1:]
+            for row, i in enumerate(index):
+                best = int(np.argmax(probs[row]))
+                cx, cy, w, h = boxes[row, best]
+                ow, oh = sizes[row]
+                corners = [float(max(0, (cx - w / 2)) * ow),
+                           float(max(0, (cy - h / 2)) * oh),
+                           float(min(1, (cx + w / 2)) * ow),
+                           float(min(1, (cy + h / 2)) * oh)]
+                results[i] = {"score": float(probs[row, best]),
+                              "box": corners}
+        return results  # type: ignore[return-value]
+
+
 def _get_reranker(model_name: str, device: Device,
                   properties: Optional[dict] = None):
-    if "owl" in model_name.lower():
-        raise ModelLoadError(
-            f"OWL-ViT image reranker `{model_name}` is not yet ported to "
-            f"marqo_tpu_torch (ROADMAP A9)")
     key = f"{model_name}||{device.value}"
     with _lock:
         if key not in _rerankers:
-            model = TorchCrossEncoder(model_name, device, properties)
+            if "owl" in model_name.lower():
+                model: object = TorchOwlReranker(model_name, device, properties)
+            else:
+                model = TorchCrossEncoder(model_name, device, properties)
             model.load()
             _rerankers[key] = model
         return _rerankers[key]

@@ -308,6 +308,21 @@ def _empty_encoder(config: TextEncoderConfig, dtype,
     return encoder
 
 
+def tree_values(tree, prefix: str = "") -> dict:
+    """The leaves of a nested dict/list tree by dotted path: the names
+    ``named_parameters`` gives a module whose attributes mirror the tree."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: tree}
+    values = {}
+    for key, value in items:
+        values.update(tree_values(value, f"{prefix}{key}."))
+    return values
+
+
 @torch.no_grad()
 def fill_parameters(module: nn.Module, values: dict) -> nn.Module:
     """Copy ``values`` (name → array or tensor) into every parameter and

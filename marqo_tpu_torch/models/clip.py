@@ -193,6 +193,15 @@ class CLIPVisionTower(nn.Module):
 
     def forward(self, pixels_u8: torch.Tensor) -> torch.Tensor:
         config = self.config
+        x = self.tokens(pixels_u8)
+        pooled = layer_norm(x[:, 0], self.post_ln.weight, self.post_ln.bias,
+                            config.layer_norm_eps).float()
+        return pooled @ self.projection.float()
+
+    def tokens(self, pixels_u8: torch.Tensor) -> torch.Tensor:
+        """(B, size, size, 3) uint8 → (B, S, H): every token after the
+        blocks, before the post-LN (OWL-ViT reads them all)."""
+        config = self.config
         B = pixels_u8.shape[0]
         size, patch = config.image_size, config.patch_size
         n_side = size // patch
@@ -212,9 +221,7 @@ class CLIPVisionTower(nn.Module):
         attend = _VISION_ATTENTION[config.attention_impl]
         for layer in self.layers:
             x = layer(x, attend)
-        pooled = layer_norm(x[:, 0], self.post_ln.weight, self.post_ln.bias,
-                            config.layer_norm_eps).float()
-        return pooled @ self.projection.float()
+        return x
 
 
 class CLIPEncoder(nn.Module):

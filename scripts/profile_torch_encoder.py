@@ -8,14 +8,19 @@ positions, images at 224 px), NLLB-SigLIP base (texts of mixed lengths,
 images at 384 px), RN50 and convnext_base (images at 224 px), CoCa
 ViT-L-14 (images and texts), EVA02-L-14-336 (images at 336 px) and
 LanguageBind at ViT-L/14 width (audio clips of 992 frames; 2 videos of 8
-frames through the video tower), all at full width with random weights,
-under torch.profiler. The script prints one
+frames through the video tower), and the detectors of the patch methods
+and the image reranker (DINO ViT-S/16 on one 224 px image, YOLOX-S and
+Faster R-CNN R50-FPN on one 384 px image, each as served and with TF32
+off, and OWL-ViT B/32 scoring --hits 768 px images against one query),
+all at full width with random weights, under torch.profiler. The script
+prints one
 JSON line per batch with the device time by kernel family (attention
 kernel, matmuls, the rest), the top kernels, and the device's busy share of
 the wall time.
 
     python3 scripts/profile_torch_encoder.py [--batch 256] [--seq 128]
                                              [--images 16] [--texts 16]
+                                             [--hits 10]
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -181,6 +186,61 @@ def new_family_towers(torch, rng, n_images: int, n_texts: int) -> list:
     return out
 
 
+def detector_models(torch, rng, n_hits: int) -> list:
+    """(name, fn, docs, rows, seq) for the patchers' detectors at their
+    served configurations (DINO ViT-S/16 in bf16 on one 224 px image;
+    YOLOX-S and Faster R-CNN R50-FPN in fp32 on one 384 px image, with
+    cuDNN's default TF32 convolutions as the server runs them and with
+    TF32 off as chip_smoke.py checks them) and OWL-ViT B/32 (bf16) scoring
+    ``n_hits`` 768 px images against one query, random weights."""
+    from marqo_tpu_torch.models import dino_vit, frcnn, owl_vit, yolox
+
+    def generator():
+        return torch.Generator("cuda").manual_seed(0)
+
+    dino = dino_vit.init_params(dino_vit.DinoViTConfig.vit_small(),
+                                generator(), dtype=torch.bfloat16,
+                                device="cuda")
+    yolo = yolox.init_params(yolox.YoloxConfig(), generator(),
+                             device="cuda")
+    rcnn = frcnn.init_params(frcnn.FrcnnConfig(), generator(),
+                             device="cuda")
+    owl_config = owl_vit.OwlViTConfig.base_patch32()
+    owl = owl_vit.init_owl_params(owl_config, generator(),
+                                  dtype=torch.bfloat16, device="cuda")
+
+    def pixels(n, size):
+        return torch.from_numpy(rng.integers(
+            0, 256, (n, size, size, 3), dtype=np.uint8)).cuda()
+
+    letterboxed = pixels(1, 384).float()
+    normalized = torch.from_numpy(rng.standard_normal(
+        (1, 384, 384, 3)).astype(np.float32)).cuda()
+    ids = torch.from_numpy(rng.integers(
+        5, 77, (1, owl_config.text.max_positions)).astype(np.int32)).cuda()
+
+    def run(fn, *inputs, tf32=True):
+        def step():
+            torch.backends.cudnn.allow_tf32 = tf32
+            with torch.inference_mode():
+                fn(*inputs)
+        return step
+
+    def detect(images, query):
+        return owl_vit.detect(owl, images, query)
+
+    return [("dino_vit_s16_image", run(dino.last_selfattention,
+                                       pixels(1, 224)), 1, 1, 197),
+            ("yolox_s_image", run(yolo, letterboxed), 1, 1, 384),
+            ("yolox_s_image_tf32_off", run(yolo, letterboxed, tf32=False),
+             1, 1, 384),
+            ("frcnn_r50_fpn_image", run(rcnn, normalized), 1, 1, 384),
+            ("frcnn_r50_fpn_image_tf32_off",
+             run(rcnn, normalized, tf32=False), 1, 1, 384),
+            ("owl_vit_b32_rerank", run(detect, pixels(n_hits, 768), ids),
+             n_hits, n_hits, 577)]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -192,6 +252,7 @@ def main() -> int:
     parser.add_argument("--images", type=int, default=16)
     parser.add_argument("--texts", type=int, default=16)
     parser.add_argument("--steps", type=int, default=5)
+    parser.add_argument("--hits", type=int, default=10)
     args = parser.parse_args()
 
     import copy
@@ -250,6 +311,7 @@ def main() -> int:
 
     towers = clip_family_towers(torch, rng, args.images, args.texts)
     towers += new_family_towers(torch, rng, args.images, args.texts)
+    towers += detector_models(torch, rng, args.hits)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()

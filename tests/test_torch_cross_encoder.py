@@ -19,8 +19,7 @@ import torch
 from marqo_tpu.inference import rerank as jrerank
 from marqo_tpu.models import bert as jbert
 from marqo_tpu.models import cross_encoder as jce
-from marqo_tpu_torch.core.exceptions import (InvalidArgumentError,
-                                             RerankerError)
+from marqo_tpu_torch.core.exceptions import InvalidArgumentError
 from marqo_tpu_torch.inference import rerank as trerank
 from marqo_tpu_torch.inference.types import Device
 from marqo_tpu_torch.models import bert as tbert
@@ -197,12 +196,26 @@ def test_skips_when_no_hit_has_the_field():
     assert result["hits"][0]["_score"] == 0.7
 
 
-def test_owl_reranker_is_not_ported_yet():
-    result = {"hits": [{"_id": "a", "image": "/nowhere.png"}]}
-    with pytest.raises(RerankerError, match="ROADMAP A9"):
-        trerank.rerank_search_results(result, "q", "owl/ViT-B/32",
-                                      device="cpu",
-                                      searchable_attributes=["image"])
+def test_owl_reranker_is_not_ported_yet(tmp_path):
+    """The OWL-ViT leg reranks (the name is from before models/owl_vit.py
+    was ported): image hits get a box score and a highlight, a missing
+    image scores 0. A query that is not a string is refused."""
+    from PIL import Image
+    path = tmp_path / "a.png"
+    Image.new("RGB", (48, 32), (200, 40, 40)).save(path)
+    props = {"random_init": True,
+             "architecture": {"hidden_size": 32, "layers": 1, "heads": 2,
+                              "image_size": 32, "patch_size": 16}}
+    result = {"hits": [{"_id": "a", "image": str(path)},
+                       {"_id": "b", "image": "/nowhere.png"}]}
+    trerank.rerank_search_results(result, "q", "owl/ViT-B/32", device="cpu",
+                                  searchable_attributes=["image"],
+                                  properties=props)
+    trerank.clear_rerankers()
+    hits = {h["_id"]: h for h in result["hits"]}
+    assert 0 < hits["a"]["_score"] < 1 and hits["b"]["_score"] == 0.0
+    x1, y1, x2, y2 = hits["a"]["_highlights"][0]["image"]
+    assert 0 <= x1 <= x2 <= 48 and 0 <= y1 <= y2 <= 32
     with pytest.raises(InvalidArgumentError):
         trerank.rerank_search_results(result, ["not", "a", "string"],
                                       "test-reranker", device="cpu")

@@ -143,6 +143,21 @@ def test_fused_kernel_at_the_new_towers_shapes(card, B, N, S, D, dtype):
     assert fused.LAUNCHES["nomask"] == before + 1
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,S,D", [chip_smoke.DINO_B2_SHAPE,
+                                     chip_smoke.OWL_B2_SHAPE])
+def test_fused_kernel_at_the_detector_shapes(card, B, N, S, D, dtype):
+    """B2's no-mask mode where the detector models take it: DINO
+    ViT-S/16's blocks on one image (197 tokens, 6 heads) and OWL-ViT
+    B/32's vision blocks on a batch of reranked hits (577 tokens), in the
+    projections' layout."""
+    q, k, v, _, _ = attention_inputs(B, N, S, D, dtype, seed=B + S)
+    before = fused.LAUNCHES["nomask"]
+    _check_b2(*projection_views(q, k, v, "projection"), {"nomask": {}},
+              dtype)
+    assert fused.LAUNCHES["nomask"] == before + 1
+
+
 def test_fused_kernel_refuses_a_batch_past_its_grid():
     """The batch rides on grid.z, at most 65535 blocks: a larger B is a
     ValueError before any launch (on the CPU too, where the check stands

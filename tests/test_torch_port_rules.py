@@ -30,7 +30,8 @@ PORTED = {
     "models/nllb_siglip.py", "models/eva02.py", "models/coca.py",
     "models/languagebind.py", "ops/audio_ops.py", "inference/types.py",
     "inference/batching.py", "inference/loaders.py",
-    "engine/torch_scorer.py",
+    "engine/torch_scorer.py", "models/dino_vit.py", "models/yolox.py",
+    "models/frcnn.py", "models/owl_vit.py",
 }
 
 # numpy functions and constants that ported modules copy as they are
@@ -39,6 +40,9 @@ COPIED_DEFINITIONS = {
                          "N_MELS", "load_wav", "_hz_to_mel", "_mel_to_hz",
                          "mel_filterbank", "chunk_waveform"),
     "models/eva02.py": ("EVA02_ARCHS", "rope_2d_freqs"),
+    "models/dino_vit.py": ("DINO_MEAN", "DINO_STD"),
+    "models/yolox.py": ("decode_outputs",),
+    "models/frcnn.py": ("IMAGENET_MEAN", "IMAGENET_STD", "decode_proposals"),
 }
 
 # copies with deliberate edits, and why
@@ -54,11 +58,16 @@ DELIBERATE_EDITS = {
                        "a docstring named jax",
     "inference/model_registry.py": "docstrings and notes named the JAX model "
                                    "classes",
-    "inference/image_patching.py": "the DINO/YOLOX/Faster R-CNN patchers run "
-                                   "JAX models: not yet ported (ROADMAP A9)",
+    "inference/image_patching.py": "the DINO/YOLOX/Faster R-CNN patchers "
+                                   "hold torch modules on the serving "
+                                   "device, their random weights drawn from "
+                                   "a torch.Generator; one host copy per "
+                                   "image",
     "inference/rerank.py": "the cross-encoder is models/cross_encoder.py's "
-                           "TorchCrossEncoder; the OWL-ViT reranker is not "
-                           "yet ported (ROADMAP A9)",
+                           "TorchCrossEncoder and the OWL-ViT reranker "
+                           "TorchOwlReranker: a torch module on one device, "
+                           "random weights from a torch.Generator, one host "
+                           "copy per batch",
 }
 
 

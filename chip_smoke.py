@@ -143,6 +143,31 @@ phases and prints one JSON object per phase:
                    phase); the detectors' device ms per image come from
                    scripts/profile_torch_encoder.py
 
+The serving mesh (marqo_tpu_torch/parallel/) on the one card, as a virtual
+mesh (the card repeated), forced with MARQO_TPU_SERVING_MESH=TRUE and
+MARQO_TPU_MESH_SHAPE; every phase above serves without one:
+ 27. mesh_off      without the variable, one card gives no serving mesh
+ 28. mesh_serve    an e5-base-width index served over a (2, 2) mesh (6
+                   heads a tp shard) through HTTP, padded and packed adds
+                   and searches; one padded (32 x 128) and one packed batch
+                   through the loaded model: exactly 12 x 2 x 2 B1 launches
+                   each, at (16, 6, 128, 64) padded, every vector against
+                   the same model on one device (cosine >= 0.999); B1
+                   against its twin at the shard shapes (check_attention);
+                   the time per batch against the unsharded model
+ 29. mesh_replicated
+                   ViT-L/14 images and the int8 e5 encoder over a (2, 1)
+                   mesh, replicated: 24 B2 launches per group per 16-image
+                   call at (8, 16, 257, 64); 4 B3 launches a block per group
+                   at M = 16 x 128; against one device (cosine >= 0.999)
+ 30. train_step    the contrastive train step at e5-base width on the
+                   (2, 2) mesh: 5 bf16 steps on 32 query/passage pairs of
+                   64 tokens, the loss finite and falling; step 1 in fp32
+                   on (2, 2) within 1e-4 relative of (1, 1); step time and
+                   peak memory
+ 31. mesh_timing   B1, B2 and B3 at the mesh phases' shard shapes (queued,
+                   bound, twin, library call, launches on the phase)
+
 then the card's name and power limit as nvidia-smi gives them, a
 {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. Every kernel launch counter is set to 0 just
@@ -351,6 +376,23 @@ DETECTOR_REL_TOL = 1e-3
 # the OWL-ViT model of the rerank phase (OwlViTConfig fields; empty: the
 # published google/owlvit-base-patch32 widths)
 OWL_VIT = {}
+# the serving mesh on the one card (parallel/): a (dp, tp) = (2, 2)
+# virtual mesh for the e5-base-width encoder (6 heads a tp shard), a
+# (2, 1) one for the towers and the int8 encoder, which replicate; the
+# padded batch of MESH_BATCH texts at 128 tokens gives B1 MESH_B1_SHAPE a
+# shard, 16 images give B2 MESH_B2_SHAPE a group
+MESH_SHAPE = (2, 2)
+MESH_REPLICATED = (2, 1)
+MESH_DOCS = 64
+MESH_BATCH = 32
+MESH_IMAGES = 16
+MESH_B1_SHAPE = (16, 6, 128, 64)
+MESH_B2_SHAPE = (8, 16, 257, 64)
+# the contrastive train step at e5-base width on the (2, 2) mesh
+TRAIN_PAIRS = 32
+TRAIN_TOKENS = 64
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-4
 B3_SOURCE = "marqo_tpu_torch/csrc/w8a8_matmul.cu"
 B3_REPLACES = "marqo_tpu/ops/quant_matmul.py:36"
 # one NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet, dense):
@@ -2592,6 +2634,425 @@ def phase_timing(fa, fused, qm, torch, clip_model, pixels, int8_encoder,
     return rows, vit_row, encoder_row
 
 
+# --- the multi-device mesh (parallel/) on the one card -----------------------
+
+class LaunchShapes:
+    """Counts, by (counter name, shape), the launches each kernel wrapper
+    makes while the block runs: the modules' ``_launch`` are wrapped for
+    its duration (the wrappers still count their launches themselves).
+    Attention records (B, N, S, D), B3 (M, K, N)."""
+
+    def __enter__(self):
+        from collections import Counter
+        modules = _counter_modules()
+        self.shapes = Counter()
+        self._saved = {name: module._launch
+                       for name, module in modules.items()}
+        b1, b2, b3 = (self._saved[name] for name in (
+            "masked_attention", "fused_attention", "w8a8_matmul"))
+
+        def masked(q, k, v, mask, mode):
+            self.shapes[(f"masked_attention_{mode}", tuple(q.shape))] += 1
+            return b1(q, k, v, mask, mode)
+
+        def fused(q, k, v, ids):
+            mode = "nomask" if ids is None else "segment"
+            self.shapes[(f"fused_attention_{mode}", tuple(q.shape))] += 1
+            return b2(q, k, v, ids)
+
+        def w8a8(x, w_q, w_scale, bias):
+            self.shapes[("w8a8_matmul", (x.shape[0], w_q.shape[1],
+                                         w_q.shape[0]))] += 1
+            return b3(x, w_q, w_scale, bias)
+
+        for name, wrapper in (("masked_attention", masked),
+                              ("fused_attention", fused),
+                              ("w8a8_matmul", w8a8)):
+            modules[name]._launch = wrapper
+        return self
+
+    def __exit__(self, *_):
+        for name, module in _counter_modules().items():
+            module._launch = self._saved[name]
+
+    def listed(self) -> list:
+        return [{"counter": name, "shape": list(shape), "launches": n}
+                for (name, shape), n in sorted(self.shapes.items())]
+
+
+MESH_ENV = ("MARQO_TPU_SERVING_MESH", "MARQO_TPU_MESH_SHAPE")
+
+
+class ForcedMesh:
+    """The serving mesh forced on at ``shape`` for the block: one card
+    repeated dp x tp times, a virtual mesh (parallel/serving.py). Models
+    loaded inside join it; the process serves on one device again after
+    it."""
+
+    def __init__(self, shape):
+        self.shape = shape
+
+    def __enter__(self):
+        from marqo_tpu_torch.parallel.serving import (reset_serving_mesh,
+                                                      serving_mesh)
+        self._saved = {name: os.environ.get(name) for name in MESH_ENV}
+        os.environ["MARQO_TPU_SERVING_MESH"] = "TRUE"
+        os.environ["MARQO_TPU_MESH_SHAPE"] = ",".join(map(str, self.shape))
+        reset_serving_mesh()
+        mesh = serving_mesh()
+        card = _card()
+        check(mesh is not None and mesh.shape == {"dp": self.shape[0],
+                                                  "tp": self.shape[1]} and
+              set(mesh.devices.flat) == {card},
+              f"forced mesh {self.shape}: {mesh}")
+        return mesh
+
+    def __exit__(self, *_):
+        from marqo_tpu_torch.parallel.serving import reset_serving_mesh
+        for name, value in self._saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+        reset_serving_mesh()
+
+
+def _card():
+    import torch
+    return torch.device(DEVICE, 0) if DEVICE == "cuda" else \
+        torch.device(DEVICE)
+
+
+def _words(n_words: int, seed: int) -> str:
+    import numpy as np
+    words = ["alpha", "bravo", "charlie", "delta", "echo", "foxtrot",
+             "golf", "hotel", "india", "juliet", "kilo", "lima", "mike"]
+    rng = np.random.default_rng(seed)
+    return " ".join(words[i] for i in rng.integers(0, len(words), n_words))
+
+
+def _row_cosines(a, b):
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) *
+                              np.linalg.norm(b, axis=-1))
+
+
+def _mesh_text_batches(model):
+    """MESH_BATCH texts that fill the 128-token bucket (the padded path)
+    and MESH_BATCH ragged ones, one of 128 tokens and the rest of 1 to 12
+    words, which fill a quarter of it (the packed path)."""
+    padded = [_words(200, seed=100 + i) for i in range(MESH_BATCH)]
+    lengths = model.tokenizer.encode_batch(padded)["lengths"]
+    check(min(lengths) == 128, f"mesh padded texts: lengths {lengths}")
+    ragged = [_words(200, seed=200)] + [_words(1 + i % 12, seed=200 + i)
+                                        for i in range(1, MESH_BATCH)]
+    return padded, ragged
+
+
+def phase_mesh_off(torch):
+    """Without MARQO_TPU_SERVING_MESH, one card gives no serving mesh (the
+    JAX package's rule: fewer than 2 devices), so every phase above served
+    on one device."""
+    from marqo_tpu_torch.parallel.serving import (reset_serving_mesh,
+                                                  serving_mesh)
+    check(all(os.environ.get(name) is None for name in MESH_ENV),
+          "a mesh variable is set")
+    reset_serving_mesh()
+    mesh = serving_mesh()
+    check(mesh is None, f"one card, no variable, yet a mesh: {mesh}")
+    emit("mesh_off", ok=True, device_count=torch.cuda.device_count(),
+         serving_mesh=None)
+
+
+def phase_mesh_serve(server, fa, torch, smi):
+    """The e5-base-width index served over a (2, 2) virtual mesh: the
+    encoder's heads and FFN split over tp 2 (6 heads a shard), batches over
+    dp 2. HTTP adds (padded and packed) and searches; then one padded and
+    one packed batch through the loaded model: exactly 12 x 2 x 2 B1
+    launches a batch, each at (B/2, 6, S, 64), and every vector against
+    the same model (same name, same weights) on one device; B1 against its
+    twin at the shard shape; the time per batch against the unsharded
+    model, for information."""
+    from marqo_tpu_torch.inference.loaders import (TorchHFTextModel,
+                                                   load_model)
+    from marqo_tpu_torch.parallel.encode import ShardedTextEncoder
+    from marqo_tpu_torch.parallel.serving import model_mesh
+    H, N = E5_BASE["hidden_size"], E5_BASE["num_heads"]
+    dp, tp = MESH_SHAPE
+    name = "smoke-e5-base-v2-mesh"
+    props = {"name": name, "type": "hf", "random_init": True,
+             "pooling_method": "mean", "tokens": 128, "dimensions": H,
+             "architecture": E5_BASE}
+    single = load_model(name, props, _device())
+    check(model_mesh(single) is None, "the reference model is on a mesh")
+    padded, ragged = _mesh_text_batches(single)
+    reference = {"padded": single.encode(padded),
+                 "packed": single.encode(ragged)}
+    with ForcedMesh(MESH_SHAPE) as mesh:
+        run = serve_text_index(server, torch, "smoke-mesh", props, MESH_DOCS,
+                               H)
+        check(run["launches"]["masked_attention_padding"] > 0 and
+              run["launches"]["masked_attention_segment"] > 0,
+              f"mesh serve did not run both B1 modes: {run['launches']}")
+        model = _loaded_model(TorchHFTextModel, name)
+        check(model_mesh(model) is mesh and
+              isinstance(model.encoder, ShardedTextEncoder) and
+              len(model.encoder.shards) == tp and
+              [r is model.encoder for r in model._replicas] == [True] * dp,
+              "the served model is not split over the mesh")
+        batches = {}
+        for kind, texts in (("padded", padded), ("packed", ragged)):
+            reset_counts()
+            with LaunchShapes() as shapes:
+                out = model.encode(texts)
+            batches[kind] = {"launches": read_counts(),
+                             "shapes": shapes.listed(),
+                             "min_cosine": float(_row_cosines(
+                                 out, reference[kind]).min())}
+            counter = ("masked_attention_padding" if kind == "padded" else
+                       "masked_attention_segment")
+            launched = shapes.listed()
+            check(len(launched) == 1 and launched[0]["counter"] == counter
+                  and launched[0]["launches"] ==
+                  E5_BASE["num_layers"] * dp * tp and
+                  launched[0]["shape"][1] == N // tp and
+                  launched[0]["shape"][3] == H // N,
+                  f"mesh {kind} batch launches: {launched}")
+            check(batches[kind]["min_cosine"] >= 0.999,
+                  f"mesh {kind} vectors against one device: "
+                  f"{batches[kind]['min_cosine']}")
+        check(batches["padded"]["shapes"][0]["shape"] == list(MESH_B1_SHAPE),
+              f"mesh padded shard shape {batches['padded']['shapes']}")
+
+        def per_batch_ms(target):
+            target.encode(padded)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for _ in range(5):
+                target.encode(padded)
+            return (time.perf_counter() - start) * 200
+
+        times = {"single_ms": [], "mesh_ms": []}
+        for target, key in ((single, "single_ms"), (model, "mesh_ms"),
+                            (model, "mesh_ms"), (single, "single_ms")):
+            times[key].append(per_batch_ms(target))
+    results, errors = b1_checks(fa, torch, sorted(
+        {tuple(batches[kind]["shapes"][0]["shape"]) for kind in batches}))
+    emit("mesh_serve", ok=True, mesh=MESH_SHAPE, docs=run["docs"],
+         documents_in_index=run["documents_in_index"],
+         searches=len(run["latencies"]), launches=run["launches"],
+         launches_during_add=run["add_launches"], batches=batches,
+         b1_shard_checks=len(results), b1_shard_max_abs_err=errors,
+         padded_batch=[MESH_BATCH, 128], per_batch_ms=times,
+         nvidia_smi=smi, note="times: information only")
+    return {"launches": run["launches"], "batches": batches}
+
+
+def phase_mesh_replicated(torch):
+    """ViT-L/14 images and the int8 e5 encoder over a (2, 1) virtual mesh:
+    both replicate whole (by type), each batch splits over dp 2. B2 runs
+    24 times per group per 16-image call at (8, 16, 257, 64); B3 runs 4
+    times a block per group at M = (B/2) S. Each against the same model on
+    one device."""
+    from marqo_tpu_torch.inference.loaders import load_model
+    from marqo_tpu_torch.inference.types import Modality
+    from marqo_tpu_torch.parallel.serving import model_mesh
+    dp = MESH_REPLICATED[0]
+    layers = VIT_L14_VISION["num_layers"]
+    clip_props = vit_l14_props()
+    int8_props = {"name": "smoke-e5-base-v2-int8", "type": "hf",
+                  "random_init": True, "pooling_method": "mean",
+                  "tokens": 128, "dimensions": E5_BASE["hidden_size"],
+                  "architecture": E5_BASE, "quantize": True}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        images = write_images(tmp, MESH_IMAGES, seed=31)
+        singles = {"clip": load_model(clip_props["name"], clip_props,
+                                      _device()),
+                   "int8": load_model(int8_props["name"], int8_props,
+                                      _device())}
+        padded, _ = _mesh_text_batches(singles["int8"])
+        inputs = {"clip": (images, Modality.IMAGE),
+                  "int8": (padded, Modality.TEXT)}
+        reference = {kind: singles[kind].encode(contents, modality=modality)
+                     for kind, (contents, modality) in inputs.items()}
+        with ForcedMesh(MESH_REPLICATED) as mesh:
+            for kind, props in (("clip", clip_props), ("int8", int8_props)):
+                model = load_model(props["name"], props, _device())
+                check(model_mesh(model) is mesh and
+                      [r is model.encoder for r in model._replicas] ==
+                      [True] * dp, f"mesh {kind}: not replicated over dp")
+                contents, modality = inputs[kind]
+                reset_counts()
+                with LaunchShapes() as shapes:
+                    vectors = model.encode(contents, modality=modality)
+                out[kind] = {"launches": read_counts(),
+                             "shapes": shapes.listed(),
+                             "min_cosine": float(_row_cosines(
+                                 vectors, reference[kind]).min())}
+                check(out[kind]["min_cosine"] >= 0.999,
+                      f"mesh {kind} vectors against one device: "
+                      f"{out[kind]['min_cosine']}")
+                del model
+    clip = {(s["counter"], tuple(s["shape"])): s["launches"]
+            for s in out["clip"]["shapes"]}
+    check(clip == {("fused_attention_nomask", MESH_B2_SHAPE): layers * dp},
+          f"mesh ViT-L/14: B2 launches {out['clip']['shapes']}")
+    M = MESH_BATCH // dp * 128
+    H, I = E5_BASE["hidden_size"], E5_BASE["intermediate_size"]
+    int8 = {(s["counter"], tuple(s["shape"])): s["launches"]
+            for s in out["int8"]["shapes"]}
+    per_shape = E5_BASE["num_layers"] * dp
+    check(int8 == {("w8a8_matmul", (M, H, 3 * H)): per_shape,
+                   ("w8a8_matmul", (M, H, H)): per_shape,
+                   ("w8a8_matmul", (M, H, I)): per_shape,
+                   ("w8a8_matmul", (M, I, H)): per_shape,
+                   ("masked_attention_padding",
+                    (MESH_BATCH // dp, E5_BASE["num_heads"], 128,
+                     H // E5_BASE["num_heads"])): per_shape},
+          f"mesh int8: launches {out['int8']['shapes']}")
+    emit("mesh_replicated", ok=True, mesh=MESH_REPLICATED,
+         images=MESH_IMAGES, texts=MESH_BATCH, **out)
+    return out
+
+
+def phase_train_step(torch):
+    """The contrastive train step (parallel/train_step.py) at e5-base width
+    over the (2, 2) virtual mesh: bf16 compute, TRAIN_STEPS steps on one
+    fixed batch of TRAIN_PAIRS query/passage pairs at TRAIN_TOKENS tokens;
+    the loss finite and falling. In fp32, step 1's loss on the (2, 2) mesh
+    within 1e-4 relative of a (1, 1) mesh's. Time per step and peak
+    memory (the process's, and its rise over what was held before the
+    step), for information."""
+    import numpy as np
+
+    from marqo_tpu_torch.models.bert import TextEncoderConfig, init_encoder
+    from marqo_tpu_torch.parallel.mesh import create_mesh
+    from marqo_tpu_torch.parallel.train_step import (make_train_state,
+                                                     make_train_step)
+    config = TextEncoderConfig(**E5_BASE)
+    encoder = init_encoder(config, torch.Generator(device=DEVICE)
+                           .manual_seed(5), device=DEVICE)
+    rng = np.random.default_rng(7)
+    B, S = TRAIN_PAIRS, TRAIN_TOKENS
+    batch = {}
+    for side in ("query", "passage"):
+        lengths = rng.integers(S // 4, S + 1, B)
+        mask = (np.arange(S)[None] < lengths[:, None]).astype(np.int32)
+        batch[f"{side}_ids"] = (rng.integers(5, config.vocab_size, (B, S))
+                                * mask).astype(np.int32)
+        batch[f"{side}_mask"] = mask
+    card = _card()
+
+    def mesh(shape):
+        return create_mesh([card] * (shape[0] * shape[1]), shape)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # what the models of earlier phases hold; the step's own peak is the
+    # rise above it
+    held = torch.cuda.memory_allocated()
+    master, optimizer = make_train_state(encoder, mesh(MESH_SHAPE),
+                                         TRAIN_LR)
+    step = make_train_step(config, mesh(MESH_SHAPE), optimizer,
+                           compute_dtype=torch.bfloat16)
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        start = time.perf_counter()
+        losses.append(float(step(master, batch)))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - start) * 1000)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"train step losses {losses}")
+    del master, optimizer, step
+    fp32 = {}
+    for shape in (MESH_SHAPE, (1, 1)):
+        master, optimizer = make_train_state(encoder, mesh(shape), TRAIN_LR)
+        fp32[f"{shape[0]}x{shape[1]}"] = float(make_train_step(
+            config, mesh(shape), optimizer, compute_dtype=torch.float32)(
+            master, batch))
+        del master, optimizer
+    a, b = fp32["2x2"], fp32["1x1"]
+    check(abs(a - b) <= 1e-4 * abs(b),
+          f"fp32 step 1: (2, 2) mesh {a}, (1, 1) mesh {b}")
+    emit("train_step", ok=True, mesh=MESH_SHAPE, batch=[B, S],
+         steps=TRAIN_STEPS, learning_rate=TRAIN_LR, bf16_losses=losses,
+         step_ms=step_ms, median_step_ms=statistics.median(step_ms[1:]),
+         max_memory_allocated=peak, memory_allocated_before=held,
+         train_peak_bytes=peak - held, fp32_step1_loss=fp32,
+         note="times and memory: information only")
+
+
+def phase_mesh_timing(fa, fused, qm, torch, mesh_serve, mesh_replicated):
+    """The kernels at the mesh's shard shapes, queued (``queued_ms``), each
+    with its bound, its twin and its library call, and its launches on the
+    mesh phases: B1 at (16, 6, 128, 64) both modes, B2 no-mask at
+    (8, 16, 257, 64), B3 at the int8 encoder's four linear shapes with M
+    halved."""
+    rows = []
+
+    def launches_of(run, counter, shape):
+        return sum(s["launches"] for s in run["shapes"]
+                   if s["counter"] == counter and s["shape"] == list(shape))
+
+    # B1 at the shard shape of the mesh phase's padded batch (padding mode)
+    # and of its packed batch (segment mode)
+    for kind, mode in (("padded", "padding"), ("packed", "segment")):
+        shape = mesh_serve["batches"][kind]["shapes"][0]["shape"]
+        B, N, S, D = shape
+        q, k, v, pad, seg = attention_inputs(B, N, S, D, torch.bfloat16,
+                                             seed=B)
+        q, k, v = projection_views(q, k, v, "projection")
+        if mode == "padding":
+            mask, kernel, plain = (pad, fa.attention_padding,
+                                   fa.attention_padding_reference)
+            allowed = (pad > 0)[:, None, None, :]
+        else:
+            mask, kernel, plain = (seg, fa.attention_segment,
+                                   fa.attention_segment_reference)
+            allowed = ((seg[:, :, None] == seg[:, None, :]) &
+                       (seg[:, None, :] > 0))[:, None]
+        rows.append({
+            "kernel": "masked_attention", "mode": mode, "shape": shape,
+            "layout": "projection",
+            **attention_bound(B, N, S, D, mode, mask),
+            **paired_queued_ms(lambda: kernel(q, k, v, mask),
+                               lambda: plain(q, k, v, mask),
+                               _sdpa(torch, q, k, v, allowed), 20),
+            "launches": {"mesh_serve " + kind: launches_of(
+                mesh_serve["batches"][kind], f"masked_attention_{mode}",
+                shape)}})
+    B, N, S, D = MESH_B2_SHAPE
+    q, k, v, _, _ = attention_inputs(B, N, S, D, torch.bfloat16, seed=S)
+    q, k, v = projection_views(q, k, v, "projection")
+    rows.append({
+        "kernel": "fused_attention", "mode": "nomask",
+        "shape": list(MESH_B2_SHAPE), "layout": "projection",
+        **attention_bound(B, N, S, D, "fused_nomask"),
+        **paired_queued_ms(lambda: fused.fused_attention(q, k, v),
+                           lambda: fused.fused_attention_reference(q, k, v),
+                           _sdpa(torch, q, k, v, None), 20),
+        "launches": {"mesh_replicated": launches_of(
+            mesh_replicated["clip"], "fused_attention_nomask",
+            MESH_B2_SHAPE)}})
+    for s in mesh_replicated["int8"]["shapes"]:
+        if s["counter"] != "w8a8_matmul":
+            continue
+        M, K, N = s["shape"]
+        x, w_q, w_scale, bias = w8a8_inputs(M, K, N, torch.bfloat16, seed=N)
+        rows.append({
+            "kernel": "w8a8_matmul", "mode": "w8a8", "shape": [M, K, N],
+            **w8a8_bound(M, K, N),
+            **paired_queued_ms(
+                lambda: qm.w8a8_matmul(x, w_q, w_scale, bias),
+                lambda: qm.w8a8_matmul_reference(x, w_q, w_scale, bias),
+                _int8_yardstick(torch, qm, x, w_q, w_scale, bias), 20),
+            "launches": {"mesh_replicated": s["launches"]}})
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -2657,17 +3118,24 @@ def main() -> int:
         phase_languagebind_video(languagebind, torch)
         patch_launches = phase_patch_serve(server, torch)
         owl_launches = phase_owl_rerank(server, torch)
+        phase_mesh_off(torch)
+        mesh_serve = phase_mesh_serve(server, fa, torch, smi)
     finally:
         server.close()
     phase_nllb_siglip_encode(torch)
     phase_conv_clip_encode(torch)
     phase_eva02_encode(torch)
+    mesh_replicated = phase_mesh_replicated(torch)
+    phase_train_step(torch)
 
     timing, vit, encoder_times = phase_timing(
         fa, fused, qm, torch, clip_model, pixels, int8_encoder, bf16_encoder)
     emit("detector_timing", device=torch.cuda.get_device_name(0),
          nvidia_smi=smi, kernel_vs_twin=phase_detector_timing(
              fused, torch, patch_launches, owl_launches))
+    emit("mesh_timing", device=torch.cuda.get_device_name(0),
+         nvidia_smi=smi, kernel_vs_twin=phase_mesh_timing(
+             fa, fused, qm, torch, mesh_serve, mesh_replicated))
     latencies = serve["latencies"]
     emit("timing", device=torch.cuda.get_device_name(0), nvidia_smi=smi,
          kernel_vs_twin=timing, vit_l14=vit, e5_encoder=encoder_times,

@@ -61,16 +61,23 @@ def pick_row_bucket(n: int) -> int:
     return pick_bucket(n, ladder)
 
 
-def batched_device_encode(array, forward, pad_value=0):
-    """Pad ``array`` rows to batch buckets, launch EVERY device batch
-    through ``forward``, then copy all outputs to the host at once
+def batched_device_encode(model, array, forward, pad_value=0):
+    """Pad ``array`` rows to batch buckets (``pad_value``: a scalar or one
+    row), launch EVERY device batch through ``forward(module, padded)``
+    with ``model``'s module, then copy all outputs to the host at once
     (launches are asynchronous, so batch i+1's host-side padding overlaps
     batch i's compute — the ingest-path pattern from
-    loaders._dispatch_padded). Returns the concatenated rows as numpy."""
+    loaders._dispatch_padded). Under a serving mesh each bucket rounds up
+    to a dp multiple and splits across the data-parallel groups, each
+    through its replica (parallel/serving.py). Returns the concatenated
+    rows as numpy."""
     import numpy as np
     import torch
+
+    from marqo_tpu_torch.parallel.serving import (model_mesh, round_up_to_dp,
+                                                  run_data_parallel)
     n = array.shape[0]
-    bucket = pick_batch_bucket(n)
+    bucket = round_up_to_dp(pick_batch_bucket(n), model_mesh(model))
     pending = []
     start = 0
     while start < n:
@@ -78,7 +85,7 @@ def batched_device_encode(array, forward, pad_value=0):
         padded = np.full((bucket,) + array.shape[1:], pad_value,
                          dtype=array.dtype)
         padded[:size] = array[start:start + size]
-        pending.append((forward(padded), size))
+        pending.append((run_data_parallel(model, forward, padded), size))
         start += size
     # one device-to-host copy after all launches
     return torch.cat([out[:size] for out, size in pending]).cpu().numpy()

@@ -7,8 +7,11 @@ Every model exposes:
   encode(contents, normalize)  — list of content → (n, dims) float32 numpy
   memory_bytes()               — device footprint for cache eviction
 
-One device per model: the multi-device serving mesh of marqo_tpu is not
-ported yet (ROADMAP A10). Served: the BERT-family text encoder (bf16, or
+Multi-device serving (parallel/serving.py): when the process serving mesh
+spans a model's device, ``load`` places a replica of its module on each
+data-parallel group (the float BERT encoder split over the group's tp
+devices), and every encode batch splits across the groups; without a mesh
+a model runs on its one device. Served: the BERT-family text encoder (bf16, or
 int8 W8A8 with ``quantize``), Stella (``hf_stella``), the ViT CLIP towers
 (models/clip.py), the HF-text CLIP composites (models/hf_clip.py), SigLIP,
 ResNet-CLIP, ConvNeXt-CLIP, NLLB-SigLIP, CoCa, EVA02-CLIP and LanguageBind:
@@ -32,10 +35,14 @@ from marqo_tpu_torch.inference.types import Device, Modality
 from marqo_tpu_torch.logging import get_logger
 from marqo_tpu_torch.models.bert import (TextEncoder, TextEncoderConfig,
                                          check_kernel_shapes, config_from_hf,
-                                         encode_tokens, encode_tokens_packed,
-                                         init_encoder,
-                                         params_from_torch_state_dict)
+                                         encode_tokens, init_encoder,
+                                         packed_segment_sums,
+                                         params_from_torch_state_dict,
+                                         pool_segment_sums)
 from marqo_tpu_torch.models.tokenizer import TextTokenizer
+from marqo_tpu_torch.parallel.serving import (map_data_parallel, model_mesh,
+                                              put_params, round_up_to_dp,
+                                              run_data_parallel)
 
 logger = get_logger(__name__)
 
@@ -158,6 +165,7 @@ class TorchHFTextModel(EmbeddingModel):
                     f"`{self._hf_repo()}`: {e}. If running offline, provide "
                     f"model_properties.localpath or a model_location.",
                     cause=e)
+        self.encoder = put_params(self, self.encoder)
         self.loaded = True
         self._param_bytes = module_bytes(self.encoder)
 
@@ -286,13 +294,12 @@ class TorchHFTextModel(EmbeddingModel):
 
         return resolve
 
-    def _to_device(self, array: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(array)).to(self._device)
-
     def _dispatch_padded(self, batch, seq_bucket: int, n: int):
         """Launch padded batches WITHOUT copying results back; encode()
-        copies all outputs after all launches."""
-        batch_bucket = pick_batch_bucket(n)
+        copies all outputs after all launches. Under a serving mesh the
+        batch axis splits across dp, so the bucket rounds up to a dp
+        multiple."""
+        batch_bucket = round_up_to_dp(pick_batch_bucket(n), model_mesh(self))
         pending = []
         start = 0
         while start < n:
@@ -309,35 +316,46 @@ class TorchHFTextModel(EmbeddingModel):
         return pending
 
     def _forward(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
-        """One padded device batch → pooled embeddings."""
+        """One padded device batch → pooled embeddings, split across the
+        serving mesh's data-parallel groups when there is one."""
         with torch.inference_mode():
-            return encode_tokens(self.encoder, self._to_device(ids),
-                                 self._to_device(mask))
+            return run_data_parallel(self, encode_tokens, ids, mask)
 
     def _dispatch_packed(self, batch, seq_bucket: int):
         """Sequence-packed dispatch (ops/packing.py): ~1/density fewer rows
         through the encoder at identical numerics. Returns (device tensor,
-        n_sequences) pairs without copying back — see _dispatch_padded."""
+        n_sequences) pairs without copying back — see _dispatch_padded.
+
+        Under a serving mesh the packed rows split across dp, so the row
+        ladder rounds up to dp multiples. Packing never splits a sequence
+        across rows: each group's pooling sums index the whole batch's
+        sequences, and their sum on the lead device is the batch's (the
+        pooled rows themselves never split, so the JAX package's rounded
+        ``n_bucket`` has no counterpart here)."""
         from marqo_tpu_torch.ops.packing import pack_sequences
 
         ids, lengths = batch["input_ids"], batch["lengths"]
         sequences = [ids[i, :lengths[i]] for i in range(len(lengths))]
         max_seqs = batch_buckets()[-1]
+        ladder = [round_up_to_dp(b, model_mesh(self)) for b in row_buckets()]
         pending = []
         for start in range(0, len(sequences), max_seqs):
             packed = pack_sequences(sequences[start:start + max_seqs],
                                     seq_len=seq_bucket,
                                     pad_id=self.tokenizer.pad_id,
-                                    row_buckets=row_buckets())
+                                    row_buckets=ladder)
+            n = packed.n_sequences
             with torch.inference_mode():
-                emb = encode_tokens_packed(
-                    self.encoder,
-                    self._to_device(packed.input_ids),
-                    self._to_device(packed.segment_ids),
-                    self._to_device(packed.positions),
-                    self._to_device(packed.seq_index),
-                    packed.n_sequences)
-            pending.append((emb, packed.n_sequences))
+                parts = map_data_parallel(
+                    self, lambda encoder, *rows: packed_segment_sums(
+                        encoder, *rows, n),
+                    packed.input_ids, packed.segment_ids, packed.positions,
+                    packed.seq_index)
+                sums, counts = parts[0]
+                for more_sums, more_counts in parts[1:]:
+                    sums, counts = sums + more_sums, counts + more_counts
+                emb = pool_segment_sums(sums, counts, self.config)
+            pending.append((emb, n))
         return pending
 
     def memory_bytes(self) -> int:
@@ -362,6 +380,7 @@ class TorchHFTextModel(EmbeddingModel):
         count = 0
         for batch, seq in shapes:
             seq = min(seq, self.tokenizer.max_length)
+            batch = round_up_to_dp(batch, model_mesh(self))
             ids = np.zeros((batch, seq), dtype=np.int32)
             mask = np.ones((batch, seq), dtype=np.int32)
             self._forward(ids, mask)[:1, :1].cpu()
@@ -432,14 +451,14 @@ class TorchStellaModel(TorchHFTextModel):
                 "cannot be fetched in this offline environment. Provide "
                 "model_properties.localpath (HF checkpoint directory, "
                 "optionally with the 2_Dense_<dims> head).")
+        self.encoder = put_params(self, self.encoder)
         self.loaded = True
         self._param_bytes = module_bytes(self.encoder)
 
     def _forward(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
         from marqo_tpu_torch.models.stella import encode_tokens as stella
         with torch.inference_mode():
-            return stella(self.encoder, self._to_device(ids),
-                          self._to_device(mask))
+            return run_data_parallel(self, stella, ids, mask)
 
 
 class TestModel(TorchHFTextModel):

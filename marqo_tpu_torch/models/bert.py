@@ -13,8 +13,9 @@ serving); LayerNorm, softmax and pooling statistics run in fp32
 kernel on a CUDA device, its plain twin on the CPU. The linear layers are
 plain ``nn.Linear`` matmuls, or, with ``quantize=True``, ``Int8Linear``
 (W8A8, ops/quant.py: CUDA kernel B3 on a CUDA device, its plain twin on the
-CPU), where one (3H, H) layer computes q, k and v. It only serves: no
-autograd.
+CPU), where one (3H, H) layer computes q, k and v. The kernels have no
+autograd formula: the float encoder trains on the plain twins
+(parallel/train_step.py), and the int8 encoder only serves.
 
 The builders (``init_encoder``, ``params_from_torch_state_dict``,
 ``params_from_jax``) put the encoder on the card unless the caller names
@@ -423,6 +424,20 @@ def encode_tokens_packed(encoder: TextEncoder, input_ids: torch.Tensor,
 
     Returns (num_sequences, H) fp32 pooled embeddings.
     """
+    return pool_segment_sums(
+        *packed_segment_sums(encoder, input_ids, segment_ids, positions,
+                             seq_index, num_sequences), encoder.config)
+
+
+def packed_segment_sums(encoder: TextEncoder, input_ids: torch.Tensor,
+                        segment_ids: torch.Tensor, positions: torch.Tensor,
+                        seq_index: torch.Tensor, num_sequences: int):
+    """The packed rows through the encoder, then each sequence's pooling
+    sum and weight, indexed by ``seq_index`` over the whole packed batch:
+    (num_sequences + 1, H) fp32 sums and (num_sequences + 1,) counts, the
+    last row the pad tokens' trash row. Packing never splits a sequence
+    across rows, so any split of the rows gives partial sums that add up
+    to the whole batch's (the data-parallel path, parallel/serving.py)."""
     config = encoder.config
     input_ids = input_ids.long()
     B, S = input_ids.shape
@@ -446,8 +461,14 @@ def encode_tokens_packed(encoder: TextEncoder, input_ids: torch.Tensor,
     sums.index_add_(0, flat_idx, flat_h * weights[:, None])
     counts = weights.new_zeros(num_sequences + 1)
     counts.index_add_(0, flat_idx, weights)
-    pooled = sums[:num_sequences] / counts[:num_sequences, None].clamp_min(
-        1e-9)
+    return sums, counts
+
+
+def pool_segment_sums(sums: torch.Tensor, counts: torch.Tensor,
+                      config: TextEncoderConfig) -> torch.Tensor:
+    """``packed_segment_sums``' sums and counts → (num_sequences, H) fp32
+    pooled (and, with ``config.normalize``, L2-normalized) embeddings."""
+    pooled = sums[:-1] / counts[:-1, None].clamp_min(1e-9)
     if config.normalize:
         pooled = l2_normalize(pooled)
     return pooled

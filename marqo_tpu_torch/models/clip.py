@@ -37,13 +37,14 @@ import torch
 import torch.nn as nn
 
 from marqo_tpu_torch.core.exceptions import ModelLoadError, VectoriseError
-from marqo_tpu_torch.inference.batching import pick_batch_bucket
+from marqo_tpu_torch.inference.batching import batched_device_encode
 from marqo_tpu_torch.inference.types import Device, Modality
 from marqo_tpu_torch.models.bert import (empty_module, fill_parameters,
                                          random_init)
 from marqo_tpu_torch.ops import fused_attention
 from marqo_tpu_torch.ops.common import ACTIVATIONS, layer_norm
 from marqo_tpu_torch.ops.image_ops import CLIP_MEAN, CLIP_STD, host_decode
+from marqo_tpu_torch.parallel.serving import put_params
 
 
 @dataclass(frozen=True)
@@ -565,8 +566,10 @@ _OPENAI_HF_REPOS = {
 
 class TorchCLIPModel:
     """CLIP wrapper with text + image encode (reference CLIP class,
-    clip_utils.py:295; open_clip class, open_clip_model.py:28). One device
-    per model: the JAX package's serving mesh is not ported (ROADMAP A10)."""
+    clip_utils.py:295; open_clip class, open_clip_model.py:28). Under the
+    serving mesh (parallel/serving.py) the encoder replicates on each
+    data-parallel group and every batch bucket splits across the groups;
+    without one it runs on its one device."""
 
     compute_dtype = torch.bfloat16
 
@@ -605,6 +608,7 @@ class TorchCLIPModel:
                     f"Could not load CLIP model `{self.model_name}` from "
                     f"`{repo}`: {e}. If running offline, provide "
                     f"model_properties.localpath.", cause=e)
+        self.encoder = put_params(self, self.encoder)
         self.loaded = True
         self._param_bytes = sum(p.numel() * p.element_size()
                                 for p in self.encoder.parameters())
@@ -703,29 +707,21 @@ class TorchCLIPModel:
                 np.linalg.norm(out, axis=-1, keepdims=True), 1e-12)
         return out.astype(np.float32)
 
-    def _run_buckets(self, batch: np.ndarray, pad_row: np.ndarray,
-                     tower) -> np.ndarray:
-        """Run ``tower`` over ``batch`` in batch buckets, filling the short
-        last bucket with ``pad_row``; one device-to-host copy at the end."""
-        n = len(batch)
-        bucket = pick_batch_bucket(n)
-        outs = []
+    def _run(self, array: np.ndarray, tower: str, pad_value=0) -> np.ndarray:
+        """The ``tower`` ("text" or "vision") of this model's encoder over
+        ``array`` in batch buckets, the short last bucket filled with
+        ``pad_value`` (a scalar or one row); one device-to-host copy."""
         with torch.inference_mode():
-            for start in range(0, n, bucket):
-                size = min(bucket, n - start)
-                padded = np.broadcast_to(
-                    pad_row, (bucket,) + pad_row.shape).copy()
-                padded[:size] = batch[start:start + size]
-                inputs = torch.from_numpy(padded).to(self._device)
-                outs.append(tower(inputs)[:size])
-            return torch.cat(outs).cpu().numpy()
+            return batched_device_encode(
+                self, array, lambda encoder, x: getattr(encoder, tower)(x),
+                pad_value)
 
     def _encode_text(self, texts: List[str]) -> np.ndarray:
         ids = self._tokenize(texts)
         # pad rows: all zeros with EOS in the last position
         pad_row = np.zeros(ids.shape[1], dtype=np.int32)
         pad_row[-1] = self.text_config.eos_token_id
-        return self._run_buckets(ids, pad_row, self.encoder.text)
+        return self._run(ids, "text", pad_row)
 
     def _preprocess_host(self, content) -> np.ndarray:
         """decode → EXIF → shorter-side bicubic resize → center crop, all in
@@ -748,8 +744,7 @@ class TorchCLIPModel:
 
     def _encode_images(self, contents: List[Any]) -> np.ndarray:
         pixels = np.stack([self._preprocess_host(c) for c in contents])
-        pad_row = np.zeros(pixels.shape[1:], dtype=np.uint8)
-        return self._run_buckets(pixels, pad_row, self.encoder.vision)
+        return self._run(pixels, "vision")
 
     def memory_bytes(self) -> int:
         return self._param_bytes

@@ -55,6 +55,7 @@ from marqo_tpu_torch.models.clip import (_VISION_ATTENTION, PreNormBlock,
                                          convert_open_clip_resblocks,
                                          load_open_clip_state, random_seed)
 from marqo_tpu_torch.ops.common import ACTIVATIONS, layer_norm
+from marqo_tpu_torch.parallel.serving import put_params, replicas
 
 
 @dataclass(frozen=True)
@@ -577,6 +578,7 @@ class TorchCoCaModel:
                 f"CoCa model `{self.model_name}` requires an open_clip "
                 "checkpoint: provide model_properties.localpath (a .pt/.bin "
                 "state dict or directory) or a model_location.")
+        self.encoder = put_params(self, self.encoder)
         self.loaded = True
         self._param_bytes = sum(t.numel() * t.element_size()
                                 for t in self.encoder.parameters())
@@ -642,8 +644,9 @@ class TorchCoCaModel:
         """"kernel" (B2 on a CUDA device) or "plain" (its twin) for the
         vision tower's blocks (the text tower, the pooler and the decoder
         are plain torch)."""
-        vision = self.encoder.vision
-        vision.config = replace(vision.config, attention_impl=impl)
+        for encoder in replicas(self):
+            encoder.vision.config = replace(encoder.vision.config,
+                                            attention_impl=impl)
 
     # -- encoding ------------------------------------------------------------
 
@@ -662,10 +665,13 @@ class TorchCoCaModel:
                 np.linalg.norm(out, axis=-1, keepdims=True), 1e-12)
         return out.astype(np.float32)
 
-    def _run(self, array: np.ndarray, tower) -> np.ndarray:
+    def _run(self, array: np.ndarray, tower: str) -> np.ndarray:
+        """The ``tower`` ("text" or "vision") of this model's encoder over
+        ``array`` in batch buckets, split across the serving mesh's
+        data-parallel groups when there is one."""
         with torch.inference_mode():
-            return batched_device_encode(array, lambda padded: tower(
-                torch.from_numpy(padded).to(self._device)))
+            return batched_device_encode(
+                self, array, lambda encoder, x: getattr(encoder, tower)(x))
 
     def _tokenize(self, texts: List[str]) -> np.ndarray:
         batch = self.tokenizer.encode_batch(
@@ -674,7 +680,7 @@ class TorchCoCaModel:
             np.int32)
 
     def _encode_text(self, texts: List[str]) -> np.ndarray:
-        return self._run(self._tokenize(texts), self.encoder.text)
+        return self._run(self._tokenize(texts), "text")
 
     def _preprocess_host(self, content) -> np.ndarray:
         """CLIP's preprocessing (shorter-side bicubic resize, centre crop),
@@ -688,7 +694,7 @@ class TorchCoCaModel:
 
     def _encode_images(self, contents: List[Any]) -> np.ndarray:
         pixels = np.stack([self._preprocess_host(c) for c in contents])
-        return self._run(pixels, self.encoder.vision)
+        return self._run(pixels, "vision")
 
     def caption_logits(self, texts: List[str],
                        images: List[Any]) -> np.ndarray:

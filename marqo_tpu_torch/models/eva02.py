@@ -52,6 +52,7 @@ from marqo_tpu_torch.models.clip import (_VISION_ATTENTION, CLIPTextConfig,
                                          load_open_clip_state, random_seed,
                                          text_values)
 from marqo_tpu_torch.ops.common import layer_norm
+from marqo_tpu_torch.parallel.serving import put_params, replicas
 
 logger = get_logger(__name__)
 
@@ -470,6 +471,7 @@ class TorchEVA02Model:
                 f"EVA02 model `{self.model_name}` requires an open_clip "
                 "checkpoint: provide model_properties.localpath or a "
                 "model_location (and MARQO_ALLOW_UNVERIFIED_CONVERSION).")
+        self.encoder = put_params(self, self.encoder)
         self.loaded = True
         self._param_bytes = sum(
             t.numel() * t.element_size()
@@ -527,8 +529,9 @@ class TorchEVA02Model:
     def set_attention_impl(self, impl: str) -> None:
         """"kernel" (B2 on a CUDA device) or "plain" (its twin) for the
         vision tower (the text tower is causal, in plain torch)."""
-        vision = self.encoder.vision
-        vision.config = replace(vision.config, attention_impl=impl)
+        for encoder in replicas(self):
+            encoder.vision.config = replace(encoder.vision.config,
+                                            attention_impl=impl)
 
     # encode paths reuse the CLIP wrapper's host preprocessing and tokenizing
     def _tokenize(self, texts: List[str]) -> np.ndarray:
@@ -539,19 +542,22 @@ class TorchEVA02Model:
         from marqo_tpu_torch.models.clip import TorchCLIPModel
         return TorchCLIPModel._preprocess_host(self, content)
 
-    def _run(self, array: np.ndarray, tower) -> np.ndarray:
+    def _run(self, array: np.ndarray, tower: str) -> np.ndarray:
+        """The ``tower`` ("text" or "vision") of this model's encoder over
+        ``array`` in batch buckets, split across the serving mesh's
+        data-parallel groups when there is one."""
         with torch.inference_mode():
-            return batched_device_encode(array, lambda padded: tower(
-                torch.from_numpy(padded).to(self._device)))
+            return batched_device_encode(
+                self, array, lambda encoder, x: getattr(encoder, tower)(x))
 
     def encode(self, contents: List[Any], normalize: bool = True,
                modality: Modality = Modality.TEXT) -> np.ndarray:
         if modality == Modality.TEXT:
             out = self._run(self._tokenize([str(c) for c in contents]),
-                            self.encoder.text)
+                            "text")
         elif modality == Modality.IMAGE:
             pixels = np.stack([self._preprocess_host(c) for c in contents])
-            out = self._run(pixels, self.encoder.vision)
+            out = self._run(pixels, "vision")
         else:
             raise VectoriseError(
                 f"Model `{self.model_name}` does not support modality "

@@ -29,6 +29,7 @@ from marqo_tpu_torch.models.clip import (CLIPTextConfig, CLIPVisionConfig,
                                          CLIPVisionTower, TorchCLIPModel,
                                          init_vision_tower, open_clip_vision,
                                          vision_tower_from_jax)
+from marqo_tpu_torch.parallel.serving import put_params
 
 
 class HFCLIPEncoder(nn.Module):
@@ -155,6 +156,7 @@ class TorchHFCLIPModel(TorchCLIPModel):
                 f"HF-text CLIP model `{self.model_name}` requires an "
                 "open_clip checkpoint: provide model_properties.localpath "
                 "or a model_location.")
+        self.encoder = put_params(self, self.encoder)
         self.loaded = True
         from marqo_tpu_torch.inference.loaders import module_bytes
         self._param_bytes = module_bytes(self.encoder)
@@ -326,17 +328,16 @@ class TorchHFCLIPModel(TorchCLIPModel):
         # ids and mask travel together: stack along a new axis so the
         # shared batched dispatcher pads them as one array
         both = np.stack([ids, mask], axis=1)  # (n, 2, S)
-
-        def forward(padded):
-            pid, pmask = padded[:, 0], padded[:, 1].copy()
-            # bucket-padding rows have an all-zero mask: give them one
-            # real position so mean-pool denominators never hit zero
-            pmask[pmask.sum(axis=1) == 0, 0] = 1
-            return encode_hf_clip_text(
-                self.encoder,
-                torch.from_numpy(np.ascontiguousarray(pid)).to(self._device),
-                torch.from_numpy(pmask).to(self._device))
+        # a row with an all-zero mask, the bucket's padding rows among
+        # them, gets one real position so mean-pool denominators never hit
+        # zero
+        both[both[:, 1].sum(axis=1) == 0, 1, 0] = 1
+        pad_row = np.zeros(both.shape[1:], dtype=np.int32)
+        pad_row[1, 0] = 1
 
         from marqo_tpu_torch.inference.batching import batched_device_encode
         with torch.inference_mode():
-            return batched_device_encode(both, forward)
+            return batched_device_encode(
+                self, both, lambda encoder, padded: encode_hf_clip_text(
+                    encoder, padded[:, 0], padded[:, 1].contiguous()),
+                pad_row)

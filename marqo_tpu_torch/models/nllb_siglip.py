@@ -434,7 +434,7 @@ class TorchNLLBSigLIPModel(TorchSigLIPModel):
 
     def _encode_text(self, texts) -> np.ndarray:
         # short batch buckets fill with all-pad rows
-        return self._run(self._tokenize(texts), self.encoder.text,
+        return self._run(self._tokenize(texts), "text",
                          pad_value=self.text_config.pad_token_id)
 
     def _preprocess_host(self, content) -> np.ndarray:

@@ -35,6 +35,7 @@ from marqo_tpu_torch.models.clip import (CLIPTextConfig, CLIPTextTower,
                                          _numpy_state_dict, _pixel_stats,
                                          load_open_clip_state, open_clip_text,
                                          random_seed, text_values)
+from marqo_tpu_torch.parallel.serving import put_params
 
 
 @dataclass(frozen=True)
@@ -358,6 +359,7 @@ class ConvCLIPModel(TorchCLIPModel):
                 f"{self.family} model `{self.model_name}` requires an "
                 "openai/open_clip checkpoint: provide "
                 "model_properties.localpath or a model_location.")
+        self.encoder = put_params(self, self.encoder)
         self.loaded = True
         self._param_bytes = sum(p.numel() * p.element_size()
                                 for p in self.encoder.parameters())

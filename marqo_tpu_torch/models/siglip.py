@@ -45,6 +45,7 @@ from marqo_tpu_torch.models.clip import (_VISION_ATTENTION, _blocks, _f32,
                                          convert_open_clip_resblocks,
                                          load_open_clip_state, random_seed)
 from marqo_tpu_torch.ops.common import ACTIVATIONS, layer_norm
+from marqo_tpu_torch.parallel.serving import put_params, replicas
 
 SIGLIP_MEAN = (0.5, 0.5, 0.5)
 SIGLIP_STD = (0.5, 0.5, 0.5)
@@ -442,6 +443,7 @@ class TorchSigLIPModel:
         self._loaded()
 
     def _loaded(self) -> None:
+        self.encoder = put_params(self, self.encoder)
         self.loaded = True
         self._param_bytes = sum(
             t.numel() * t.element_size()
@@ -494,8 +496,9 @@ class TorchSigLIPModel:
     def set_attention_impl(self, impl: str) -> None:
         """"kernel" (B2 on a CUDA device) or "plain" (its twin) for both
         towers."""
-        for tower in (self.encoder.text, self.encoder.vision):
-            tower.config = replace(tower.config, attention_impl=impl)
+        for encoder in replicas(self):
+            for tower in (encoder.text, encoder.vision):
+                tower.config = replace(tower.config, attention_impl=impl)
 
     # -- encoding ------------------------------------------------------------
 
@@ -514,13 +517,15 @@ class TorchSigLIPModel:
                 np.linalg.norm(out, axis=-1, keepdims=True), 1e-12)
         return out.astype(np.float32)
 
-    def _run(self, array: np.ndarray, tower, pad_value=0) -> np.ndarray:
-        """``tower`` over ``array`` in batch buckets on this model's
-        device; one device-to-host copy."""
+    def _run(self, array: np.ndarray, tower: str,
+             pad_value=0) -> np.ndarray:
+        """The ``tower`` ("text" or "vision") of this model's encoder over
+        ``array`` in batch buckets, split across the serving mesh's
+        data-parallel groups when there is one; one device-to-host copy."""
         with torch.inference_mode():
             return batched_device_encode(
-                array, lambda padded: tower(
-                    torch.from_numpy(padded).to(self._device)), pad_value)
+                self, array, lambda encoder, x: getattr(encoder, tower)(x),
+                pad_value)
 
     def _tokenize(self, texts: List[str]) -> np.ndarray:
         # SigLIP pools the LAST position: pad to the full context length
@@ -530,7 +535,7 @@ class TorchSigLIPModel:
             np.int32)
 
     def _encode_text(self, texts: List[str]) -> np.ndarray:
-        return self._run(self._tokenize(texts), self.encoder.text)
+        return self._run(self._tokenize(texts), "text")
 
     def _preprocess_host(self, content) -> np.ndarray:
         """SigLIP preprocessing: a square bicubic resize (no crop), in uint8
@@ -545,7 +550,7 @@ class TorchSigLIPModel:
 
     def _encode_images(self, contents: List[Any]) -> np.ndarray:
         pixels = np.stack([self._preprocess_host(c) for c in contents])
-        return self._run(pixels, self.encoder.vision)
+        return self._run(pixels, "vision")
 
     def memory_bytes(self) -> int:
         return self._param_bytes

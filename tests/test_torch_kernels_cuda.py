@@ -447,3 +447,64 @@ def test_w8a8_kernel_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="multiple of 16"):
         qm.w8a8_matmul(x[:, :40].contiguous(), w_q[:, :40].contiguous(),
                        w_scale, bias)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_at_a_tensor_parallel_shard_shape(card, dtype):
+    """B1, both modes, where the (2, 2) serving mesh gives it the e5-base
+    encoder: 6 of its 12 heads a tp shard, 16 rows a dp group, in the
+    shard's projection layout."""
+    B, N, S, D = chip_smoke.MESH_B1_SHAPE
+    q, k, v, pad, seg = attention_inputs(B, N, S, D, dtype, seed=B + N)
+    views = projection_views(q, k, v, "projection")
+    _check_b1(*views, pad, dtype)
+    _check_b1(*views, seg, dtype)
+
+
+def test_virtual_mesh_encode_matches_unsharded(card):
+    """The e5-base-width bf16 encoder over a (2, 2) virtual mesh of the
+    card (parallel/): its tp shards through B1 and the batch over dp,
+    padded and packed, 12 x 2 x 2 B1 launches a batch; every row against
+    the unsharded encoder on the same weights (cosine >= 0.999)."""
+    from marqo_tpu_torch.models import bert
+    from marqo_tpu_torch.ops.packing import pack_sequences
+    from marqo_tpu_torch.parallel.encode import make_sharded_encode
+    from marqo_tpu_torch.parallel.mesh import (create_mesh, shard_params,
+                                               split_batch)
+    config = bert.TextEncoderConfig(**chip_smoke.E5_BASE)
+    encoder = bert.init_encoder(
+        config, torch.Generator(device=card).manual_seed(0),
+        dtype=torch.bfloat16, device=card)
+    mesh = create_mesh([torch.device("cuda", 0)] * 4, shape=(2, 2))
+    sharded = shard_params(encoder, mesh)
+    rng = np.random.default_rng(0)
+    B, S = 32, 128
+    lengths = rng.integers(4, S + 1, B)
+    mask = (np.arange(S)[None] < lengths[:, None]).astype(np.int32)
+    ids = (rng.integers(5, config.vocab_size, (B, S)) * mask).astype(
+        np.int32)
+    launches = 4 * config.num_layers
+    with torch.inference_mode():
+        before = fa.LAUNCHES["padding"]
+        out = make_sharded_encode(mesh, config, torch.bfloat16)(
+            sharded, ids, mask)
+        assert fa.LAUNCHES["padding"] == before + launches
+        ref = bert.encode_tokens(encoder, torch.from_numpy(ids).to(card),
+                                 torch.from_numpy(mask).to(card))
+        assert torch.nn.functional.cosine_similarity(out, ref).min() >= \
+            0.999
+        packed = pack_sequences([ids[i, :lengths[i]] for i in range(B)],
+                                seq_len=S, row_buckets=[16, 32])
+        rows = (packed.input_ids, packed.segment_ids, packed.positions,
+                packed.seq_index)
+        n = packed.n_sequences
+        before = fa.LAUNCHES["segment"]
+        parts = [bert.packed_segment_sums(replica, *group, n) for
+                 replica, group in zip(sharded, split_batch(mesh, *rows))]
+        assert fa.LAUNCHES["segment"] == before + launches
+        out = bert.pool_segment_sums(sum(p[0] for p in parts),
+                                     sum(p[1] for p in parts), config)
+        ref = bert.encode_tokens_packed(
+            encoder, *(torch.from_numpy(a).to(card) for a in rows), n)
+        assert torch.nn.functional.cosine_similarity(out, ref).min() >= \
+            0.999

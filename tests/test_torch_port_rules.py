@@ -31,7 +31,9 @@ PORTED = {
     "models/languagebind.py", "ops/audio_ops.py", "inference/types.py",
     "inference/batching.py", "inference/loaders.py",
     "engine/torch_scorer.py", "models/dino_vit.py", "models/yolox.py",
-    "models/frcnn.py", "models/owl_vit.py",
+    "models/frcnn.py", "models/owl_vit.py", "parallel/__init__.py",
+    "parallel/mesh.py", "parallel/serving.py", "parallel/encode.py",
+    "parallel/train_step.py",
 }
 
 # numpy functions and constants that ported modules copy as they are

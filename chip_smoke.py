@@ -2849,12 +2849,14 @@ def phase_mesh_serve(server, fa, torch, smi):
     return {"launches": run["launches"], "batches": batches}
 
 
-def phase_mesh_replicated(torch):
+def phase_mesh_replicated(fa, fused, qm, torch):
     """ViT-L/14 images and the int8 e5 encoder over a (2, 1) virtual mesh:
     both replicate whole (by type), each batch splits over dp 2. B2 runs
     24 times per group per 16-image call at (8, 16, 257, 64); B3 runs 4
     times a block per group at M = (B/2) S. Each against the same model on
-    one device."""
+    one device; then each kernel against its twin at every shape the mesh
+    gave it (B2 and the int8 encoder's B1 within the attention bound, B3
+    bit for bit), in fp32 and bf16."""
     from marqo_tpu_torch.inference.loaders import load_model
     from marqo_tpu_torch.inference.types import Modality
     from marqo_tpu_torch.parallel.serving import model_mesh
@@ -2912,8 +2914,20 @@ def phase_mesh_replicated(torch):
                     (MESH_BATCH // dp, E5_BASE["num_heads"], 128,
                      H // E5_BASE["num_heads"])): per_shape},
           f"mesh int8: launches {out['int8']['shapes']}")
+    shard_checks = {}
+    _, shard_checks["b1_max_abs_err"] = b1_checks(fa, torch, [
+        shape for counter, shape in int8
+        if counter == "masked_attention_padding"])
+    _, shard_checks["b2_max_abs_err"] = b2_checks(
+        fused, torch, [(*MESH_B2_SHAPE, ("nomask",))])
+    w8a8 = [w8a8_check(qm, torch, *shape, dtype)
+            for dtype in (torch.float32, torch.bfloat16)
+            for counter, shape in int8 if counter == "w8a8_matmul"]
+    shard_checks["b3_checks"] = len(w8a8)
+    shard_checks["b3_max_abs_err"] = max(r["max_abs_err"] for r in w8a8)
     emit("mesh_replicated", ok=True, mesh=MESH_REPLICATED,
-         images=MESH_IMAGES, texts=MESH_BATCH, **out)
+         images=MESH_IMAGES, texts=MESH_BATCH, atol=ATOL, rtol=RTOL,
+         b3_tolerance="exact (torch.equal)", shard_checks=shard_checks, **out)
     return out
 
 
@@ -3125,7 +3139,7 @@ def main() -> int:
     phase_nllb_siglip_encode(torch)
     phase_conv_clip_encode(torch)
     phase_eva02_encode(torch)
-    mesh_replicated = phase_mesh_replicated(torch)
+    mesh_replicated = phase_mesh_replicated(fa, fused, qm, torch)
     phase_train_step(torch)
 
     timing, vit, encoder_times = phase_timing(

@@ -47,7 +47,6 @@ from marqo_tpu_torch.ops.audio_ops import (N_MELS, load_wav,
                                            log_mel_spectrogram,
                                            mel_filterbank)
 from marqo_tpu_torch.ops.common import layer_norm
-from marqo_tpu_torch.parallel.serving import put_params, replicas
 
 
 @dataclass(frozen=True)
@@ -459,7 +458,6 @@ class TorchLanguageBindModel:
                 f"random_init for synthetic-weight mode.")
         else:
             self._load_random_init()
-        self.encoder = put_params(self, self.encoder)
         self.loaded = True
         self._param_bytes = sum(t.numel() * t.element_size()
                                 for t in self.encoder.parameters())
@@ -624,11 +622,10 @@ class TorchLanguageBindModel:
         """"kernel" (B2 on a CUDA device) or "plain" (its twin) for the
         image, audio and video towers (the text tower is causal, in plain
         torch)."""
-        for encoder in replicas(self):
-            for tower in (encoder.vision, encoder.audio, encoder.video):
-                if tower is not None:
-                    tower.config = replace(tower.config,
-                                           attention_impl=impl)
+        for tower in (self.encoder.vision, self.encoder.audio,
+                      self.encoder.video):
+            if tower is not None:
+                tower.config = replace(tower.config, attention_impl=impl)
 
     # -- encoding -----------------------------------------------------------
 
@@ -652,12 +649,11 @@ class TorchLanguageBindModel:
         return out.astype(np.float32)
 
     def _run(self, tower, array: np.ndarray) -> np.ndarray:
-        """``tower`` over the whole batch on this model's device. Under the
-        serving mesh the encoder replicates on each data-parallel group,
-        but its towers run the lead group's replica on the whole batch, as
-        the JAX package places their inputs on the model's one device
+        """``tower`` over the whole batch on this model's device. The model
+        stays on that device under a serving mesh: the JAX package feeds
+        every tower from the model's one device
         (marqo_tpu/models/languagebind.py ``_encode_text`` and the other
-        modalities)."""
+        modalities), so a replica elsewhere would compute nothing."""
         with torch.inference_mode():
             return tower(torch.from_numpy(array).to(self._device)
                          ).cpu().numpy()

@@ -13,7 +13,7 @@ summed on the group's first device in shard order, in the compute dtype,
 where XLA would insert a psum, then come the bias, the residual and the
 LayerNorm, once. The FFN works the same way. On a virtual mesh (one device
 repeated) every copy is a no-op and the shards are views of the encoder's
-weights. ``make_sharded_encode`` adds the data-parallel split.
+weights; over distinct devices each shard owns its part. ``make_sharded_encode`` adds the data-parallel split.
 """
 
 from typing import Sequence
@@ -83,14 +83,21 @@ class ShardedTextEncoder(nn.Module):
     def from_encoder(cls, encoder: TextEncoder,
                      devices: Sequence[torch.device]
                      ) -> "ShardedTextEncoder":
-        """``encoder``'s weights split over ``devices``: views where a
-        shard's device is the encoder's own."""
+        """``encoder``'s weights split over ``devices``: views where every
+        device is the encoder's own (a virtual mesh). Over distinct
+        devices a split part left on the encoder's device is copied, so
+        that it does not keep the whole unsharded weight alive."""
         with torch.device("meta"):
             sharded = cls(encoder.config, devices)
         params = dict(encoder.named_parameters())
-        sharded.load_state_dict(shard_tensors(
-            params, encoder_param_specs(encoder), sharded.devices),
-            assign=True)
+        specs = encoder_param_specs(encoder)
+        tensors = shard_tensors(params, specs, sharded.devices)
+        source = next(encoder.parameters()).device
+        if any(d != source for d in sharded.devices):
+            tensors = {key: t.clone() if t.device == source and
+                       specs[key.split(".", 2)[2]] is not None else t
+                       for key, t in tensors.items()}
+        sharded.load_state_dict(tensors, assign=True)
         return sharded.eval().requires_grad_(False)
 
     @property

@@ -72,6 +72,10 @@ def _build_mesh() -> Optional[Mesh]:
         if (shape[0] * shape[1]) % len(devices):
             raise ValueError(f"Mesh shape {shape} does not cycle evenly "
                              f"over {len(devices)} devices")
+        logger.warning(
+            f"MARQO_TPU_SERVING_MESH=TRUE asks for a {shape} mesh over "
+            f"{len(devices)} device(s): a virtual mesh, each device "
+            f"repeated, which serves slower than one device would")
         devices = [devices[i % len(devices)]
                    for i in range(shape[0] * shape[1])]
     if len(devices) < 2:

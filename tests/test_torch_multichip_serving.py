@@ -97,6 +97,22 @@ class TestServingMeshActivation:
         monkeypatch.setenv("MARQO_TPU_SERVING_MESH", "FALSE")
         assert serving_mesh() is None
 
+    def test_virtual_mesh_warns(self, mesh_off, monkeypatch):
+        """A forced mesh larger than the devices there are cycles over
+        them, and says so at WARNING (it serves slower than one device)."""
+        import logging
+        records = []
+        handler = logging.Handler(logging.WARNING)
+        handler.emit = records.append
+        logger = logging.getLogger("marqo_tpu_torch.parallel.serving")
+        logger.addHandler(handler)
+        monkeypatch.setenv("MARQO_TPU_SERVING_MESH", "TRUE")
+        try:
+            assert serving_mesh().shape == SHAPE
+        finally:
+            logger.removeHandler(handler)
+        assert any("virtual mesh" in r.getMessage() for r in records)
+
     def test_round_up_to_dp(self, mesh_on):
         assert round_up_to_dp(1, mesh_on) == 4
         assert round_up_to_dp(6, mesh_on) == 8
@@ -199,6 +215,33 @@ class TestShardedClipServing:
         model, out = _with_mesh(monkeypatch, run)
         assert model._mesh is not None and len(model._replicas) == 4
         np.testing.assert_allclose(out, ref, atol=2e-2)
+
+
+class TestLanguageBindStaysOnOneDevice:
+    """LanguageBind feeds every tower from the model's one device, as the
+    JAX package does, so it holds no replicas under the mesh."""
+
+    PROPS = {"name": "serve-languagebind", "type": "languagebind",
+             "dimensions": 24, "random_init": True, "image_size": 32,
+             "architecture": {"patch_size": 8, "vocab_size": 64},
+             "supported_modalities": ["language", "image"]}
+
+    def test_no_replicas_and_same_vectors(self, mesh_off, monkeypatch):
+        from marqo_tpu_torch.models.languagebind import \
+            TorchLanguageBindModel
+        imgs = TestShardedClipServing._images(None, 3)
+
+        def run():
+            model = TorchLanguageBindModel("serve-languagebind", self.PROPS,
+                                           Device.CPU)
+            model.load()
+            return model, np.asarray(model.encode(
+                imgs, modality=Modality.IMAGE))
+
+        _, ref = run()
+        model, out = _with_mesh(monkeypatch, run)
+        assert not hasattr(model, "_replicas")
+        np.testing.assert_array_equal(out, ref)
 
 
 class TestWholeFamilyMeshCoverage:

@@ -181,6 +181,32 @@ def test_sharded_encode_matches_jax(weights, shape):
     np.testing.assert_allclose(out.numpy(), single.numpy(), atol=1e-5)
 
 
+@pytest.mark.parametrize("second", [torch.device("cpu"),
+                                    torch.device("cpu", 0)],
+                         ids=["virtual", "distinct"])
+def test_shards_share_storage_only_on_a_virtual_mesh(weights, second):
+    """Over one device repeated, the lead shard's split weights are views
+    of the encoder's; over distinct devices (here the CPU named a second
+    way) the lead shard owns its part, so the unsharded weight can go.
+    The encode is the same either way."""
+    _, encoder = weights
+    sharded = tencode.ShardedTextEncoder.from_encoder(
+        encoder, [torch.device("cpu"), second])
+    full = encoder.layers[0].query.weight
+    lead = sharded.shards[0].layers[0].query.weight
+    assert torch.equal(lead, full[:SMALL["hidden_size"] // 2])
+    shares = lead.untyped_storage().data_ptr() == \
+        full.untyped_storage().data_ptr()
+    assert shares == (second == torch.device("cpu"))
+    assert sharded.embeddings.word.weight.data_ptr() == \
+        encoder.embeddings.word.weight.data_ptr()
+    ids, mask = _batch(n=4, seed=3)
+    ids, mask = torch.from_numpy(ids), torch.from_numpy(mask)
+    torch.testing.assert_close(
+        tbert.encode_tokens(sharded, ids, mask),
+        tbert.encode_tokens(encoder, ids, mask), atol=1e-5, rtol=0)
+
+
 def test_sharded_encode_refuses_a_batch_dp_does_not_divide(weights):
     _, encoder = weights
     mesh = tmesh.create_mesh(CPU8, shape=(4, 2))

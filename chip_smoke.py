@@ -17,15 +17,17 @@ phases and prints one JSON object per phase:
                    outputs, chunks of Stella's fused qkv projection); the
                    output must be the (B, S, N, D)-strided view; bf16
                    within 4e-3 + 1e-2 |ref|, a bound the twin with a
-                   softmax scale off by 10% must fail (check_attention)
+                   softmax scale off by 10% must fail (check_attention);
+                   bf16 on both tile loops (the one ops/flash_attention.py
+                   `tile_loop` picks, then the other, forced)
   4. fused_kernel  B2, flash attention, against its plain twin: no mask,
                    pad_mask and packed segment ids, fp32 and bf16, at
                    (4, 16, S, D) for the ViT towers' (tokens, head dim),
                    and at the main path's own shapes: (16, 16, 257, 64)
                    with no mask, (16, 12, 128, 64) padded and packed, and
                    the detectors' (1, 6, 197, 64) and (10, 12, 577, 64)
-                   with no mask; in the same three layouts and to the same
-                   bounds as phase 3
+                   with no mask; in the same three layouts, on both bf16
+                   tile loops and to the same bounds as phase 3
   5. quant_kernel  B3, the fused W8A8 linear layer, against its plain
                    twin, fp32 and bf16, equal bit for bit: M in
                    1/32/37/4096/17408 over the registry's BERT (K, N)
@@ -127,8 +129,11 @@ phases and prints one JSON object per phase:
  25. timing        kernel, twin and library-call times (attention on
                    contiguous inputs as earlier runs timed them, and at the
                    main-path shapes also in the encoders' own layout, which
-                   the kernels line reports), B3 against the bf16 F.linear
-                   it replaces and torch._int_mm, B3's row quantizer and
+                   the kernels line reports; each attention row with the
+                   tile loop that served it, the other bf16 loop's ms on
+                   the same inputs and its ratio to SDPA; queued behind
+                   a device sleep), B3 against the bf16 F.linear it
+                   replaces and torch._int_mm, B3's row quantizer and
                    GEMM apart (torch.profiler) against their bounds; C1's
                    head dims on B1, B2 at the SigLIP towers' shapes and at
                    the CoCa, EVA02 and LanguageBind towers' (NEW_B2_SHAPES),
@@ -169,12 +174,16 @@ MARQO_TPU_MESH_SHAPE; every phase above serves without one:
                    bound, twin, library call, launches on the phase)
 
 then the card's name and power limit as nvidia-smi gives them, a
-{"kernels": [...]} line, and as the last line
+{"kernels": [...]} line (each kernel with the tile loop of its timed row
+and its path's launches per loop), and as the last line
 {"ok": true, "device": {...}}. Every kernel launch counter is set to 0 just
 before each path (the encoders and the serve phases) and read just after
-it. Any failed check raises and the script exits non-zero. Without a
-CUDA device, or outside a checkout, it exits non-zero before printing
-anything. JAX is never imported.
+it. Every phase line after the build also carries ``loop_launches``, the
+attention kernels' launches per tile loop since the line before; B2 must
+have run on the wgmma loop alone in clip_serve, eva02_encode,
+languagebind_serve and owl_rerank. Any failed check raises and the
+script exits non-zero. Without a CUDA device, or outside a checkout, it
+exits non-zero before printing anything. JAX is never imported.
 """
 
 import json
@@ -411,7 +420,22 @@ def check(condition, message: str) -> None:
         raise SmokeFailure(message)
 
 
+# each emitted phase's launches per tile loop of the attention kernels
+# (``read_loop_counts`` since the previous emit), by phase name
+PHASE_LOOPS = {}
+_loop_mark = {}
+
+
 def emit(phase: str, **fields) -> None:
+    """Print one phase's JSON line. Once the kernels' modules are loaded,
+    the line carries ``loop_launches``: the attention kernels' launches per
+    tile loop since the previous line (kept in PHASE_LOOPS)."""
+    if "marqo_tpu_torch.ops.fused_attention" in sys.modules:
+        now = read_loop_counts()
+        if _loop_mark:
+            PHASE_LOOPS[phase] = count_delta(_loop_mark, now)
+            fields["loop_launches"] = PHASE_LOOPS[phase]
+        _loop_mark.update(now)
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
@@ -591,6 +615,34 @@ def count_delta(before: dict, after: dict) -> dict:
     return {name: after[name] - before[name] for name in after}
 
 
+ATTENTION_COUNTERS = ("masked_attention", "fused_attention")
+
+
+def read_loop_counts() -> dict:
+    """{kernel}_{loop}: the attention kernels' launches per tile loop
+    (LOOP_LAUNCHES, never reset: phases read their deltas)."""
+    modules = _counter_modules()
+    return {f"{name}_{loop}": count
+            for name in ATTENTION_COUNTERS
+            for loop, count in modules[name].LOOP_LAUNCHES.items()}
+
+
+def check_loop(phase: str, kernel: str, loop: str) -> dict:
+    """The phase's launches of ``kernel`` all ran on the tile loop
+    ``loop``, and at least one did. Returns the kernel's counts."""
+    counts = {name[len(kernel) + 1:]: n for name, n in
+              PHASE_LOOPS[phase].items() if name.startswith(kernel + "_")}
+    check(counts[loop] > 0 and sum(counts.values()) == counts[loop],
+          f"{phase}: {kernel} ran on the tile loops {counts}, not only on "
+          f"{loop}")
+    return counts
+
+
+# the bf16 tile loop a row was not served by, which the checks and the
+# timing also run on the same inputs
+OTHER_LOOP = {"wgmma": "mma_sync", "mma_sync": "wgmma"}
+
+
 # --- inputs ------------------------------------------------------------------
 
 def attention_inputs(B, N, S, D, dtype, seed):
@@ -752,6 +804,22 @@ def layouts(q, k, v, names=("contiguous",) + PROJECTION_LAYOUTS):
                (name, *projection_views(q, k, v, name)))
 
 
+def kernel_outputs(out, launch, S, D, dtype):
+    """(loop, output) of an attention kernel on one call: ``out``, what the
+    wrapper returned on the loop its rule picks; in bf16 also the other
+    bf16 loop's, from ``launch(loop)`` on the same inputs, so each check
+    holds both loops (fp32 has one loop)."""
+    import torch
+
+    from marqo_tpu_torch.ops.flash_attention import tile_loop
+    loop = tile_loop(S, D, dtype)
+    outputs = [(loop, out)]
+    if loop in OTHER_LOOP:
+        outputs.append((OTHER_LOOP[loop], launch(OTHER_LOOP[loop])))
+    torch.cuda.synchronize()
+    return outputs
+
+
 def b1_checks(fa, torch, cases):
     """B1 against its twin, both modes, fp32 and bf16, over (B, N, S, D)
     cases in the contiguous and the projection layouts. Returns the
@@ -769,23 +837,26 @@ def b1_checks(fa, torch, cases):
                          fa.attention_padding_reference),
                         ("segment", seg, fa.attention_segment,
                          fa.attention_segment_reference)):
-                    out = kernel(q, k, v, mask)
-                    torch.cuda.synchronize()
                     ref = plain(q, k, v, mask)
-                    check(out.dtype == dtype and out.shape == q.shape and
-                          is_projection_layout(out),
-                          f"kernel output {out.dtype} {tuple(out.shape)} "
-                          f"strides {out.stride()}")
-                    label = (f"kernel vs twin ({mode}, {dname}, {shape}, "
-                             f"{layout})")
-                    check(bool(torch.isfinite(out).all()),
-                          f"non-finite output: {label}")
-                    result = check_attention(out, ref, plain(
-                        q * SCALE_CONTROL, k, v, mask), label)
-                    results.append({"mode": mode, "dtype": dname,
-                                    "shape": shape, "layout": layout,
-                                    **result})
-                    errors[mode] = max(errors[mode], result["max_abs_err"])
+                    control = plain(q * SCALE_CONTROL, k, v, mask)
+                    for loop, out in kernel_outputs(
+                            kernel(q, k, v, mask),
+                            lambda loop: fa._launch(q, k, v, mask, mode,
+                                                    loop=loop), S, D, dtype):
+                        check(out.dtype == dtype and out.shape == q.shape and
+                              is_projection_layout(out),
+                              f"kernel output {out.dtype} {tuple(out.shape)} "
+                              f"strides {out.stride()}")
+                        label = (f"kernel vs twin ({mode}, {dname}, {shape}, "
+                                 f"{layout}, {loop})")
+                        check(bool(torch.isfinite(out).all()),
+                              f"non-finite output: {label}")
+                        result = check_attention(out, ref, control, label)
+                        results.append({"mode": mode, "dtype": dname,
+                                        "shape": shape, "layout": layout,
+                                        "loop": loop, **result})
+                        errors[mode] = max(errors[mode],
+                                           result["max_abs_err"])
     return results, errors
 
 
@@ -807,24 +878,30 @@ def b2_checks(fused, torch, cases):
                 for name in names:
                     mask = masks[name]
                     mode = "segment" if mask else "nomask"
-                    out = fused.fused_attention(q, k, v, **mask)
-                    torch.cuda.synchronize()
                     ref = fused.fused_attention_reference(q, k, v, **mask)
-                    check(out.dtype == dtype and out.shape == q.shape and
-                          is_projection_layout(out),
-                          f"fused output {out.dtype} {tuple(out.shape)} "
-                          f"strides {out.stride()}")
-                    label = (f"fused kernel vs twin ({name}, {dname}, "
-                             f"{shape}, {layout})")
-                    check(bool(torch.isfinite(out).all()),
-                          f"non-finite output: {label}")
-                    result = check_attention(
-                        out, ref, fused.fused_attention_reference(
-                            q * SCALE_CONTROL, k, v, **mask), label)
-                    results.append({"mode": name, "dtype": dname,
-                                    "shape": shape, "layout": layout,
-                                    **result})
-                    errors[mode] = max(errors[mode], result["max_abs_err"])
+                    control = fused.fused_attention_reference(
+                        q * SCALE_CONTROL, k, v, **mask)
+                    ids = fused._segment_ids(mask.get("pad_mask"),
+                                             mask.get("segment_ids"))
+                    for loop, out in kernel_outputs(
+                            fused.fused_attention(q, k, v, **mask),
+                            lambda loop: fused._launch(q, k, v, ids,
+                                                       loop=loop), S, D,
+                            dtype):
+                        check(out.dtype == dtype and out.shape == q.shape and
+                              is_projection_layout(out),
+                              f"fused output {out.dtype} {tuple(out.shape)} "
+                              f"strides {out.stride()}")
+                        label = (f"fused kernel vs twin ({name}, {dname}, "
+                                 f"{shape}, {layout}, {loop})")
+                        check(bool(torch.isfinite(out).all()),
+                              f"non-finite output: {label}")
+                        result = check_attention(out, ref, control, label)
+                        results.append({"mode": name, "dtype": dname,
+                                        "shape": shape, "layout": layout,
+                                        "loop": loop, **result})
+                        errors[mode] = max(errors[mode],
+                                           result["max_abs_err"])
     return results, errors
 
 
@@ -2386,7 +2463,32 @@ def phase_detector_timing(fused, torch, patch_launches, owl_launches):
                      **paired_queued_ms(
                          lambda: fused.fused_attention(q, k, v),
                          lambda: fused.fused_attention_reference(q, k, v),
-                         _sdpa(torch, q, k, v, None), 20)})
+                         _sdpa(torch, q, k, v, None), 20),
+                     **loop_times(lambda loop: fused._launch(
+                         q, k, v, None, loop=loop), S, D, queued_ms, 20)})
+    return with_sdpa_ratio(rows)
+
+
+def loop_times(launch, S, D, timer, iters) -> dict:
+    """The bf16 tile loop ``tile_loop`` serves a timed attention row with,
+    and the other bf16 loop's ms on the same inputs (``launch(loop)``;
+    ``timer``: cuda_ms or queued_ms, the mean of two runs)."""
+    import torch
+
+    from marqo_tpu_torch.ops.flash_attention import tile_loop
+    loop = tile_loop(S, D, torch.bfloat16)
+    other = OTHER_LOOP[loop]
+    runs = [timer(lambda: launch(other), iters) for _ in range(2)]
+    return {"loop": loop, "other_loop": other,
+            "other_loop_ms": sum(runs) / 2, "other_loop_ms_runs": runs}
+
+
+def with_sdpa_ratio(rows) -> list:
+    """Each attention row with ``sdpa_ratio``: its ms over the SDPA call's
+    (``library_ms``), both timed in this run."""
+    for row in rows:
+        if row["kernel"] in ATTENTION_COUNTERS:
+            row["sdpa_ratio"] = row["ms"] / row["library_ms"]
     return rows
 
 
@@ -2427,7 +2529,8 @@ def phase_timing(fa, fused, qm, torch, clip_model, pixels, int8_encoder,
     # each attention row in the contiguous (B, N, S, D) layout that earlier
     # runs timed, and at the main-path shapes also in the encoders' own
     # layout (views of the (B, S, N*D) projection outputs); SDPA takes the
-    # same tensors
+    # same tensors. Queued (queued_ms): back to back, a call's ~45-60 us of
+    # host time hides the wgmma loop's device time at (16, 16, 257, 64)
     for B, S in ((256, 128), (1, 32)):
         q, k, v, pad, seg = attention_inputs(B, 12, S, 64, torch.bfloat16,
                                              seed=B)
@@ -2441,15 +2544,17 @@ def phase_timing(fa, fused, qm, torch, clip_model, pixels, int8_encoder,
                      fa.attention_segment_reference,
                      ((seg[:, :, None] == seg[:, None, :]) &
                       (seg[:, None, :] > 0))[:, None])):
-                iters = 20 if B > 1 else 200
                 rows.append({"kernel": "masked_attention", "mode": mode,
                              "shape": [B, 12, S, 64], "layout": layout,
                              "dtype": "bfloat16",
                              **attention_bound(B, 12, S, 64, mode, mask),
-                             **paired_ms(lambda: kernel(q, k, v, mask),
-                                         lambda: plain(q, k, v, mask), iters),
-                             "library_ms": cuda_ms(
-                                 _sdpa(torch, q, k, v, allowed), iters)})
+                             **paired_queued_ms(
+                                 lambda: kernel(q, k, v, mask),
+                                 lambda: plain(q, k, v, mask),
+                                 _sdpa(torch, q, k, v, allowed), 20),
+                             **loop_times(lambda loop: fa._launch(
+                                 q, k, v, mask, mode, loop=loop), S, 64,
+                                 queued_ms, 20)})
     for B, N, S in ((16, 16, 257), (1, 16, 257), (256, 12, 128)):
         q, k, v, _, seg = attention_inputs(B, N, S, 64, torch.bfloat16,
                                            seed=B)
@@ -2459,19 +2564,20 @@ def phase_timing(fa, fused, qm, torch, clip_model, pixels, int8_encoder,
                     ("nomask", {}, None),
                     ("segment", {"segment_ids": seg},
                      (seg[:, :, None] == seg[:, None, :])[:, None])):
-                iters = 20 if B > 1 else 200
                 rows.append({"kernel": "fused_attention", "mode": mode,
                              "shape": [B, N, S, 64], "layout": layout,
                              "dtype": "bfloat16",
                              **attention_bound(B, N, S, 64, "fused_" + mode,
                                                mask.get("segment_ids")),
-                             **paired_ms(
+                             **paired_queued_ms(
                                  lambda: fused.fused_attention(q, k, v,
                                                                **mask),
                                  lambda: fused.fused_attention_reference(
-                                     q, k, v, **mask), iters),
-                             "library_ms": cuda_ms(
-                                 _sdpa(torch, q, k, v, allowed), iters)})
+                                     q, k, v, **mask),
+                                 _sdpa(torch, q, k, v, allowed), 20),
+                             **loop_times(lambda loop: fused._launch(
+                                 q, k, v, mask.get("segment_ids"),
+                                 loop=loop), S, 64, queued_ms, 20)})
     # B3 at the padded ingest batch's four linear shapes and at a batch-1
     # query's packed q, k, v and FFN; beside it the bf16 F.linear that the
     # int8 path replaces, the library yardstick and torch._int_mm alone,
@@ -2514,11 +2620,12 @@ def phase_timing(fa, fused, qm, torch, clip_model, pixels, int8_encoder,
     # (queued: at these shapes one call holds the host longer than the
     # device)
     def attention_row(name, mode, shape, bounds, kernel, plain, allowed,
-                      q, k, v):
+                      q, k, v, launch):
         return {"kernel": name, "mode": mode, "shape": shape,
                 "layout": "projection", "dtype": "bfloat16", **bounds,
                 **paired_queued_ms(kernel, plain,
-                                   _sdpa(torch, q, k, v, allowed), 20)}
+                                   _sdpa(torch, q, k, v, allowed), 20),
+                **loop_times(launch, shape[2], shape[3], queued_ms, 20)}
 
     for B, N, S, D in C1_B1_CASES:
         q, k, v, pad, seg = attention_inputs(B, N, S, D, torch.bfloat16,
@@ -2535,7 +2642,8 @@ def phase_timing(fa, fused, qm, torch, clip_model, pixels, int8_encoder,
                 "masked_attention", mode, [B, N, S, D],
                 attention_bound(B, N, S, D, mode, mask),
                 lambda: kernel(q, k, v, mask), lambda: plain(q, k, v, mask),
-                allowed, q, k, v))
+                allowed, q, k, v, lambda loop: fa._launch(
+                    q, k, v, mask, mode, loop=loop)))
     for B, N, S, D in SIGLIP_ATTENTION_SHAPES + NEW_B2_SHAPES:
         q, k, v, _, _ = attention_inputs(B, N, S, D, torch.bfloat16, seed=S)
         q, k, v = projection_views(q, k, v, "projection")
@@ -2543,7 +2651,8 @@ def phase_timing(fa, fused, qm, torch, clip_model, pixels, int8_encoder,
             "fused_attention", "nomask", [B, N, S, D],
             attention_bound(B, N, S, D, "fused_nomask"),
             lambda: fused.fused_attention(q, k, v),
-            lambda: fused.fused_attention_reference(q, k, v), None, q, k, v))
+            lambda: fused.fused_attention_reference(q, k, v), None, q, k, v,
+            lambda loop: fused._launch(q, k, v, None, loop=loop)))
     M, K, N = C1_W8A8_CASES[0]
     x, w_q, w_scale, bias = w8a8_inputs(M, K, N, torch.bfloat16, seed=M)
     weight = (0.05 * torch.randn(N, K, device=DEVICE)).to(torch.bfloat16)
@@ -2631,7 +2740,7 @@ def phase_timing(fa, fused, qm, torch, clip_model, pixels, int8_encoder,
                    "bf16_lognormal_padded_ms_runs": mix["plain_ms_runs"],
                    "bf16_lognormal_packed_ms_runs": mix["ms_runs"],
                    "packed_rows": int(packed.input_ids.shape[0])}
-    return rows, vit_row, encoder_row
+    return with_sdpa_ratio(rows), vit_row, encoder_row
 
 
 # --- the multi-device mesh (parallel/) on the one card -----------------------
@@ -3035,6 +3144,9 @@ def phase_mesh_timing(fa, fused, qm, torch, mesh_serve, mesh_replicated):
             **paired_queued_ms(lambda: kernel(q, k, v, mask),
                                lambda: plain(q, k, v, mask),
                                _sdpa(torch, q, k, v, allowed), 20),
+            **loop_times(lambda loop: fa._launch(q, k, v, mask, mode,
+                                                 loop=loop), S, D,
+                         queued_ms, 20),
             "launches": {"mesh_serve " + kind: launches_of(
                 mesh_serve["batches"][kind], f"masked_attention_{mode}",
                 shape)}})
@@ -3048,6 +3160,8 @@ def phase_mesh_timing(fa, fused, qm, torch, mesh_serve, mesh_replicated):
         **paired_queued_ms(lambda: fused.fused_attention(q, k, v),
                            lambda: fused.fused_attention_reference(q, k, v),
                            _sdpa(torch, q, k, v, None), 20),
+        **loop_times(lambda loop: fused._launch(q, k, v, None, loop=loop),
+                     S, D, queued_ms, 20),
         "launches": {"mesh_replicated": launches_of(
             mesh_replicated["clip"], "fused_attention_nomask",
             MESH_B2_SHAPE)}})
@@ -3064,7 +3178,7 @@ def phase_mesh_timing(fa, fused, qm, torch, mesh_serve, mesh_replicated):
                 lambda: qm.w8a8_matmul_reference(x, w_q, w_scale, bias),
                 _int8_yardstick(torch, qm, x, w_q, w_scale, bias), 20),
             "launches": {"mesh_replicated": s["launches"]}})
-    return rows
+    return with_sdpa_ratio(rows)
 
 
 def main() -> int:
@@ -3141,6 +3255,10 @@ def main() -> int:
     phase_eva02_encode(torch)
     mesh_replicated = phase_mesh_replicated(fa, fused, qm, torch)
     phase_train_step(torch)
+    # the long-token towers ran B2 on the wgmma loop alone
+    for phase in ("clip_serve", "eva02_encode", "languagebind_serve",
+                  "owl_rerank"):
+        check_loop(phase, "fused_attention", "wgmma")
 
     timing, vit, encoder_times = phase_timing(
         fa, fused, qm, torch, clip_model, pixels, int8_encoder, bf16_encoder)
@@ -3178,13 +3296,21 @@ def main() -> int:
                     row["mode"] == mode and row["shape"] == shape and
                     row.get("layout", layout) == layout)
 
-    def entry(name, source, replaces, launches, max_abs_err, row, bounds):
+    def entry(name, source, replaces, launches, max_abs_err, row, bounds,
+              loops):
+        """``loops``: the path's launches per tile loop; ``loop``: the one
+        that served the timed row."""
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max_abs_err, "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": bounds["bound_ms"],
                 "bound_by": bounds["bound_by"],
-                "library_ms": row["library_ms"]}
+                "library_ms": row["library_ms"],
+                "loop": row.get("loop", "wgmma"), "loops": loops}
+
+    def path_loops(phase, kernel):
+        return {name[len(kernel) + 1:]: n for name, n in
+                PHASE_LOOPS[phase].items() if name.startswith(kernel + "_")}
 
     # the attention rows carry the bound of their own inputs' mask
     B, N, S, D = 256, 12, 128, 64
@@ -3194,24 +3320,27 @@ def main() -> int:
         kernels.append(entry(f"masked_attention_{mode}", B1_SOURCE,
                              B1_REPLACES,
                              serve["launches"][f"masked_attention_{mode}"],
-                             errors[mode], row, row))
+                             errors[mode], row, row,
+                             path_loops("serve", "masked_attention")))
     # B2's no-mask mode at the ViT-L/14 shape, launched by the CLIP serve
     # path; its segment mode at the encoder's ingest shape, launched by the
     # encoder's "flash" path
-    for mode, shape, counts in (
-            ("nomask", [16, 16, 257, 64], clip_launches),
-            ("segment", [B, N, S, D], encoder_launches)):
+    for mode, shape, counts, phase in (
+            ("nomask", [16, 16, 257, 64], clip_launches, "clip_serve"),
+            ("segment", [B, N, S, D], encoder_launches, "encoder")):
         row = timed("fused_attention", mode, shape)
         kernels.append(entry(
             f"fused_attention_{mode}", B2_SOURCE, B2_REPLACES,
-            counts[f"fused_attention_{mode}"], fused_errors[mode], row, row))
+            counts[f"fused_attention_{mode}"], fused_errors[mode], row, row,
+            path_loops(phase, "fused_attention")))
     # B3 at the padded ingest batch's FFN shape, launched by the int8 serve
     # path
     kernels.append(entry(
         "w8a8_matmul", B3_SOURCE, B3_REPLACES,
         int8["launches"]["w8a8_matmul"], max(w8a8_errors.values()),
         timed("w8a8_matmul", "w8a8", [32768, 768, 3072]),
-        w8a8_bound(32768, 768, 3072)))
+        w8a8_bound(32768, 768, 3072),
+        {"wgmma": int8["launches"]["w8a8_matmul"]}))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,12 @@
 // Tiled softmax attention shared by the package's attention kernels, for
 // Hopper (sm_90a): masked_attention.cu (B1, compact-mask encoder attention)
 // and fused_attention.cu (B2, flash attention with no mask or segment ids).
-// Each kernel supplies a mask policy; this file holds the tile loop.
+// Each kernel supplies a mask policy; this file holds two tile loops, the
+// mma.sync loop for bf16 and the exact FMA loop for fp32, and the
+// masked-tile rule that attention_tile_sm90.cuh's wgmma loop shares. bf16
+// takes the mma.sync loop only at the short token counts where the card
+// showed it faster than the wgmma loop (ops/flash_attention.py
+// `tile_loop`: e.g. the video tower's 8 frames).
 //
 // One block owns one (batch, head, 64-row query tile) and walks 64-key K/V
 // tiles with an online softmax (running max and sum per row in fp32), so
@@ -137,10 +142,11 @@ enum class Skip { kNone, kPadding, kSegmentPositive, kSegment };
 // tiles (131,072 keys); tiles past them are always visited.
 constexpr int kFlagWords = 64;
 
-// Fill `bits` with the key tiles the block must visit. Called by one whole
-// warp; the caller makes the bits visible with a barrier.
+// Fill `bits` with the key tiles the block of query rows q0 .. q0 + rows - 1
+// must visit. Called by one whole warp; the caller makes the bits visible
+// with a barrier.
 template <typename Mask>
-__device__ void mark_tiles(const int* ids, int q0, int seq_len,
+__device__ void mark_tiles(const int* ids, int q0, int rows, int seq_len,
                            unsigned* bits, int lane) {
   const int n_tiles = (seq_len + kBlockK - 1) / kBlockK;
   const int words = min((n_tiles + 31) / 32, kFlagWords);
@@ -149,7 +155,7 @@ __device__ void mark_tiles(const int* ids, int q0, int seq_len,
   if constexpr (Mask::kSkip != Skip::kPadding) {
     // the block's query ids: a pad query (B1) visits every tile
     constexpr bool positive = Mask::kSkip == Skip::kSegmentPositive;
-    const int q_end = min(q0 + kBlockQ, seq_len);
+    const int q_end = min(q0 + rows, seq_len);
     bool pad = false;
     int l = INT_MAX, h = INT_MIN;
     for (int i = q0 + lane; i < q_end; i += 32) {
@@ -351,7 +357,7 @@ __device__ __forceinline__ void mma_tile_loop(
   cp_async_commit();
   load_kv(0, 0);
   if (Mask::kSkip != Skip::kNone && warp == 0)
-    mark_tiles<Mask>(id_row, q0, seq_len, bits, lane);
+    mark_tiles<Mask>(id_row, q0, kBlockQ, seq_len, bits, lane);
   cp_async_wait<1>();  // the Q tile has landed
   __syncthreads();     // ... for every thread, and so have the visit bits
 
@@ -600,7 +606,7 @@ __device__ __forceinline__ void fma_tile_loop(
   }
 
   if (Mask::kSkip != Skip::kNone && tid < 32)
-    mark_tiles<Mask>(id_row, q0, seq_len, bits, tid);
+    mark_tiles<Mask>(id_row, q0, kBlockQ, seq_len, bits, tid);
   __syncthreads();
   const int n_tiles = (seq_len + kBlockK - 1) / kBlockK;
   for (int t = next_tile<Mask>(bits, 0, n_tiles); t < n_tiles;

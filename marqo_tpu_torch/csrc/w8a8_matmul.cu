@@ -79,7 +79,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace marqo_hopper;
 
 // --- the row quantizer -------------------------------------------------------
 
@@ -323,43 +327,6 @@ struct Layout {
   static constexpr int kBytes = kFixed + kStages * (kStage + 16);
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
 // the box of `map` at (inner, outer) = (k, row) into shared memory; the
 // copy completes bytes on `bar`
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
@@ -383,50 +350,8 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map,
       : "memory");
 }
 
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// the thread's bulk stores have read their shared memory, all but the
-// newest kPending groups
-template <int kPending>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kPending)
-               : "memory");
-}
-
 __device__ __forceinline__ void bulk_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// generic-proxy writes to shared memory become visible to TMA
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// wgmma's shared-memory descriptor of a K-major tile of 128-byte rows with
-// the 128-byte swizzle: 8-row groups 1024 bytes apart (the stride byte
-// offset); the leading byte offset is unused in this mode. The tile starts on
-// a 1 KB boundary, so the base offset is 0 and a k32 step adds 32 bytes to
-// the start address (2 in its 16-byte units).
-__device__ __forceinline__ uint64_t smem_desc(const void* tile) {
-  const uint32_t addr = smem_addr(tile);
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
-               : "memory");
 }
 
 // d[64 x BN] (+)= a[64 x 32] . b[BN x 32]^T, int8 in, int32 out; scale_d 0
@@ -481,16 +406,6 @@ struct Wgmma<64> {
       : "l"(a), "l"(b), "r"(scale_d));
   }
 };
-
-template <int N>
-__device__ __forceinline__ void fence_operands(int (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void named_barrier(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
 
 __device__ __forceinline__ float epilogue(int acc, float xs, float ws,
                                           float b) {
@@ -617,8 +532,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       int previous = 0;
       for (int kb = 0; kb < k_blocks; ++kb) {
         mbar_wait(&full[stage], phase);
-        const uint64_t a = smem_desc(ring_a + stage * L::kA + c * 64 * kBK);
-        const uint64_t b = smem_desc(ring_b + stage * L::kB);
+        const uint64_t a =
+            desc_k_major(smem_addr(ring_a + stage * L::kA + c * 64 * kBK));
+        const uint64_t b = desc_k_major(smem_addr(ring_b + stage * L::kB));
         wgmma_fence();
 #pragma unroll
         for (int k = 0; k < kBK / 32; ++k)
@@ -643,14 +559,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       // the columns
       if (store_tma && t == 0) bulk_wait_read<0>();
       if (t < BN / 2) tile_columns[t] = column;
-      named_barrier(1 + c);
+      named_barrier(1 + c, 128);
 #pragma unroll
       for (int s = 0; s < kSlices; ++s) {
         uint8_t* slice = slices + (s % 2) * kSliceBytes;
         if (store_tma && s >= 2) {
           // the store of slice s - 2 has read this buffer
           if (t == 0) bulk_wait_read<1>();
-          named_barrier(1 + c);
+          named_barrier(1 + c, 128);
         }
 #pragma unroll
         for (int j = 0; j < kCols / 8; ++j) {
@@ -668,7 +584,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           // one thread hands the slice to TMA, which writes it behind the
           // next products
           fence_proxy_async();
-          named_barrier(1 + c);
+          named_barrier(1 + c, 128);
           if (t == 0) {
             tma_store(&map_out, slice, n0 + s * kCols, m0 + c * 64);
             bulk_commit();
@@ -676,7 +592,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         } else {
           // output rows not 16-byte aligned: 16-byte pieces where they fit,
           // else element by element
-          named_barrier(1 + c);
+          named_barrier(1 + c, 128);
           constexpr int kVec = 16 / sizeof(T);
 #pragma unroll
           for (int p = 0; p < 4; ++p) {
@@ -691,7 +607,7 @@ __global__ void __launch_bounds__(kThreads, 1)
               for (int e = 0; e < kVec && col + e < N; ++e) dst[e] = src[e];
             }
           }
-          named_barrier(1 + c);
+          named_barrier(1 + c, 128);
         }
       }
     }
@@ -700,32 +616,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // --- host side ---------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
-#endif
-    return err == cudaSuccess && status == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
 
 // a (rows, cols) row-major matrix of `type` in boxes of box_rows rows and
 // 128 bytes, with the 128-byte swizzle; loads past its edges read zeros,

@@ -98,13 +98,14 @@ def load_library() -> ctypes.CDLL:
             # the attention kernels take their 12 element strides as a
             # host array of 64-bit ints
             strides = ctypes.POINTER(ctypes.c_longlong)
+            # and the tile loop's code after them
             masked = lib.marqo_masked_attention
             masked.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-                ctypes.c_float, strides, ctypes.c_void_p]
+                ctypes.c_float, strides, ctypes.c_int, ctypes.c_void_p]
             masked.restype = ctypes.c_int
             fused = lib.marqo_fused_attention
             fused.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-                ctypes.c_float, strides, ctypes.c_void_p]
+                ctypes.c_float, strides, ctypes.c_int, ctypes.c_void_p]
             fused.restype = ctypes.c_int
             w8a8 = lib.marqo_w8a8_matmul
             w8a8.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [

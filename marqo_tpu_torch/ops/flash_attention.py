@@ -15,11 +15,14 @@ fp32 and probs.v accumulates in fp32; output is in the input dtype.
 
 On Hopper the TPU kernel's one-program-per-(batch, head) design does not
 fit: its (S, S) fp32 score tile is 1 MB at S = 512, against 227 KB of
-shared memory per block. The CUDA kernel tiles queries by 64 and loops
-over 64-key tiles with an online softmax, so shared memory stays at the
-tile size and scores never reach device memory. bf16 runs on the tensor
-cores (mma.sync, fed by a cp.async ring) and skips key tiles the mask
-rules out; fp32 keeps an exact FMA loop (csrc/attention_tile.cuh).
+shared memory per block. The CUDA kernel tiles queries by 64 or 128 and
+loops over 64-key tiles with an online softmax, so shared memory stays at
+the tile size and scores never reach device memory. Three tile loops:
+bf16 on Hopper's warpgroup MMA fed by TMA (``"wgmma"``,
+csrc/attention_tile_sm90.cuh) or on mma.sync fed by cp.async
+(``"mma_sync"``, csrc/attention_tile.cuh), both skipping key tiles the
+mask rules out; fp32 on an exact FMA loop (``"fma"``). ``tile_loop`` picks
+one from the shape.
 
 Layout: q, k and v may be any (B, N, S, D) views whose last axis is
 contiguous, such as the projections' ``x.view(B, S, N, D).transpose(1,
@@ -29,7 +32,7 @@ as a (B, N, S, D) view of a (B, S, N, D) tensor, so the caller's
 
 Routing: a tensor on the CPU takes the plain twin; a tensor on a CUDA
 device launches the kernel or raises. ``LAUNCHES`` counts kernel
-launches per mode.
+launches per mode, ``LOOP_LAUNCHES`` per tile loop.
 """
 
 import ctypes
@@ -47,10 +50,41 @@ MAX_SEQ_LEN = 512
 HEAD_DIMS = tuple(range(8, 129, 8))
 DTYPES = (torch.float32, torch.bfloat16)
 
-# kernel launches per mask mode (plain ints; the twin never counts);
-# serving threads launch concurrently, so increments take the lock
+# kernel launches per mask mode, and per tile loop (plain ints; the twin
+# never counts); serving threads launch concurrently, so increments take
+# the lock
 LAUNCHES = {"padding": 0, "segment": 0}
+LOOP_LAUNCHES = {"wgmma": 0, "mma_sync": 0, "fma": 0}
 _launches_lock = threading.Lock()
+
+# the C entry points' codes of the tile loops (csrc/attention_tile_sm90.cuh
+# `Loop`), and the loops each dtype may run
+LOOP_CODES = {"fma": 0, "mma_sync": 1, "wgmma": 2}
+DTYPE_LOOPS = {torch.float32: ("fma",),
+               torch.bfloat16: ("wgmma", "mma_sync")}
+# bf16 keeps the mma.sync loop where the card showed it faster than the
+# wgmma loop (scripts/tune_attention.py on an H100, PERF.md section 6):
+# up to this many tokens, by the largest head dim of each class. Past them
+# a 64-row wgmma tile has enough work; below them it is mostly idle.
+MMA_SYNC_SEQ_LEN = ((32, 32), (64, 16), (128, 64))
+
+
+def tile_loop(seq_len: int, head_dim: int, dtype: torch.dtype) -> str:
+    """The tile loop that serves a (S, D, dtype) call of either attention
+    kernel: fp32 the exact FMA loop; bf16 the wgmma loop, except where the
+    card showed the mma.sync loop faster: S <= 32 at D <= 32, S <= 16 at
+    D <= 64 and S <= 64 at D <= 128 (MMA_SYNC_SEQ_LEN)."""
+    if dtype != torch.bfloat16:
+        return "fma"
+    limit = next(s for d, s in MMA_SYNC_SEQ_LEN if head_dim <= d)
+    return "mma_sync" if seq_len <= limit else "wgmma"
+
+
+def check_loop(name: str, loop: str, dtype: torch.dtype) -> None:
+    """Raise ValueError unless ``dtype`` may run the tile loop ``loop``."""
+    if loop not in DTYPE_LOOPS.get(dtype, ()):
+        raise ValueError(f"{name}: the {loop!r} tile loop does not take "
+                         f"{dtype} (it takes {DTYPE_LOOPS.get(dtype, ())})")
 
 
 def attention_padding(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -123,31 +157,37 @@ def check_kernel_inputs(q, k, v, mask) -> None:
     check_layout("masked attention", q, k, v)
 
 
-def _launch(q, k, v, mask, mode: str) -> torch.Tensor:
+def _launch(q, k, v, mask, mode: str, loop=None) -> torch.Tensor:
+    """Launch the kernel on the tile loop ``tile_loop`` picks, or on
+    ``loop`` where the caller names one (the card tests and the smoke's
+    timing hold both bf16 loops against the twin)."""
     if q.device.type != "cuda":
         raise ValueError(f"masked attention: unsupported device {q.device}")
     if any(t.device != q.device for t in (k, v, mask)):
         raise ValueError("masked attention: q, k, v and mask must share a "
                          "device")
     check_kernel_inputs(q, k, v, mask)
+    B, N, S, D = q.shape
+    loop = tile_loop(S, D, q.dtype) if loop is None else loop
+    check_loop("masked attention", loop, q.dtype)
     mask = mask.to(torch.int32).contiguous()
     out = kernel_output(q)
     if out.numel() == 0:
         return out
-    B, N, S, D = q.shape
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         err = lib.marqo_masked_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
             out.data_ptr(), B, N, S, D, int(mode == "segment"),
             int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(D),
-            kernel_strides(q, k, v, out),
+            kernel_strides(q, k, v, out), LOOP_CODES[loop],
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"masked attention kernel launch failed: CUDA "
                            f"error {err}")
     with _launches_lock:
         LAUNCHES[mode] += 1
+        LOOP_LAUNCHES[loop] += 1
     return out
 
 

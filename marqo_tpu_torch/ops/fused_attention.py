@@ -24,9 +24,13 @@ a TPU tiling limit; the CUDA kernel masks its own ragged edge) and
 ``flash_enabled()`` (the MARQO_TPU_FUSED_ATTENTION gate): on a CUDA device
 the kernel is the ViT towers' attention.
 
+Tile loops: as ops/flash_attention.py's kernel, bf16 on the wgmma or the
+mma.sync loop and fp32 on the FMA loop, by the same ``tile_loop`` rule.
+
 Routing: a tensor on the CPU takes the plain twin; a tensor on a CUDA
 device launches the kernel or raises. ``LAUNCHES`` counts kernel launches
-per mode (a ``pad_mask`` runs the segment mode).
+per mode (a ``pad_mask`` runs the segment mode), ``LOOP_LAUNCHES`` per
+tile loop.
 """
 
 import math
@@ -36,20 +40,23 @@ from typing import Optional
 import torch
 
 from marqo_tpu_torch.ops import _build
-from marqo_tpu_torch.ops.flash_attention import (check_layout,
-                                                 kernel_output,
+from marqo_tpu_torch.ops.flash_attention import (LOOP_CODES, check_layout,
+                                                 check_loop, kernel_output,
                                                  kernel_strides,
-                                                 softmax_attention)
+                                                 softmax_attention,
+                                                 tile_loop)
 
 HEAD_DIMS = tuple(range(8, 129, 8))
 DTYPES = (torch.float32, torch.bfloat16)
-# the kernel's batch rides on grid.z (csrc/attention_tile.cuh), whose
-# CUDA limit is 65535 blocks
+# the kernel's batch rides on grid.z (every tile loop of
+# csrc/attention_tile.cuh and attention_tile_sm90.cuh), whose CUDA limit is
+# 65535 blocks
 MAX_BATCH = 65535
 
-# kernel launches per mode (plain ints; the twin never counts); serving
-# threads launch concurrently, so increments take the lock
+# kernel launches per mode, and per tile loop (plain ints; the twin never
+# counts); serving threads launch concurrently, so increments take the lock
 LAUNCHES = {"nomask": 0, "segment": 0}
+LOOP_LAUNCHES = {"wgmma": 0, "mma_sync": 0, "fma": 0}
 _launches_lock = threading.Lock()
 
 
@@ -98,7 +105,9 @@ def check_kernel_inputs(q, k, v, segment_ids=None) -> None:
     check_layout("fused attention", q, k, v)
 
 
-def _launch(q, k, v, ids) -> torch.Tensor:
+def _launch(q, k, v, ids, loop=None) -> torch.Tensor:
+    """Launch the kernel on the tile loop ``tile_loop`` picks, or on
+    ``loop`` where the caller names one."""
     if q.device.type != "cuda":
         raise ValueError(f"fused attention: unsupported device {q.device}")
     if any(t.device != q.device for t in (k, v) + (() if ids is None
@@ -106,25 +115,28 @@ def _launch(q, k, v, ids) -> torch.Tensor:
         raise ValueError("fused attention: q, k, v and segment ids must "
                          "share a device")
     check_kernel_inputs(q, k, v, ids)
+    B, N, S, D = q.shape
+    loop = tile_loop(S, D, q.dtype) if loop is None else loop
+    check_loop("fused attention", loop, q.dtype)
     if ids is not None:
         ids = ids.to(torch.int32).contiguous()
     out = kernel_output(q)
     if out.numel() == 0:
         return out
-    B, N, S, D = q.shape
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         err = lib.marqo_fused_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if ids is None else ids.data_ptr(), out.data_ptr(),
             B, N, S, D, int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(D),
-            kernel_strides(q, k, v, out),
+            kernel_strides(q, k, v, out), LOOP_CODES[loop],
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused attention kernel launch failed: CUDA "
                            f"error {err}")
     with _launches_lock:
         LAUNCHES["nomask" if ids is None else "segment"] += 1
+        LOOP_LAUNCHES[loop] += 1
     return out
 
 

@@ -49,8 +49,10 @@ VIT_L14_VISION = {"image_size": 224, "patch_size": 14, "hidden_size": 1024,
 
 
 def family(name: str) -> str:
-    # both attention kernels (B1, B2) instantiate csrc/attention_tile.cuh
-    if "attention_tile_kernel" in name:
+    # both attention kernels (B1, B2) instantiate the tile loops of
+    # csrc/attention_tile.cuh (mma.sync, FMA) and attention_tile_sm90.cuh
+    # (wgmma)
+    if "attention_tile_kernel" in name or "attention_sm90_kernel" in name:
         return "attention_kernel"
     # B3's two kernels (csrc/w8a8_matmul.cu: w8a8_quantize_rows, w8a8_gemm)
     if "w8a8_" in name:

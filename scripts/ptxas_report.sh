@@ -13,8 +13,14 @@ out=$(mktemp -d)
 trap 'rm -rf "$out"' EXIT
 sources=("$@")
 [ ${#sources[@]} -eq 0 ] && sources=(marqo_tpu_torch/csrc/*.cu)
+# one nvcc per source, all at once; each report is printed whole once its
+# compile is done, so a kernel's lines never interleave with another's
 for src in "${sources[@]}"; do
-  "${nvcc[@]}" -Xptxas -v -c -o "$out/$(basename "$src").o" "$src" 2>&1 |
-    grep -E "Compiling entry|Used|spill|warning|Potential" | sed 's/ptxas info    : //' &
+  name=$(basename "$src")
+  "${nvcc[@]}" -Xptxas -v -c -o "$out/$name.o" "$src" > "$out/$name.txt" 2>&1 &
 done
 wait
+for src in "${sources[@]}"; do
+  grep -E "Compiling entry|Used|spill|warning|Potential" "$out/$(basename "$src").txt" |
+    sed 's/ptxas info    : //'
+done

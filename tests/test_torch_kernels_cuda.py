@@ -4,9 +4,13 @@ flash attention with no mask or segment ids) and B3 (ops/quant_matmul.py,
 the fused W8A8 linear layer). The attention kernels are also fed the
 encoders' own layouts (views of the projection outputs), ragged token
 counts and head dims, and masks that exercise each tile-skipping rule of
-csrc/attention_tile.cuh; the built library's bf16 attention instances must
-hold tensor-core instructions (HMMA), and B3's GEMM instances the
-warpgroup MMA (IGMMA) and no mma.sync (IMMA).
+csrc/attention_tile.cuh, on the tile loop ``tile_loop`` picks and, in
+bf16, on both tile loops forced (the wgmma loop of
+csrc/attention_tile_sm90.cuh at every head dim and across its 64- and
+128-row tile edges); the built library's bf16 attention instances must
+hold tensor-core instructions (HMMA in the mma.sync loop, HGMMA in the
+wgmma loop), and B3's GEMM instances the warpgroup MMA (IGMMA) and no
+mma.sync (IMMA).
 Skips without an sm_90 CUDA device and nvcc; on a Hopper host run
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
@@ -304,6 +308,109 @@ def test_tile_skipping_keeps_every_row(card, name, dtype):
                         "segment_ids": {"segment_ids": ids}}, dtype)
 
 
+BF16_LOOPS = ("wgmma", "mma_sync")
+
+
+def _check_loop(q, k, v, ids, loop):
+    """Both B1 modes (S up to B1's 512) and B2's three modes on the bf16
+    tile loop ``loop``, forced, each counted on that loop."""
+    S = q.shape[2]
+    b1 = B1_MODES if S <= fa.MAX_SEQ_LEN else ()
+    for mode, _, plain in b1:
+        before = dict(fa.LOOP_LAUNCHES)
+        out = fa._launch(q, k, v, ids, mode, loop=loop)
+        torch.cuda.synchronize()
+        assert fa.LOOP_LAUNCHES[loop] == before[loop] + 1
+        assert out.shape == q.shape and is_projection_layout(out)
+        assert torch.isfinite(out).all()
+        check_attention(out, plain(q, k, v, ids),
+                        _control(plain, q, k, v, ids), f"{mode} {loop}")
+    for name, mask in _b2_masks(ids, ids).items():
+        segment = fused._segment_ids(mask.get("pad_mask"),
+                                     mask.get("segment_ids"))
+        before = dict(fused.LOOP_LAUNCHES)
+        out = fused._launch(q, k, v, segment, loop=loop)
+        torch.cuda.synchronize()
+        assert fused.LOOP_LAUNCHES[loop] == before[loop] + 1
+        assert out.shape == q.shape and is_projection_layout(out)
+        assert torch.isfinite(out).all()
+        ref = fused.fused_attention_reference
+        check_attention(out, ref(q, k, v, **mask),
+                        _control(ref, q, k, v, **mask), f"{name} {loop}")
+
+
+# the wgmma loop's edges: 64-key tiles, 64-row warpgroups, 128-row blocks
+TILE_EDGES = (1, 7, 63, 64, 65, 127, 128, 129, 255, 257, 497, 577, 729)
+
+
+@pytest.mark.parametrize("S", TILE_EDGES)
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+def test_wgmma_loop_matches_twin_at_every_head_dim(card, D, S):
+    """The wgmma loop, forced, at every head dim (8 to 128, one and two
+    64-column panels) across its tile edges: B1 padding and segment (S up
+    to 512), B2 no mask, pad mask and segment ids. The ids are the packed
+    segments at odd S past 16 and the padding mask elsewhere: below 16
+    tokens attention_inputs packs one-token segments, whose rows no
+    softmax scale moves, so the scale control could not fail there."""
+    q, k, v, pad, seg = attention_inputs(2, 2, S, D, torch.bfloat16,
+                                         seed=S + D)
+    _check_loop(q, k, v, seg if S % 2 and S > 16 else pad, "wgmma")
+
+
+@pytest.mark.parametrize("loop", BF16_LOOPS)
+@pytest.mark.parametrize("layout", PROJECTION_LAYOUTS)
+@pytest.mark.parametrize("S,D", [(129, 64), (257, 104), (65, 32)])
+def test_bf16_loops_read_projection_layouts(card, S, D, layout, loop):
+    """Both bf16 loops on the encoders' layouts, every mask policy."""
+    q, k, v, pad, seg = attention_inputs(3, 4, S, D, torch.bfloat16,
+                                         seed=S * D)
+    views = projection_views(q, k, v, layout)
+    _check_loop(*views, pad, loop)
+    _check_loop(*views, seg, loop)
+
+
+@pytest.mark.parametrize("loop", BF16_LOOPS)
+@pytest.mark.parametrize("name", ["all_pad_row", "pad_queries_in_block",
+                                  "straddling_segments", "non_monotone",
+                                  "padding_hole"])
+def test_tile_skipping_on_both_bf16_loops(card, name, loop):
+    """Each skipping rule's edge, the all-pad and pad-query rows among
+    them, on each bf16 loop forced (the wgmma loop's blocks are 128 query
+    rows where the mma.sync loop's are 64)."""
+    S = 400
+    q, k, v, _, _ = attention_inputs(4, 3, S, 64, torch.bfloat16,
+                                     seed=len(name))
+    q, k, v = projection_views(q, k, v, "projection")
+    _check_loop(q, k, v, torch.from_numpy(_skip_case(name, S)).to(card),
+                loop)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,D", [(8, 64), (16, 128), (24, 32), (33, 32),
+                                 (64, 128), (65, 128), (257, 64), (577, 64)])
+def test_wrappers_launch_the_loop_tile_loop_picks(card, S, D, dtype):
+    """The public entry points count one launch on tile_loop's loop, fp32
+    always on the FMA loop (B1 up to its 512 tokens); a loop the dtype does
+    not take is refused before any launch."""
+    q, k, v, pad, _ = attention_inputs(2, 2, S, D, dtype, seed=S)
+    loop = fa.tile_loop(S, D, dtype)
+    calls = [(fused, lambda: fused.fused_attention(q, k, v))]
+    if S <= fa.MAX_SEQ_LEN:
+        calls.append((fa, lambda: fa.attention_padding(q, k, v, pad)))
+    for module, call in calls:
+        before = dict(module.LOOP_LAUNCHES)
+        call()
+        torch.cuda.synchronize()
+        assert {name: n - before[name] for name, n in
+                module.LOOP_LAUNCHES.items() if n != before[name]} == {
+                    loop: 1}
+    wrong = "wgmma" if dtype == torch.float32 else "fma"
+    before = dict(fused.LOOP_LAUNCHES)
+    with pytest.raises(ValueError, match="tile loop"):
+        fused._launch(q, k, v, None, loop=wrong)
+    assert fused.LOOP_LAUNCHES == before
+
+
 def _cuobjdump():
     found = shutil.which("cuobjdump")
     if found:
@@ -316,9 +423,10 @@ def _cuobjdump():
 
 
 def test_bf16_attention_instances_run_on_tensor_cores(card):
-    """The bf16 instances of the tile loop (B1 and B2) hold HMMA (the
-    tensor cores' mma.sync); the fp32 instances hold none (their exact FMA
-    loop)."""
+    """The bf16 instances of the mma.sync tile loop (B1 and B2) hold HMMA
+    (the tensor cores' mma.sync), those of the wgmma loop HGMMA (the
+    warpgroup MMA; "HMMA" is no substring of it); the fp32 instances hold
+    neither (their exact FMA loop)."""
     library = _build.load_library()
     sass = subprocess.run([_cuobjdump(), "-sass", library._name],
                           capture_output=True, text=True, check=True).stdout
@@ -326,10 +434,12 @@ def test_bf16_attention_instances_run_on_tensor_cores(card):
     bf16 = [f for f in functions
             if "attention_tile_kernelI13__nv_bfloat16" in f.split()[0]]
     fp32 = [f for f in functions if "attention_tile_kernelIf" in f.split()[0]]
-    # B1 and B2: eight padded head dims in each of two modes
-    assert len(bf16) == len(fp32) == 2 * 8 + 2 * 8
+    wgmma = [f for f in functions if "attention_sm90_kernel" in f.split()[0]]
+    # B1 and B2: eight padded head dims in each of two modes, per loop
+    assert len(bf16) == len(fp32) == len(wgmma) == 2 * 8 + 2 * 8
     assert all("HMMA" in f for f in bf16)
-    assert not any("HMMA" in f for f in fp32)
+    assert all("HGMMA" in f for f in wgmma)
+    assert not any("HMMA" in f or "HGMMA" in f for f in fp32)
 
 
 def _check_w8a8(M, K, N, dtype, seed):

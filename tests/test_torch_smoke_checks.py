@@ -2,7 +2,9 @@
 counts only the keys the mask needs, and the bf16 tolerance passes the twin
 against itself but refuses the twin with a wrong softmax scale; B3's bounds
 count each byte once; B3's ragged cases reach its element-wise store
-path."""
+path; each phase line carries its launches per tile loop, a phase's check
+of its loop, the timing rows' loop fields and SDPA ratio, and the checks'
+hold on both bf16 loops."""
 
 import pytest
 import torch
@@ -104,3 +106,90 @@ def test_w8a8_ragged_cases_reach_the_element_wise_store_path():
     assert all(K % 16 == 0 for _, K, _ in chip_smoke.W8A8_RAGGED)
     assert (768, 2304) in chip_smoke.W8A8_WIDTHS
     assert (768, 2304) in chip_smoke.W8A8_PATH_WIDTHS
+
+
+def _phase_loops(monkeypatch, **counts):
+    loops = {f"{kernel}_{loop}": 0 for kernel in chip_smoke.ATTENTION_COUNTERS
+             for loop in ("wgmma", "mma_sync", "fma")}
+    loops.update(counts)
+    monkeypatch.setitem(chip_smoke.PHASE_LOOPS, "p", loops)
+
+
+def test_check_loop_needs_every_launch_on_the_loop(monkeypatch):
+    """A phase passes only if its launches of the kernel all ran on the
+    named loop, and at least one did; the other kernel does not count."""
+    _phase_loops(monkeypatch, fused_attention_wgmma=24,
+                 masked_attention_mma_sync=3)
+    assert chip_smoke.check_loop("p", "fused_attention", "wgmma") == {
+        "wgmma": 24, "mma_sync": 0, "fma": 0}
+    _phase_loops(monkeypatch, fused_attention_wgmma=24,
+                 fused_attention_mma_sync=1)
+    with pytest.raises(chip_smoke.SmokeFailure, match="not only on wgmma"):
+        chip_smoke.check_loop("p", "fused_attention", "wgmma")
+    _phase_loops(monkeypatch)
+    with pytest.raises(chip_smoke.SmokeFailure):
+        chip_smoke.check_loop("p", "fused_attention", "wgmma")
+
+
+def test_emit_carries_each_phase_loop_delta(monkeypatch, capsys):
+    """Each phase line carries the loop launches since the line before,
+    and PHASE_LOOPS keeps them by phase."""
+    import json
+    monkeypatch.setattr(chip_smoke, "_loop_mark", {})
+    monkeypatch.setattr(chip_smoke, "PHASE_LOOPS", {})
+    monkeypatch.setitem(fa.LOOP_LAUNCHES, "wgmma", 5)
+    chip_smoke.emit("first")
+    monkeypatch.setitem(fa.LOOP_LAUNCHES, "wgmma", 8)
+    monkeypatch.setitem(fused.LOOP_LAUNCHES, "mma_sync",
+                        fused.LOOP_LAUNCHES["mma_sync"] + 2)
+    chip_smoke.emit("second", ok=True)
+    first, second = (json.loads(line) for line in
+                     capsys.readouterr().out.splitlines())
+    assert "loop_launches" not in first
+    delta = second["loop_launches"]
+    assert delta["masked_attention_wgmma"] == 3
+    assert delta["fused_attention_mma_sync"] == 2
+    assert sum(delta.values()) == 5
+    assert chip_smoke.PHASE_LOOPS == {"second": delta}
+
+
+def test_loop_times_times_the_other_loop_twice():
+    runs = []
+
+    def timer(fn, iters):
+        fn()
+        return 0.5 + len(runs)
+
+    out = chip_smoke.loop_times(lambda loop: runs.append(loop), 577, 64,
+                                timer, 20)
+    assert runs == ["mma_sync", "mma_sync"]
+    assert out == {"loop": "wgmma", "other_loop": "mma_sync",
+                   "other_loop_ms": 2.0, "other_loop_ms_runs": [1.5, 2.5]}
+    runs.clear()
+    assert chip_smoke.loop_times(lambda loop: runs.append(loop), 8, 64,
+                                 timer, 20)["other_loop"] == "wgmma"
+
+
+def test_sdpa_ratio_is_the_kernel_over_the_library_call():
+    rows = chip_smoke.with_sdpa_ratio([
+        {"kernel": "fused_attention", "ms": 0.03, "library_ms": 0.04},
+        {"kernel": "masked_attention", "ms": 0.1, "library_ms": 0.08},
+        {"kernel": "w8a8_matmul", "ms": 0.2, "library_ms": 2.3}])
+    assert rows[0]["sdpa_ratio"] == pytest.approx(0.75)
+    assert rows[1]["sdpa_ratio"] == pytest.approx(1.25)
+    assert "sdpa_ratio" not in rows[2]
+
+
+@pytest.mark.parametrize("dtype,S,loops", [
+    (torch.float32, 257, ["fma"]),
+    (torch.bfloat16, 257, ["wgmma", "mma_sync"]),
+    (torch.bfloat16, 8, ["mma_sync", "wgmma"])])
+def test_kernel_outputs_hold_both_bf16_loops(monkeypatch, dtype, S, loops):
+    """The checks hold the rule's loop first, then in bf16 the other loop
+    forced on the same inputs; fp32 has only its loop."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    forced = []
+    out = chip_smoke.kernel_outputs("rule", lambda loop: forced.append(loop)
+                                    or loop, S, 64, dtype)
+    assert [loop for loop, _ in out] == loops
+    assert out[0][1] == "rule" and forced == loops[1:]

@@ -32,10 +32,11 @@ phases and prints one JSON object per phase:
                    twin, fp32 and bf16, equal bit for bit: M in
                    1/32/37/4096/17408 over the registry's BERT (K, N)
                    widths, ragged M, N and K (output rows whose stride is
-                   not a multiple of 16 bytes among them), then the main
-                   path's own shapes (M = 32768 padded ingest, 17408
-                   packed, 32 for a query, by (768, 768), (768, 2304) for
-                   the packed q, k, v, (768, 3072), (3072, 768))
+                   not a multiple of 16 bytes among them), then e5-base's
+                   four linear shapes ((768, 768), (768, 2304) for the
+                   packed q, k, v, (768, 3072), (3072, 768)) at M = 32768,
+                   17408 and 32; the int8 serve path's own (M, K, N) are
+                   held in w8a8_path
   6. c1_shapes     ROADMAP C1's repair: B1 (both modes) at head dims 48, 72
                    and 80 on (32, 8, 128), B2 no-mask at SigLIP SO400M's
                    (8, 16, 729, 72), to phase 3's bounds; B3 at K = 5120 and
@@ -61,7 +62,8 @@ phases and prints one JSON object per phase:
                    weighted, and an image embed; B2's no-mask mode must
                    have run during the adds and the image search
  12. int8_serve    the serve phase's index with quantize: true; B3 must
-                   have run during the adds and during the searches, B1 too
+                   have run during the adds and during the searches, B1 too;
+                   B3's launches by linear layer (K, N) and M
  13. rerank        tensor_search.search on the serve phase's index with a
                    cross-encoder reranker at ms-marco-MiniLM-L-6 width: hits
                    re-sorted by the cross-encoder's scores, B1 padding ran
@@ -117,9 +119,11 @@ phases and prints one JSON object per phase:
                    R50-FPN, 24 per ViT-L/14 tower call outside it; an
                    image query finds its document; DINO's maps against
                    the twin's (cosine >= 0.999), YOLOX's and Faster
-                   R-CNN's card outputs (TF32 off) against the same
-                   module's fp32 CPU run (1e-3 of each output's largest
-                   magnitude)
+                   R-CNN's card outputs on 4 images, with cuDNN's TF32 on
+                   as a served process has it, against the same module's
+                   fp32 CPU run (1e-3 of each output group's largest
+                   magnitude: the forward turns TF32 off for itself); the
+                   control, the forward's body with TF32 on, misses it
  24. owl_rerank    OWL-ViT B/32 (google/owlvit-base-patch32's widths, 768
                    px, 577 tokens) as the "owl/ViT-B/32" reranker of an
                    HTTP search over 10 image hits: 12 B2 no-mask launches
@@ -172,6 +176,33 @@ MARQO_TPU_MESH_SHAPE; every phase above serves without one:
                    peak memory
  31. mesh_timing   B1, B2 and B3 at the mesh phases' shard shapes (queued,
                    bound, twin, library call, launches on the phase)
+ 32. w8a8_path     B3 at every (M, K, N) int8_serve launched it, on bf16
+                   inputs: equal to its twin bit for bit (the control,
+                   the twin at 0.9 x w_scale, differs), then queued beside
+                   its twin, its bound, the library yardstick and bf16
+                   F.linear, and the sums weighted by the path's launches;
+                   the kernels line's B3 row and error come from here
+
+The launch path, after mesh_serve and before the in-process server closes:
+ 33. launch        scripts/run_marqo_tpu_torch.sh in fresh processes
+                   (PyTorch's backend defaults, `python` on PATH as this
+                   interpreter, the checkout on PYTHONPATH): with CUDA
+                   hidden, startup fails and nothing serves; run A, one
+                   API process with the in-process engine, the serve
+                   phase's model preloaded (startup fails unless it was
+                   warmed), /device/cuda names the card with memory in
+                   use, 256 documents, 8 TENSOR and 8 HYBRID searches, 16
+                   texts embedded one a request (bit for bit the
+                   in-process server's, whose B1 launches are counted, and
+                   not the twin's) and in one request (cosine >= 1 - 1e-3);
+                   run B, the script's engine role on MARQO_ENGINE_PORT and
+                   two API workers over it (file coordination, shared
+                   settings), 64 documents, searches until both workers
+                   have answered, each worker's /device/cuda; the engine
+                   never loads PyTorch; SIGTERM to each run's process
+                   group: every process gone and its port free within 30 s,
+                   nvidia-smi's compute processes and the card's memory as
+                   before
 
 then the card's name and power limit as nvidia-smi gives them, a
 {"kernels": [...]} line (each kernel with the tile loop of its timed row
@@ -263,11 +294,11 @@ W8A8_GRID_M = (1, 32, 37, 4096, 17408)
 # enough for the 128-wide tiles
 W8A8_RAGGED = ((5, 16, 1), (3, 48, 13), (130, 80, 129), (1, 768, 100),
                (32, 768, 1030), (4097, 3072, 770))
-# the rows B3 gets on the main path: the e5-base padded ingest batch (256
-# documents x 128 tokens), the packed batch (136 rows x 128) and a batch-1
-# query (32 tokens), each through the encoder's four linear shapes (q, k
-# and v packed into one)
-W8A8_PATH_M = (256 * 128, 136 * 128, 32)
+# e5-base's four linear shapes (q, k and v packed into one), the (K, N) the
+# int8 serve path gives B3, here over rows of a 256 x 128 padded batch, a
+# 136 x 128 packed one and a 32-token query: a grid, not the path's rows,
+# which come from its launch count and are held in phase_w8a8_path
+W8A8_E5_M = (256 * 128, 136 * 128, 32)
 W8A8_PATH_WIDTHS = ((768, 768), (768, 2304), (768, 3072), (3072, 768))
 # ROADMAP C1's shapes: B1 at the head dims it took only after the repair
 # (48: a 384-wide 8-head encoder; 72: SigLIP SO400M; 80: open_clip H) as
@@ -376,12 +407,14 @@ OWL_HITS = 10
 DINO_B2_SHAPE = (1, 6, 197, 64)
 OWL_B2_SHAPE = (OWL_HITS, 12, 577, 64)
 # kernel against twin: DINO maps and OWL-ViT logits at cosine >= 1 - this,
-# OWL-ViT boxes within OWL_BOX_TOL; YOLOX and Faster R-CNN on the card
-# (TF32 off) within DETECTOR_REL_TOL of the same module's fp32 CPU run,
-# relative to each output's largest magnitude
+# OWL-ViT boxes within OWL_BOX_TOL; YOLOX and Faster R-CNN on the card, on
+# DETECTOR_IMAGES of the phase's images, with cuDNN's TF32 as served (on),
+# within DETECTOR_REL_TOL of the same module's fp32 CPU run, relative to
+# each output's largest magnitude
 DETECTOR_COS_TOL = 1e-3
 OWL_BOX_TOL = 1e-2
 DETECTOR_REL_TOL = 1e-3
+DETECTOR_IMAGES = 4
 # the OWL-ViT model of the rerank phase (OwlViTConfig fields; empty: the
 # published google/owlvit-base-patch32 widths)
 OWL_VIT = {}
@@ -943,25 +976,19 @@ def phase_fused_kernel(fused, torch):
 
 
 def phase_quant_kernel(qm, torch):
-    """B3 against its twin over the test grid, the ragged cases and at the
-    main path's own shapes: equal bit for bit (the int32 sum is exact and
-    both round each step alike). Returns the largest absolute error at the
-    main path's shapes per dtype (0)."""
-    results, path_errors = [], {"float32": 0.0, "bfloat16": 0.0}
-    cases = [(M, K, N, False) for M in W8A8_GRID_M for K, N in W8A8_WIDTHS]
-    cases += [(M, K, N, False) for M, K, N in W8A8_RAGGED]
-    cases += [(M, K, N, True) for M in W8A8_PATH_M
-              for K, N in W8A8_PATH_WIDTHS]
+    """B3 against its twin over the test grid, the ragged cases and at
+    e5-base's widths: equal bit for bit (the int32 sum is exact and both
+    round each step alike). The int8 serve path's own shapes are held in
+    phase_w8a8_path."""
+    results = []
+    cases = [(M, K, N) for M in W8A8_GRID_M for K, N in W8A8_WIDTHS]
+    cases += list(W8A8_RAGGED)
+    cases += [(M, K, N) for M in W8A8_E5_M for K, N in W8A8_PATH_WIDTHS]
     for dtype in (torch.float32, torch.bfloat16):
-        for M, K, N, on_path in cases:
-            result = w8a8_check(qm, torch, M, K, N, dtype)
-            results.append({**result, "main_path": on_path})
-            if on_path:
-                path_errors[result["dtype"]] = max(
-                    path_errors[result["dtype"]], result["max_abs_err"])
+        for M, K, N in cases:
+            results.append(w8a8_check(qm, torch, M, K, N, dtype))
     emit("quant_kernel", ok=True, tolerance="exact (torch.equal)",
          checks=len(results), results=results)
-    return path_errors
 
 
 def phase_c1_shapes(fa, fused, qm, torch):
@@ -1191,13 +1218,9 @@ class HttpServer:
         self.port = self.server.server_address[1]
 
     def req(self, method, path, body=None):
-        import urllib.request
-        r = urllib.request.Request(
-            f"http://127.0.0.1:{self.port}{path}", method=method,
-            data=json.dumps(body).encode() if body is not None else None,
-            headers={"Content-Type": "application/json"})
-        with urllib.request.urlopen(r, timeout=600) as resp:
-            return json.load(resp)
+        status, answer = http_json(self.port, method, path, body)
+        check(status < 400, f"{method} {path}: {status} {answer}")
+        return answer
 
     def close(self):
         self.server.shutdown()
@@ -1217,17 +1240,11 @@ def _model_devices(model_type) -> set:
             for t in (*model.encoder.parameters(), *model.encoder.buffers())}
 
 
-def serve_text_index(server, torch, index: str, props: dict, n_docs: int,
-                     dims: int) -> dict:
-    """Drive one text index through HTTP: create it, add ``n_docs``
-    documents of mixed lengths (a one-document add first loads the model),
-    run 8 TENSOR and 8 HYBRID searches, query a document's own text and
-    embed. Launch counts are set to 0 before the first add; returns them
-    after the adds, over the searches and at the end."""
-    req = server.req
-    req("POST", f"/indexes/{index}",
-        {"model": props["name"], "modelProperties": props})
-    rng = torch.Generator().manual_seed(3)
+def text_docs(torch, n_docs: int, seed: int = 3):
+    """``n_docs`` documents of mixed lengths (a title of 2-6 words, a body
+    of 3-59), and the function that drew them: ``text(n)`` gives n more
+    words from the same generator."""
+    rng = torch.Generator().manual_seed(seed)
     words = ["alpha", "bravo", "charlie", "delta", "echo", "foxtrot",
              "golf", "hotel", "india", "juliet", "kilo", "lima", "mike",
              "november", "oscar", "papa", "quebec", "romeo", "sierra"]
@@ -1239,6 +1256,20 @@ def serve_text_index(server, torch, index: str, props: dict, n_docs: int,
     docs = [{"_id": f"d{i}", "title": text(2 + i % 5),
              "body": text(int(torch.randint(3, 60, (1,), generator=rng)))}
             for i in range(n_docs)]
+    return docs, text
+
+
+def serve_text_index(server, torch, index: str, props: dict, n_docs: int,
+                     dims: int) -> dict:
+    """Drive one text index through HTTP: create it, add ``n_docs``
+    documents of mixed lengths (a one-document add first loads the model),
+    run 8 TENSOR and 8 HYBRID searches, query a document's own text and
+    embed. Launch counts are set to 0 before the first add; returns them
+    after the adds, over the searches and at the end."""
+    req = server.req
+    req("POST", f"/indexes/{index}",
+        {"model": props["name"], "modelProperties": props})
+    docs, text = text_docs(torch, n_docs)
     fields = {"tensorFields": ["title", "body"]}
     reset_counts()
     # the first add loads the model onto the card: keep it out of the
@@ -1289,12 +1320,18 @@ def serve_text_index(server, torch, index: str, props: dict, n_docs: int,
             "own_text_top_hit": res["hits"][0]["_id"]}
 
 
+def e5_props() -> dict:
+    """The serve phase's random-init model at e5-base-v2's width: the same
+    name gives the same weights in every process (the generator is seeded
+    from the name)."""
+    return {"name": "smoke-e5-base-v2", "type": "hf", "random_init": True,
+            "pooling_method": "mean", "tokens": 128,
+            "dimensions": E5_BASE["hidden_size"], "architecture": E5_BASE}
+
+
 def phase_serve(server, torch):
     from marqo_tpu_torch.inference.loaders import TorchHFTextModel
-    props = {"name": "smoke-e5-base-v2", "type": "hf",
-             "random_init": True, "pooling_method": "mean",
-             "tokens": 128, "dimensions": E5_BASE["hidden_size"],
-             "architecture": E5_BASE}
+    props = e5_props()
     run = serve_text_index(server, torch, "smoke", props, 256,
                            E5_BASE["hidden_size"])
     launches = run["launches"]
@@ -1316,12 +1353,23 @@ def phase_int8_serve(server, torch):
     """The serve phase's e5-base-width index with ``quantize: true``: every
     linear layer of the encoder runs B3, in the adds and in the searches."""
     from marqo_tpu_torch.inference.loaders import TorchHFTextModel
-    props = {"name": "smoke-e5-base-v2-int8", "type": "hf",
-             "random_init": True, "pooling_method": "mean",
-             "tokens": 128, "dimensions": E5_BASE["hidden_size"],
-             "architecture": E5_BASE, "quantize": True}
-    run = serve_text_index(server, torch, "smoke-int8", props, 256,
-                           E5_BASE["hidden_size"])
+    props = {**e5_props(), "name": "smoke-e5-base-v2-int8", "quantize": True}
+    with LaunchShapes() as shapes:
+        run = serve_text_index(server, torch, "smoke-int8", props, 256,
+                               E5_BASE["hidden_size"])
+    # B3's launches by linear layer (K, N), over every M the path gave it
+    by_layer = {}
+    for (counter, shape), n in shapes.shapes.items():
+        if counter == "w8a8_matmul":
+            M, K, N = shape
+            layer = by_layer.setdefault(f"{K}x{N}", {"launches": 0, "M": {}})
+            layer["launches"] += n
+            layer["M"][str(M)] = layer["M"].get(str(M), 0) + n
+    check(sum(layer["launches"] for layer in by_layer.values()) ==
+          run["launches"]["w8a8_matmul"],
+          f"int8 serve: B3 launches by layer {by_layer} against "
+          f"{run['launches']['w8a8_matmul']}")
+    run["w8a8_by_layer"] = by_layer
     models = [m for m in _loaded_models(TorchHFTextModel)
               if m.model_name == props["name"]]
     check(len(models) == 1 and models[0].config.quantize,
@@ -1340,7 +1388,7 @@ def phase_int8_serve(server, torch):
          searches=len(run["latencies"]), launches=run["launches"],
          launches_during_add=run["add_launches"],
          launches_during_search=run["search_launches"],
-         buffer_devices=sorted(devices),
+         w8a8_launches_by_layer=by_layer, buffer_devices=sorted(devices),
          memory_bytes=models[0].memory_bytes())
     return run
 
@@ -2184,6 +2232,47 @@ def _relative_error(a, b) -> float:
                  b.float().abs().max().clamp_min(1e-30))
 
 
+def detector_served_errors(model, inputs, torch) -> dict:
+    """A detector's card outputs with cuDNN's TF32 on, as a served process
+    has it (PyTorch's default), against the same module's fp32 CPU run, on
+    each input: relative to each output group's largest magnitude (YOLOX:
+    xy, wh, objectness, classes; Faster R-CNN: each level's objectness and
+    deltas). ``served``: the module's forward, which turns TF32 off for
+    itself; ``control``: its body under the process's TF32, which must
+    miss the tolerance. Returns the largest error of each."""
+    import copy
+    host = copy.deepcopy(model).cpu()
+
+    def error(card, ref):
+        if isinstance(card, torch.Tensor):
+            return max(_relative_error(card[..., s].cpu(), ref[..., s])
+                       for s in (slice(0, 2), slice(2, 4), slice(4, 5),
+                                 slice(5, None)))
+        return max(_relative_error(c.cpu(), r)
+                   for c_level, r_level in zip(card, ref)
+                   for c, r in zip(c_level, r_level))
+
+    errors = {"served": 0.0, "control": 0.0}
+    setting = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.inference_mode():
+            for x in inputs:
+                ref = host(x)
+                for key, fn in (("served", model),
+                                ("control", model._forward)):
+                    errors[key] = max(errors[key], error(fn(x.to(DEVICE)),
+                                                         ref))
+    finally:
+        torch.backends.cudnn.allow_tf32 = setting
+    check(errors["served"] <= DETECTOR_REL_TOL < errors["control"],
+          f"{type(model).__name__} with TF32 on as served, card vs fp32 "
+          f"CPU: relative error {errors['served']} (tolerance "
+          f"{DETECTOR_REL_TOL}; the control, TF32 on in the convolutions, "
+          f"{errors['control']})")
+    return errors
+
+
 def phase_patch_serve(server, torch):
     """The detector patch methods behind the HTTP server
     (MARQO_PATCH_MODELS_RANDOM_INIT, full-width ResNet-50): one index per
@@ -2193,9 +2282,8 @@ def phase_patch_serve(server, torch):
     exactly 11 times per DINO image and no kernel of ours for YOLOX or
     Faster R-CNN, and the patches' ViT-L/14 embeddings launch 24 a tower
     call; an image query finds its document. Then DINO's maps on B2
-    against the twin's, and YOLOX's and Faster R-CNN's card outputs (TF32
-    off) against the same module's fp32 CPU run."""
-    import copy
+    against the twin's, and YOLOX's and Faster R-CNN's card outputs (cuDNN
+    TF32 on, as served) against the same module's fp32 CPU run."""
     from dataclasses import replace
 
     import cv2
@@ -2303,32 +2391,25 @@ def phase_patch_serve(server, torch):
     # the head logits to 1e4, where the sigmoids saturate and a 1e-6
     # relative difference in a logit moves a probability by 1e-3
     size = yolox.config.input_size
-    bgr = cv2.resize(images[0], (size, size))[..., ::-1] / 255.0
-    yolo_in = torch.from_numpy(bgr[None].astype(np.float32))
-    rgb = cv2.resize(images[1], (frcnn.config.input_size,) * 2)
-    frcnn_in = torch.from_numpy(((rgb / 255.0 - np.asarray(IMAGENET_MEAN)) /
-                                 np.asarray(IMAGENET_STD))[None].astype(
-                                     np.float32))
-    with torch.inference_mode():
-        card = yolox.model(yolo_in.to(DEVICE)).cpu()
-        host = copy.deepcopy(yolox.model).cpu()(yolo_in)
-        yolox_err = max(_relative_error(card[..., s], host[..., s])
-                        for s in (slice(0, 2), slice(2, 4), slice(4, 5),
-                                  slice(5, None)))
-        card = frcnn.model(frcnn_in.to(DEVICE))
-        host = copy.deepcopy(frcnn.model).cpu()(frcnn_in)
-        frcnn_err = max(_relative_error(c.cpu(), h)
-                        for c_level, h_level in zip(card, host)
-                        for c, h in zip(c_level, h_level))
-    for name, err in (("YOLOX", yolox_err), ("Faster R-CNN", frcnn_err)):
-        check(err <= DETECTOR_REL_TOL, f"{name} card vs fp32 CPU: relative "
-              f"error {err}")
+    yolo_in = [torch.from_numpy((cv2.resize(img, (size, size))[..., ::-1] /
+                                 255.0)[None].astype(np.float32))
+               for img in images[:DETECTOR_IMAGES]]
+    size = frcnn.config.input_size
+    frcnn_in = [torch.from_numpy(((cv2.resize(img, (size, size)) / 255.0 -
+                                   np.asarray(IMAGENET_MEAN)) /
+                                  np.asarray(IMAGENET_STD))[None].astype(
+                                      np.float32))
+                for img in images[:DETECTOR_IMAGES]]
+    yolox_err = detector_served_errors(yolox.model, yolo_in, torch)
+    frcnn_err = detector_served_errors(frcnn.model, frcnn_in, torch)
     emit("patch_serve", ok=True, images=PATCH_IMAGES,
          image_size=list(PATCH_IMAGE_SIZE), methods=per_method,
          frcnn_width=frcnn.config.width,
          dino_min_cosine_kernel_vs_plain=dino_cos,
-         yolox_card_vs_cpu_rel_err=yolox_err,
-         frcnn_card_vs_cpu_rel_err=frcnn_err,
+         yolox_card_vs_cpu_rel_err=yolox_err["served"],
+         frcnn_card_vs_cpu_rel_err=frcnn_err["served"],
+         yolox_control_tf32_rel_err=yolox_err["control"],
+         frcnn_control_tf32_rel_err=frcnn_err["control"],
          model_devices=sorted({str(next(p.model.parameters()).device.type)
                                for p in (dino, yolox, frcnn)}))
     return per_method["dino-v1"]["launches_in_patcher"][
@@ -3181,6 +3262,621 @@ def phase_mesh_timing(fa, fused, qm, torch, mesh_serve, mesh_replicated):
     return with_sdpa_ratio(rows)
 
 
+def phase_w8a8_path(qm, torch, by_layer, smi) -> dict:
+    """B3 at every (M, K, N) the int8 serve path launched it (``by_layer``,
+    int8_serve's counts), on bf16 inputs as the path gives it: first held
+    against its twin, equal bit for bit, with the control (the twin at
+    0.9 x w_scale) required to differ; then queued, its ms and the twin's
+    (plain, kernel, kernel, plain) beside its bound, the library yardstick
+    and the bf16 F.linear it replaces, and each column's sum weighted by
+    the path's launches. Returns the largest absolute error and the row of
+    the path's largest launch-weighted bound (the kernels line's B3 row)."""
+    import torch.nn.functional as F
+    rows = []
+    for layer, entry in by_layer.items():
+        K, N = map(int, layer.split("x"))
+        for M, n in sorted((int(m), n) for m, n in entry["M"].items()):
+            x, w_q, w_scale, bias = w8a8_inputs(M, K, N, torch.bfloat16,
+                                                seed=M)
+            out = qm.w8a8_matmul(x, w_q, w_scale, bias)
+            torch.cuda.synchronize()
+            ref = qm.w8a8_matmul_reference(x, w_q, w_scale, bias)
+            control = qm.w8a8_matmul_reference(x, w_q, 0.9 * w_scale, bias)
+            abs_err = float((out.float() - ref.float()).abs().max())
+            check(out.dtype == torch.bfloat16 and
+                  tuple(out.shape) == (M, N) and
+                  bool(torch.isfinite(out).all()),
+                  f"w8a8 path output {out.dtype} {tuple(out.shape)}")
+            check(torch.equal(out, ref),
+                  f"w8a8 kernel vs twin on the path ({M}, {K}, {N}): "
+                  f"{int((out != ref).sum())} values differ, max |out - ref| "
+                  f"{abs_err}")
+            check(not torch.equal(out, control),
+                  f"w8a8 path ({M}, {K}, {N}): the control equals the kernel")
+            weight = (0.05 * torch.randn(N, K, device=DEVICE)).to(
+                torch.bfloat16)
+            bias16 = bias.to(torch.bfloat16)
+            rows.append({"shape": [M, K, N], "launches": n,
+                         "max_abs_err": abs_err, **w8a8_bound(M, K, N),
+                         **paired_queued_ms(
+                             lambda: qm.w8a8_matmul(x, w_q, w_scale, bias),
+                             lambda: qm.w8a8_matmul_reference(
+                                 x, w_q, w_scale, bias),
+                             _int8_yardstick(torch, qm, x, w_q, w_scale,
+                                             bias), 20),
+                         "bf16_linear_ms": queued_ms(
+                             lambda: F.linear(x, weight, bias16), 20)})
+    emit("w8a8_path", ok=True, tolerance="exact (torch.equal)",
+         checks=len(rows), device=torch.cuda.get_device_name(0),
+         nvidia_smi=smi, rows=rows, launch_weighted_ms={
+             key: sum(row["launches"] * row[key] for row in rows)
+             for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                         "bf16_linear_ms")})
+    return {"max_abs_err": max(row["max_abs_err"] for row in rows),
+            "row": max(rows, key=lambda row: row["launches"] *
+                       row["bound_ms"])}
+
+
+# --- the launch path: scripts/run_marqo_tpu_torch.sh in fresh processes -----
+
+LAUNCH_SCRIPT = os.path.join("scripts", "run_marqo_tpu_torch.sh")
+LAUNCH_DOCS = 256          # run A: four adds of 64, the serve phase's docs
+LAUNCH_WORKER_DOCS = 64    # run B: one add
+LAUNCH_TEXTS = 16          # embedded one a request, then in one request
+LAUNCH_SEARCHES = 8        # of each of TENSOR and HYBRID, limit 5
+LAUNCH_WORKERS = 2
+LAUNCH_STARTUP_S = 600.0   # to the first healthy answer, warmup included
+LAUNCH_STOP_S = 30.0       # from SIGTERM to every process gone, ports free
+LAUNCH_MEMORY_SLACK = 256 * 2 ** 20  # device bytes a stopped run may leave
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def port_is_free(port: int) -> bool:
+    """Nothing listens on ``port``: a socket without SO_REUSEPORT binds it
+    (SO_REUSEADDR lets it past connections left in TIME_WAIT)."""
+    import socket
+    with socket.socket() as s:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            s.bind(("127.0.0.1", port))
+        except OSError:
+            return False
+    return True
+
+
+def http_json(port: int, method: str, path: str, body=None,
+              timeout: float = 600.0, connection=None):
+    """One request to 127.0.0.1:``port``, on ``connection`` (kept alive)
+    when given, else on a connection of its own. Returns (status, body)."""
+    import http.client
+    conn = connection or http.client.HTTPConnection("127.0.0.1", port,
+                                                    timeout=timeout)
+    try:
+        conn.request(method, path,
+                     body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        response = conn.getresponse()
+        return response.status, json.loads(response.read() or b"null")
+    finally:
+        if connection is None:
+            conn.close()
+
+
+def group_pids(pgid: int) -> list:
+    """The live processes (zombies left out) of process group ``pgid``."""
+    pids = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        state, _, pgrp = stat[stat.rindex(")") + 2:].split()[:3]
+        if int(pgrp) == pgid and state != "Z":
+            pids.append(int(entry))
+    return sorted(pids)
+
+
+def socket_owner(server_port: int, client_port: int, pids):
+    """The process of ``pids`` that holds the server's end of the TCP
+    connection from ``client_port`` to ``server_port``: the socket's inode
+    in /proc/net/tcp, found in the process's file table. None if no
+    process of ``pids`` holds it."""
+    inode = None
+    for table in ("/proc/net/tcp", "/proc/net/tcp6"):
+        try:
+            with open(table) as f:
+                rows = f.read().splitlines()[1:]
+        except OSError:
+            continue
+        for row in rows:
+            fields = row.split()
+            if (int(fields[1].rsplit(":", 1)[1], 16) == server_port and
+                    int(fields[2].rsplit(":", 1)[1], 16) == client_port):
+                inode = fields[9]
+    if inode in (None, "0"):
+        return None
+    target = f"socket:[{inode}]"
+    for pid in pids:
+        try:
+            fds = os.listdir(f"/proc/{pid}/fd")
+        except OSError:
+            continue
+        for fd in fds:
+            try:
+                if os.readlink(f"/proc/{pid}/fd/{fd}") == target:
+                    return pid
+            except OSError:
+                continue
+    return None
+
+
+def served_by(port: int, pids):
+    """A new kept-alive connection to ``port`` and the process of ``pids``
+    that accepted it (known once it has answered a request)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    status, _ = http_json(port, "GET", "/health", connection=conn)
+    check(status == 200, f"/health on :{port} answered {status}")
+    return conn, socket_owner(port, conn.sock.getsockname()[1], pids)
+
+
+def launch_env(workdir: str, **variables) -> dict:
+    """The environment a user's shell gives the launch script: this
+    process's without any MARQO_ variable (the smoke sets its own), the
+    checkout on PYTHONPATH (as Dockerfile:37 sets it), and ``python`` on
+    PATH as this interpreter (the script calls ``python``; a host may have
+    only ``python3``), then ``variables``."""
+    bindir = os.path.join(workdir, "bin")
+    python = os.path.join(bindir, "python")
+    if not os.path.exists(python):
+        os.makedirs(bindir, exist_ok=True)
+        with open(python, "w") as f:
+            f.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+        os.chmod(python, 0o755)
+    env = {name: value for name, value in os.environ.items()
+           if not name.startswith("MARQO_")}
+    env["PATH"] = bindir + os.pathsep + env.get("PATH", "")
+    env["PYTHONPATH"] = ROOT
+    env.update({name: str(value) for name, value in variables.items()})
+    return env
+
+
+class Launched:
+    """One start of a launch script (scripts/run_marqo_tpu_torch.sh unless
+    ``script`` names another) as a user's shell starts it: in a session of
+    its own (its process group is its pid; the script execs python, so
+    that is the server's pid too), from ``workdir``, its output in
+    ``workdir``/``name``.log."""
+
+    def __init__(self, name: str, args, env: dict, workdir: str,
+                 script: str = LAUNCH_SCRIPT):
+        self.name = name
+        self.log_path = os.path.join(workdir, f"{name}.log")
+        with open(self.log_path, "wb") as log:
+            self.proc = subprocess.Popen(
+                [os.path.join(ROOT, script), *args], env=env,
+                cwd=workdir, stdout=log, stderr=subprocess.STDOUT,
+                start_new_session=True)
+        self.started = time.perf_counter()
+
+    def log(self) -> str:
+        with open(self.log_path, errors="replace") as f:
+            return f.read()
+
+    def wait_ready(self, port: int, path: str,
+                   deadline_s: float = LAUNCH_STARTUP_S) -> float:
+        """Seconds from the start to the first 200 from ``path``."""
+        while True:
+            if self.proc.poll() is not None:
+                raise SmokeFailure(
+                    f"{self.name} exited ({self.proc.returncode}) before "
+                    f"{path} answered: {self.log()[-3000:]}")
+            try:
+                if http_json(port, "GET", path, timeout=5)[0] == 200:
+                    return time.perf_counter() - self.started
+            except OSError:
+                pass
+            if time.perf_counter() - self.started > deadline_s:
+                raise SmokeFailure(f"{self.name}: {path} did not answer "
+                                   f"within {deadline_s} s")
+            time.sleep(0.2)
+
+    def pids(self) -> list:
+        return group_pids(self.proc.pid)
+
+    def stop(self, ports, timeout_s: float = LAUNCH_STOP_S) -> dict:
+        """SIGTERM to the process group: every process of it must be gone,
+        and every one of ``ports`` free, within ``timeout_s``."""
+        import signal
+        pids = self.pids()
+        start = time.perf_counter()
+        try:
+            os.killpg(self.proc.pid, signal.SIGTERM)
+        except ProcessLookupError:
+            pass
+        while time.perf_counter() - start < timeout_s:
+            self.proc.poll()
+            if not self.pids() and all(map(port_is_free, ports)):
+                break
+            time.sleep(0.1)
+        seconds = time.perf_counter() - start
+        left, bound_ports = self.pids(), [p for p in ports
+                                          if not port_is_free(p)]
+        self.kill()
+        check(not left and not bound_ports,
+              f"{self.name}: {timeout_s} s after SIGTERM, processes {left} "
+              f"alive and ports {bound_ports} bound")
+        return {"pids": pids, "stop_seconds": seconds,
+                "returncode": self.proc.returncode}
+
+    def kill(self) -> None:
+        """SIGKILL to whatever is left of the group, then reap the script."""
+        import signal
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        try:
+            self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            pass
+
+
+def gpu_compute_apps() -> list:
+    """[pid, used memory] rows of the card's compute processes, as
+    ``nvidia-smi --query-compute-apps=pid,used_memory --format=csv`` lists
+    them (pids as the card's driver sees them: inside a container they
+    need not be this host's)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[1:]
+    return [[int(pid), used.strip()] for pid, used in
+            (row.split(",") for row in out)]
+
+
+def loads_torch(pid: int) -> bool:
+    """Whether process ``pid`` has PyTorch's libraries mapped."""
+    with open(f"/proc/{pid}/maps") as f:
+        return "libtorch" in f.read()
+
+
+def device_used_bytes() -> int:
+    """Bytes in use on the card, by every process (the driver's count)."""
+    import torch
+    free, total = torch.cuda.mem_get_info(0)
+    return total - free
+
+
+def gib(field: str) -> float:
+    """``"<x> GiB"`` (/device/cuda's memory fields) as a number."""
+    return float(field.split()[0])
+
+
+def _embeddings(port: int, index: str, texts) -> tuple:
+    """``texts`` embedded one a request, then all in one request."""
+    import numpy as np
+    one = []
+    for t in texts:
+        status, body = http_json(port, "POST", f"/indexes/{index}/embed",
+                                 {"content": [t]})
+        check(status == 200, f"embed on :{port}: {status} {body}")
+        one.append(body["embeddings"][0])
+    status, body = http_json(port, "POST", f"/indexes/{index}/embed",
+                             {"content": list(texts)})
+    check(status == 200, f"embed on :{port}: {status} {body}")
+    return (np.asarray(one, dtype=np.float32),
+            np.asarray(body["embeddings"], dtype=np.float32))
+
+
+def warmup_buckets(log: str, model: str) -> list:
+    """The warmed bucket counts the server logged for ``model``, one per
+    process that warmed it; fails unless each also logged Pre-warmed."""
+    import re
+    warmed = [int(n) for n in re.findall(
+        rf"Warmed (\d+) compile buckets for {re.escape(model)}\b", log)]
+    prewarmed = len(re.findall(rf"Pre-warmed model {re.escape(model)}\b",
+                               log))
+    check(warmed and prewarmed == len(warmed),
+          f"{model} was not warmed at startup: {log[-3000:]}")
+    return warmed
+
+
+def launch_no_cuda(workdir: str) -> dict:
+    """The script with CUDA hidden and MARQO_BEST_AVAILABLE_DEVICE unset:
+    startup must fail, and the port must never answer."""
+    port = free_port()
+    env = launch_env(workdir, MARQO_HOST="127.0.0.1", MARQO_PORT=port,
+                     MARQO_MODELS_TO_PRELOAD="[]", CUDA_VISIBLE_DEVICES="")
+    run = Launched("no-cuda", [], env, workdir)
+    try:
+        answered = False
+        while run.proc.poll() is None and \
+                time.perf_counter() - run.started < LAUNCH_STARTUP_S:
+            try:
+                answered |= http_json(port, "GET", "/health",
+                                      timeout=5)[0] == 200
+            except OSError:
+                pass
+            time.sleep(0.2)
+        log = run.log()
+        check(run.proc.returncode not in (None, 0) and not answered and
+              "MARQO_BEST_AVAILABLE_DEVICE=cpu" in log,
+              f"no-CUDA start: exit {run.proc.returncode}, answered "
+              f"{answered}: {log[-3000:]}")
+        return {"returncode": run.proc.returncode,
+                "seconds": time.perf_counter() - run.started,
+                "served": answered}
+    finally:
+        run.kill()
+
+
+def cuda_info(port: int, connection=None) -> dict:
+    """GET /device/cuda from the server that ``connection`` (or a new
+    connection) reaches: one device, this card by name, with memory in use.
+    Returns the device's entry."""
+    import torch
+    status, body = http_json(port, "GET", "/device/cuda",
+                             connection=connection)
+    devices = body.get("cuda_devices", []) if status == 200 else []
+    check(len(devices) == 1 and
+          devices[0]["device_name"] == torch.cuda.get_device_name(0) and
+          gib(devices[0]["memory_used"]) > 0,
+          f"/device/cuda on :{port}: {status} {body}")
+    return devices[0]
+
+
+def phase_launch(server, torch, smi):
+    """The port started as users start it: scripts/run_marqo_tpu_torch.sh
+    in fresh processes, which keep PyTorch's backend defaults (this process
+    turned TF32 off for itself). First with CUDA hidden: startup fails.
+    Run A, the Dockerfile's default mode: one API process with the
+    in-process engine, the serve phase's model preloaded and warmed, an
+    index on it, LAUNCH_DOCS documents, TENSOR and HYBRID searches and
+    LAUNCH_TEXTS embedded; the vectors against the in-process server's
+    (``server``, whose B1 launches are counted), bit for bit one text a
+    request, and against its twin, which must differ. Run B: the script's
+    engine role on MARQO_ENGINE_PORT and LAUNCH_WORKERS API workers over
+    it, sharing settings through a data dir and the file coordination
+    backend; every search right until both workers have answered. Each
+    run ends with SIGTERM to its process group: every process gone and
+    its port free within LAUNCH_STOP_S, none left on the card."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from marqo_tpu_torch.core.index_management.settings_store import \
+        IndexSettingsStore
+    from marqo_tpu_torch.inference.loaders import TorchHFTextModel
+    props = e5_props()
+    name = props["name"]
+    preload = json.dumps([{"model": name, "modelProperties": props}])
+    fields = {"tensorFields": ["title", "body"]}
+    docs, text = text_docs(torch, LAUNCH_DOCS)
+    texts = [text(3 + i % 8) for i in range(LAUNCH_TEXTS)]
+    # the in-process server's vectors: on B1, then on the twin
+    reset_counts()
+    kernel_one, kernel_batch = _embeddings(server.port, "smoke", texts)
+    kernel_launches = read_counts()
+    check(kernel_launches["masked_attention_padding"] +
+          kernel_launches["masked_attention_segment"] > 0,
+          f"in-process embeds did not run B1: {kernel_launches}")
+    model = next(m for m in _loaded_models(TorchHFTextModel)
+                 if m.model_name == name)
+    config = model.encoder.config
+    model.encoder.config = replace(config, attention_impl="plain")
+    try:
+        reset_counts()
+        twin_one, _ = _embeddings(server.port, "smoke", texts)
+        twin_launches = read_counts()
+    finally:
+        model.encoder.config = config
+    check(not any(twin_launches.values()),
+          f"the twin launched kernels: {twin_launches}")
+
+    used_before, apps_before = device_used_bytes(), gpu_compute_apps()
+    runs = []
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        workdir = tmp.name
+        no_cuda = launch_no_cuda(workdir)
+
+        # run A: one process, the in-process engine
+        port = free_port()
+        run_a = Launched("run-a", [], launch_env(
+            workdir, MARQO_HOST="127.0.0.1", MARQO_PORT=port,
+            MARQO_MODELS_TO_PRELOAD=preload), workdir)
+        runs.append(run_a)
+        startup_a = run_a.wait_ready(port, "/health")
+        buckets_a = warmup_buckets(run_a.log(), name)
+        device_a = cuda_info(port)
+        status, body = http_json(port, "POST", "/indexes/launch",
+                                 {"model": name, "modelProperties": props})
+        check(status == 200, f"run A create index: {status} {body}")
+        add_seconds = []
+        for b in range(0, LAUNCH_DOCS, 64):
+            start = time.perf_counter()
+            status, res = http_json(port, "POST", "/indexes/launch/documents",
+                                    {"documents": docs[b:b + 64], **fields})
+            add_seconds.append(time.perf_counter() - start)
+            check(status == 200 and res["errors"] is False,
+                  f"run A add: {status} {res}")
+        latencies = []
+        for i in range(LAUNCH_SEARCHES):
+            for method in ("TENSOR", "HYBRID"):
+                start = time.perf_counter()
+                status, res = http_json(port, "POST", "/indexes/launch/search",
+                                        {"q": text(3 + i),
+                                         "searchMethod": method, "limit": 5})
+                latencies.append((time.perf_counter() - start) * 1000)
+                check(status == 200 and len(res["hits"]) == 5,
+                      f"run A {method} search: {status} {res}")
+        launched_one, launched_batch = _embeddings(port, "launch", texts)
+        status, stats = http_json(port, "GET", "/indexes/launch/stats")
+        check(status == 200 and stats["numberOfDocuments"] == LAUNCH_DOCS,
+              f"run A documents: {status} {stats}")
+        used_a = device_used_bytes()
+        apps_a = gpu_compute_apps()
+        check(len(apps_a) == len(apps_before) + 1,
+              f"run A: compute processes {apps_a}, {apps_before} before")
+        stop_a = run_a.stop([port])
+
+        # the launched encoder computed what the counted one did
+        equal = [bool(np.array_equal(x, y))
+                 for x, y in zip(launched_one, kernel_one)]
+        cosine = float(min(_row_cosines(launched_one, kernel_one).min(),
+                           _row_cosines(launched_batch, kernel_batch).min()))
+        twin_equal = sum(bool(np.array_equal(x, y))
+                         for x, y in zip(launched_one, twin_one))
+        embeddings = {
+            "texts": LAUNCH_TEXTS,
+            "bit_equal_one_a_request": sum(equal),
+            "max_abs_diff_one_a_request": float(
+                np.abs(launched_one - kernel_one).max()),
+            "bit_equal_in_one_request": bool(
+                np.array_equal(launched_batch, kernel_batch)),
+            "max_abs_diff_in_one_request": float(
+                np.abs(launched_batch - kernel_batch).max()),
+            "min_cosine": cosine,
+            "twin_bit_equal_one_a_request": twin_equal,
+            "twin_max_abs_diff": float(np.abs(launched_one - twin_one).max()),
+            "in_process_launches": kernel_launches}
+        check(all(equal), f"launched vectors differ from the in-process "
+              f"server's at batch 1: {embeddings}")
+        check(cosine >= 1 - 1e-3, f"launched vectors: {embeddings}")
+        check(twin_equal < LAUNCH_TEXTS, f"the twin's vectors equal the "
+              f"kernel's, so equality cannot show B1 ran: {embeddings}")
+
+        # run B: the engine role, and API workers over it
+        engine_port, api_port = free_port(), free_port()
+        engine = Launched("engine", ["engine"], launch_env(
+            workdir, MARQO_ENGINE_PORT=engine_port), workdir)
+        runs.append(engine)
+        engine_seconds = engine.wait_ready(engine_port, "/engine/health")
+        run_b = Launched("run-b", [], launch_env(
+            workdir, MARQO_HOST="127.0.0.1", MARQO_PORT=api_port,
+            MARQO_ENGINE_QUERY_URL=f"http://127.0.0.1:{engine_port}",
+            MARQO_API_WORKERS=LAUNCH_WORKERS,
+            MARQO_COORDINATION_BACKEND="file",
+            MARQO_COORDINATION_DIR=os.path.join(workdir, "coordination"),
+            MARQO_ENGINE_DATA_DIR=os.path.join(workdir, "data"),
+            MARQO_MODELS_TO_PRELOAD=preload), workdir)
+        runs.append(run_b)
+        startup_b = run_b.wait_ready(api_port, "/health")
+        workers = run_b.pids()
+        check(len(workers) == LAUNCH_WORKERS,
+              f"run B: {workers} in the process group, expected "
+              f"{LAUNCH_WORKERS} API workers")
+        status, body = http_json(api_port, "POST", "/indexes/launch-workers",
+                                 {"model": name, "modelProperties": props})
+        check(status == 200, f"run B create index: {status} {body}")
+        # the other worker reads new settings from disk this often
+        time.sleep(IndexSettingsStore.RELOAD_INTERVAL_S + 0.5)
+        start = time.perf_counter()
+        status, res = http_json(
+            api_port, "POST", "/indexes/launch-workers/documents",
+            {"documents": docs[:LAUNCH_WORKER_DOCS], **fields})
+        add_b = time.perf_counter() - start
+        check(status == 200 and res["errors"] is False,
+              f"run B add: {status} {res}")
+        seen, search_ms = {}, []
+        start = time.perf_counter()
+        while len(seen) < LAUNCH_WORKERS:
+            check(time.perf_counter() - start < LAUNCH_STARTUP_S,
+                  f"run B: only {sorted(seen)} of {workers} answered in "
+                  f"{len(search_ms)} searches")
+            conn, pid = served_by(api_port, workers)
+            try:
+                started = time.perf_counter()
+                status, res = http_json(
+                    api_port, "POST", "/indexes/launch-workers/search",
+                    {"q": text(4), "searchMethod": "TENSOR", "limit": 10},
+                    connection=conn)
+                search_ms.append((time.perf_counter() - started) * 1000)
+                check(status == 200 and len(res["hits"]) == 10,
+                      f"run B search on worker {pid}: {status} {res}")
+                if pid is not None and pid not in seen:
+                    status, stats = http_json(
+                        api_port, "GET", "/indexes/launch-workers/stats",
+                        connection=conn)
+                    check(status == 200 and stats["numberOfDocuments"] ==
+                          LAUNCH_WORKER_DOCS,
+                          f"run B worker {pid} documents: {status} {stats}")
+                    seen[pid] = {"memory_used": cuda_info(
+                        api_port, conn)["memory_used"]}
+            finally:
+                conn.close()
+            time.sleep(0.05)
+        buckets_b = warmup_buckets(run_b.log(), name)
+        check(len(buckets_b) == LAUNCH_WORKERS,
+              f"run B: {len(buckets_b)} workers warmed {name}")
+        used_b = device_used_bytes()
+        apps_b = gpu_compute_apps()
+        check(len(apps_b) == len(apps_before) + LAUNCH_WORKERS,
+              f"run B: compute processes {apps_b}, {apps_before} before "
+              f"(one a worker, none for the engine)")
+        # the engine serves a small corpus on the host: it never loads
+        # PyTorch (engine/torch_scorer.py checks the rows first)
+        check(not loads_torch(engine.proc.pid),
+              "run B: the engine process loaded PyTorch")
+        stop_b = run_b.stop([api_port])
+        stop_engine = engine.stop([engine_port])
+
+        # nothing of the runs is left on the card: nvidia-smi's count of
+        # compute processes and the card's memory (in a container it lists
+        # every process as pid 1, so its pids cannot name ours)
+        apps_after = gpu_compute_apps()
+        check(len(apps_after) == len(apps_before),
+              f"compute processes on the card: {apps_after} after the "
+              f"runs, {apps_before} before")
+        start = time.perf_counter()
+        while device_used_bytes() > used_before + LAUNCH_MEMORY_SLACK and \
+                time.perf_counter() - start < LAUNCH_STOP_S:
+            time.sleep(0.2)
+        used_after = device_used_bytes()
+        check(used_after <= used_before + LAUNCH_MEMORY_SLACK,
+              f"the card holds {(used_after - used_before) / 2 ** 20:.0f} "
+              f"MiB more than before the runs")
+    finally:
+        for run in runs:
+            run.kill()
+        tmp.cleanup()
+    mib = 2 ** 20
+    emit("launch", ok=True, script=LAUNCH_SCRIPT,
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+         no_cuda=no_cuda,
+         run_a={"startup_seconds": startup_a, "warmup_buckets": buckets_a,
+                "device": device_a, "add_seconds": add_seconds,
+                "docs": LAUNCH_DOCS,
+                "first_query_ms": latencies[0],
+                "query_median_ms": statistics.median(latencies),
+                "searches": len(latencies), "embeddings": embeddings,
+                "compute_apps": apps_a, **stop_a},
+         run_b={"engine_startup_seconds": engine_seconds,
+                "startup_seconds": startup_b, "warmup_buckets": buckets_b,
+                "add_seconds": add_b, "docs": LAUNCH_WORKER_DOCS,
+                "searches_until_both_workers": len(search_ms),
+                "first_query_ms": search_ms[0],
+                "query_median_ms": statistics.median(search_ms),
+                "workers": {str(pid): info for pid, info in seen.items()},
+                "card_mib_a_worker": (used_b - used_before) / mib /
+                LAUNCH_WORKERS,
+                "compute_apps": apps_b, **stop_b,
+                "engine_stop_seconds": stop_engine["stop_seconds"]},
+         compute_apps_before=apps_before, compute_apps_after=apps_after,
+         device_used_mib={"before": used_before / mib, "run_a": used_a / mib,
+                          "run_b": used_b / mib, "after": used_after / mib})
+
+
 def main() -> int:
     try:
         import torch
@@ -3226,7 +3922,7 @@ def main() -> int:
 
     errors = phase_kernel(fa, torch)
     fused_errors = phase_fused_kernel(fused, torch)
-    w8a8_errors = phase_quant_kernel(qm, torch)
+    phase_quant_kernel(qm, torch)
     phase_c1_shapes(fa, fused, qm, torch)
     encoder_launches = phase_encoder(torch)
     int8_encoder, bf16_encoder = phase_int8_encoder(torch)
@@ -3248,6 +3944,7 @@ def main() -> int:
         owl_launches = phase_owl_rerank(server, torch)
         phase_mesh_off(torch)
         mesh_serve = phase_mesh_serve(server, fa, torch, smi)
+        phase_launch(server, torch, smi)
     finally:
         server.close()
     phase_nllb_siglip_encode(torch)
@@ -3268,6 +3965,7 @@ def main() -> int:
     emit("mesh_timing", device=torch.cuda.get_device_name(0),
          nvidia_smi=smi, kernel_vs_twin=phase_mesh_timing(
              fa, fused, qm, torch, mesh_serve, mesh_replicated))
+    w8a8_path = phase_w8a8_path(qm, torch, int8["w8a8_by_layer"], smi)
     latencies = serve["latencies"]
     emit("timing", device=torch.cuda.get_device_name(0), nvidia_smi=smi,
          kernel_vs_twin=timing, vit_l14=vit, e5_encoder=encoder_times,
@@ -3333,14 +4031,15 @@ def main() -> int:
             f"fused_attention_{mode}", B2_SOURCE, B2_REPLACES,
             counts[f"fused_attention_{mode}"], fused_errors[mode], row, row,
             path_loops(phase, "fused_attention")))
-    # B3 at the padded ingest batch's FFN shape, launched by the int8 serve
-    # path
+    # B3 at the int8 serve path's (M, K, N) of the largest launch-weighted
+    # bound, its error the largest over every shape the path launched
+    row = w8a8_path["row"]
     kernels.append(entry(
         "w8a8_matmul", B3_SOURCE, B3_REPLACES,
-        int8["launches"]["w8a8_matmul"], max(w8a8_errors.values()),
-        timed("w8a8_matmul", "w8a8", [32768, 768, 3072]),
-        w8a8_bound(32768, 768, 3072),
+        int8["launches"]["w8a8_matmul"], w8a8_path["max_abs_err"], row, row,
         {"wgmma": int8["launches"]["w8a8_matmul"]}))
+    kernels[-1]["shape"] = row["shape"]
+    kernels[-1]["launches_by_layer"] = int8["w8a8_by_layer"]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

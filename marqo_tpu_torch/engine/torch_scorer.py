@@ -70,18 +70,21 @@ class TorchExactScorer:
               ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
         """Returns (row_indices, closeness_scores) of the top-k valid rows,
         or None when the device path shouldn't be used. ``device`` defaults
-        to the CUDA device (None back when there is none)."""
-        import torch
-        if device is None:
-            if not device_available():
-                return None
-            device = "cuda"
+        to the CUDA device (None back when there is none). A corpus under
+        MIN_ROWS_FOR_DEVICE returns None before torch is imported, as the
+        JAX package's scorer checks the rows before it imports jax: an
+        engine process serving small indexes never initializes CUDA."""
         if matrix.shape[0] < MIN_ROWS_FOR_DEVICE:
             return None
         if self.metric not in METRICS:
             # hamming/geodegrees: no device scoring — the numpy exact path
             # scores them
             return None
+        import torch
+        if device is None:
+            if not device_available():
+                return None
+            device = "cuda"
         self._ensure(matrix, version, device)
         k = min(k, _MAX_K, matrix.shape[0])
         q = torch.from_numpy(np.asarray(query, dtype=np.float32)).to(

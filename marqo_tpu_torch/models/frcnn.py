@@ -14,6 +14,8 @@ The module runs NCHW with OIHW conv weights (the JAX package: NHWC, HWIO;
 the JAX package's NHWC layout, which ``decode_proposals`` reads.
 Convolutions, pools and the nearest x2 upsampling are torch library calls,
 as the JAX package leaves them to XLA: no kernel of this package runs here.
+The forward runs cuDNN with TF32 off (``fp32_convolutions``): with it on,
+as PyTorch's default has it, the outputs leave the fp32 reference's 1e-3.
 
 Weights: torchvision checkpoints cannot be fetched offline; random init
 (MARQO_PATCH_MODELS_RANDOM_INIT=TRUE) runs the full graph. The module
@@ -31,6 +33,7 @@ import torch.nn.functional as F
 
 from marqo_tpu_torch.models.bert import (empty_module, fill_parameters,
                                          tree_values)
+from marqo_tpu_torch.ops.common import fp32_convolutions
 
 
 @dataclass(frozen=True)
@@ -136,6 +139,11 @@ class FasterRCNNProposer(nn.Module):
         """(B, S, S, 3) float normalized → per FPN level P2..P6
         (objectness logits (B, H, W, A), box deltas (B, H, W, 4A)), NHWC
         as the JAX package returns them."""
+        with fp32_convolutions():
+            return self._forward(pixels)
+
+    def _forward(self, pixels: torch.Tensor):
+        """``forward`` under the process's own cuDNN settings."""
         bb = self.backbone
         x = pixels.permute(0, 3, 1, 2).to(bb.stem.w.dtype)
         x = stem_pool(bb.stem(x, stride=2))

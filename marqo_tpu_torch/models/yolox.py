@@ -11,7 +11,9 @@ The module runs NCHW with OIHW conv weights; the JAX package runs NHWC with
 HWIO weights, and ``params_from_jax`` transposes them. Every channel concat
 of the JAX package (its last axis) is dim 1 here, operands in the same
 order. Convolutions go to ``F.conv2d`` and pools to ``F.max_pool2d``, as the
-JAX package leaves them to XLA: no kernel of this package runs here.
+JAX package leaves them to XLA: no kernel of this package runs here. The
+forward runs cuDNN with TF32 off (``fp32_convolutions``): with it on, as
+PyTorch's default has it, the outputs leave the fp32 reference's 1e-3.
 
 Output (the ONNX export's, consumed by the reference's demo_postprocess,
 yolox_utils.py:90-121): (B, N, 5 + num_classes) fp32 with RAW xy/wh per
@@ -34,6 +36,7 @@ import torch.nn.functional as F
 
 from marqo_tpu_torch.models.bert import (empty_module, fill_parameters,
                                          tree_values)
+from marqo_tpu_torch.ops.common import fp32_convolutions
 
 BN_EPS = 1e-3
 
@@ -189,6 +192,11 @@ class YOLOX(nn.Module):
         """(B, S, S, 3) float (YOLOX convention: raw 0-255 BGR, already
         letterboxed) → (B, N, 5 + num_classes) fp32: raw xy/wh per anchor
         with sigmoided objectness and class scores."""
+        with fp32_convolutions():
+            return self._forward(pixels)
+
+    def _forward(self, pixels: torch.Tensor):
+        """``forward`` under the process's own cuDNN settings."""
         bb, neck = self.backbone, self.neck
         x = pixels.permute(0, 3, 1, 2).to(self.backbone.stem.conv.w.dtype)
         x = bb.stem.conv(focus_slices(x))

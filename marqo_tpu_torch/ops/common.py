@@ -5,8 +5,35 @@ LayerNorm statistics, pooling and L2 normalization run in fp32 whatever
 the compute dtype (bf16 on the tensor cores), as in the JAX package.
 """
 
+import contextlib
+import threading
+
 import torch
 import torch.nn.functional as F
+
+_fp32_conv_lock = threading.Lock()
+_fp32_conv_state = {"depth": 0, "saved": None}
+
+
+@contextlib.contextmanager
+def fp32_convolutions():
+    """cuDNN convolutions in full fp32 while the block runs. PyTorch lets
+    cuDNN use TF32 by default, whose 10-bit mantissa moves the fp32
+    detectors' outputs past the 1e-3 their fp32 reference holds them to.
+    The flag is process-wide: blocks in concurrent threads count themselves
+    in, and the last one out restores the setting the first one found."""
+    with _fp32_conv_lock:
+        if _fp32_conv_state["depth"] == 0:
+            _fp32_conv_state["saved"] = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+        _fp32_conv_state["depth"] += 1
+    try:
+        yield
+    finally:
+        with _fp32_conv_lock:
+            _fp32_conv_state["depth"] -= 1
+            if _fp32_conv_state["depth"] == 0:
+                torch.backends.cudnn.allow_tf32 = _fp32_conv_state["saved"]
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

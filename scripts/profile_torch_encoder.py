@@ -10,8 +10,8 @@ ViT-L-14 (images and texts), EVA02-L-14-336 (images at 336 px) and
 LanguageBind at ViT-L/14 width (audio clips of 992 frames; 2 videos of 8
 frames through the video tower), and the detectors of the patch methods
 and the image reranker (DINO ViT-S/16 on one 224 px image, YOLOX-S and
-Faster R-CNN R50-FPN on one 384 px image, each as served and with TF32
-off, and OWL-ViT B/32 scoring --hits 768 px images against one query),
+Faster R-CNN R50-FPN on one 384 px image, each as served (TF32 off in
+its convolutions) and with cuDNN's TF32 on, and OWL-ViT B/32 scoring --hits 768 px images against one query),
 all at full width with random weights, under torch.profiler. The script
 prints one
 JSON line per batch with the device time by kernel family (attention
@@ -191,9 +191,9 @@ def new_family_towers(torch, rng, n_images: int, n_texts: int) -> list:
 def detector_models(torch, rng, n_hits: int) -> list:
     """(name, fn, docs, rows, seq) for the patchers' detectors at their
     served configurations (DINO ViT-S/16 in bf16 on one 224 px image;
-    YOLOX-S and Faster R-CNN R50-FPN in fp32 on one 384 px image, with
-    cuDNN's default TF32 convolutions as the server runs them and with
-    TF32 off as chip_smoke.py checks them) and OWL-ViT B/32 (bf16) scoring
+    YOLOX-S and Faster R-CNN R50-FPN in fp32 on one 384 px image, as
+    served, their forward turning cuDNN's TF32 off, and their forward's
+    body under PyTorch's default, TF32 on) and OWL-ViT B/32 (bf16) scoring
     ``n_hits`` 768 px images against one query, random weights."""
     from marqo_tpu_torch.models import dino_vit, frcnn, owl_vit, yolox
 
@@ -221,9 +221,8 @@ def detector_models(torch, rng, n_hits: int) -> list:
     ids = torch.from_numpy(rng.integers(
         5, 77, (1, owl_config.text.max_positions)).astype(np.int32)).cuda()
 
-    def run(fn, *inputs, tf32=True):
+    def run(fn, *inputs):
         def step():
-            torch.backends.cudnn.allow_tf32 = tf32
             with torch.inference_mode():
                 fn(*inputs)
         return step
@@ -234,11 +233,11 @@ def detector_models(torch, rng, n_hits: int) -> list:
     return [("dino_vit_s16_image", run(dino.last_selfattention,
                                        pixels(1, 224)), 1, 1, 197),
             ("yolox_s_image", run(yolo, letterboxed), 1, 1, 384),
-            ("yolox_s_image_tf32_off", run(yolo, letterboxed, tf32=False),
+            ("yolox_s_image_tf32_on", run(yolo._forward, letterboxed),
              1, 1, 384),
             ("frcnn_r50_fpn_image", run(rcnn, normalized), 1, 1, 384),
-            ("frcnn_r50_fpn_image_tf32_off",
-             run(rcnn, normalized, tf32=False), 1, 1, 384),
+            ("frcnn_r50_fpn_image_tf32_on",
+             run(rcnn._forward, normalized), 1, 1, 384),
             ("owl_vit_b32_rerank", run(detect, pixels(n_hits, 768), ids),
              n_hits, n_hits, 577)]
 

@@ -57,3 +57,18 @@ def test_pooling(pool):
     out = getattr(tc, pool)(torch.from_numpy(hidden), torch.from_numpy(mask))
     assert out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+
+
+def test_fp32_convolutions_nests_and_restores(monkeypatch):
+    """cuDNN's TF32 stays off while any block is open, whichever of two
+    overlapping blocks closes first, and the setting the first block found
+    comes back after the last."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    first, second = tc.fp32_convolutions(), tc.fp32_convolutions()
+    first.__enter__()
+    assert torch.backends.cudnn.allow_tf32 is False
+    second.__enter__()
+    first.__exit__(None, None, None)
+    assert torch.backends.cudnn.allow_tf32 is False
+    second.__exit__(None, None, None)
+    assert torch.backends.cudnn.allow_tf32 is True

@@ -85,3 +85,18 @@ def test_nearest_upsample_equals_jax_resize(shape):
                                 "nearest")
     np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy(),
                                   np.asarray(expected))
+
+
+def test_forward_runs_convolutions_without_tf32(monkeypatch):
+    """cuDNN's TF32 is off inside the forward, where a served process has
+    PyTorch's default (on), and back on after it."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    model = tfrcnn.init_params(tfrcnn.FrcnnConfig(width=0.125, input_size=64),
+                            torch.Generator().manual_seed(0), device="cpu")
+    seen = []
+    model.backbone.stem.register_forward_pre_hook(
+        lambda module, args: seen.append(torch.backends.cudnn.allow_tf32))
+    with torch.inference_mode():
+        model(torch.zeros(1, 64, 64, 3))
+    assert seen == [False]
+    assert torch.backends.cudnn.allow_tf32 is True

@@ -82,6 +82,23 @@ def test_small_corpus_stays_on_numpy(corpus):
                         device="cpu") is None
 
 
+def test_small_corpus_declines_before_asking_for_a_device(corpus,
+                                                         monkeypatch):
+    """Under MIN_ROWS_FOR_DEVICE the scorer declines before it looks for a
+    device, as the JAX package's scorer does (marqo_tpu/engine/
+    jax_scorer.py:56): an engine process serving small indexes never
+    imports torch or initializes CUDA for a search."""
+    matrix, query, valid = corpus
+    asked = []
+    monkeypatch.setattr(torch_scorer, "device_available",
+                        lambda: asked.append(True) or True)
+    scorer = torch_scorer.TorchExactScorer("dotproduct")
+    n = torch_scorer.MIN_ROWS_FOR_DEVICE - 1
+    assert scorer.top_k(matrix[:n], 1, query, K, valid[:n]) is None
+    assert scorer.top_k(matrix, 1, query, K, valid, device="cpu") is not None
+    assert not asked
+
+
 def test_default_device_is_cuda_only(corpus, monkeypatch):
     """Without a CUDA device the scorer declines (the store scores with
     numpy); it never picks the CPU by itself."""

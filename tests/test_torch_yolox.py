@@ -134,3 +134,18 @@ def test_upsample_and_spp_pools_equal_jax(shape):
                            (0, 0)])
         np.testing.assert_array_equal(pooled.permute(0, 2, 3, 1).numpy(),
                                       np.asarray(expected))
+
+
+def test_forward_runs_convolutions_without_tf32(monkeypatch):
+    """cuDNN's TF32 is off inside the forward, where a served process has
+    PyTorch's default (on), and back on after it."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    model = tyolo.init_params(tyolo.YoloxConfig(width=0.125, input_size=64),
+                            torch.Generator().manual_seed(0), device="cpu")
+    seen = []
+    model.backbone.stem.conv.register_forward_pre_hook(
+        lambda module, args: seen.append(torch.backends.cudnn.allow_tf32))
+    with torch.inference_mode():
+        model(torch.zeros(1, 64, 64, 3))
+    assert seen == [False]
+    assert torch.backends.cudnn.allow_tf32 is True

@@ -204,6 +204,32 @@ The launch path, after mesh_serve and before the in-process server closes:
                    nvidia-smi's compute processes and the card's memory as
                    before
 
+The engine's exact scan (approximate=False), after the in-process server
+closes:
+ 34. exact_scan    (a) engine/torch_scorer.py on the card at 1,000,000
+                   random unit rows x 768 (e5-base-v2's width), 1% deleted:
+                   each metric's top 64 against fp32 numpy (every score
+                   within 2^-7 of |score| of its row's, every row of the
+                   fp32 top 64 that beats the 64th score by more than that
+                   among the ids), device ms of score and top-k, host ms
+                   of top_k, upload ms, peak memory; the store's host work
+                   a search (the validity list, its copy); the control,
+                   dotproduct's hits held to angular's closeness on rows
+                   off unit norm, must fail. (b) The index made through an
+                   API worker over the script's engine role, one document
+                   read back from the engine; the corpus fed with the
+                   port's StoreEngine into the engine's data dir and
+                   snapshotted; the engine role restarted over it (the
+                   device up, from the engine's log, before
+                   /engine/health answers), a worker over it, 16 exact
+                   searches by a context vector through its HTTP against
+                   fp32 numpy, the first under the 1,000 ms search
+                   timeout; an add of 64 documents, 4 more searches. (c)
+                   An engine over 49,984 rows, without PyTorch; an add of
+                   32 documents crosses MIN_ROWS_FOR_DEVICE and returns
+                   before the device is up; then a search against numpy.
+                   SIGTERM: every process gone, the card as before
+
 then the card's name and power limit as nvidia-smi gives them, a
 {"kernels": [...]} line (each kernel with the tile loop of its timed row
 and its path's launches per loop), and as the last line
@@ -3877,6 +3903,530 @@ def phase_launch(server, torch, smi):
                           "run_b": used_b / mib, "after": used_after / mib})
 
 
+
+EXACT_ROWS = 1_000_000      # the engine's exact scan at a million rows
+EXACT_SEED = 17
+EXACT_LIMIT = 10            # the API's default limit
+EXACT_K = 64                # engine/store.py asks max(limit * 4, 64)
+EXACT_TOLERANCE = 2.0 ** -7  # of |score|: two bf16 ulps
+EXACT_REPEATS = 5           # timed top_k calls a metric
+EXACT_CONTROL_ROWS = 65_536  # the control's rows, scaled off unit norm
+EXACT_SEARCHES = 16         # after the restart, one a request
+EXACT_ADD_DOCS = 64         # then one add over the engine role ...
+EXACT_AFTER_ADD = 4         # ... and these exact searches
+EXACT_CROSSING_ROWS = 49_984  # 16 under MIN_ROWS_FOR_DEVICE
+EXACT_CROSSING_ADD = 32     # one add; its 16th document crosses
+EXACT_TIMEOUT_MS = 1000.0   # MARQO_SEARCH_TIMEOUT_MS's default
+EXACT_READY_S = 120.0       # the crossing's bring-up, at most
+BRING_UP_LINE = (r"(\S+ \S+) INFO \S+: Exact scan up on (\S+): (\d+) x "
+                 r"(\d+) (\S+) rows in ([\d.]+) ms \(torch and CUDA init "
+                 r"([\d.]+) ms, context ([\d.]+) ms, upload ([\d.]+) ms, "
+                 r"first scan ([\d.]+) ms\)")
+
+
+def unit_rows(torch, n: int, d: int, seed: int):
+    """``n`` random unit fp32 rows of ``d``, drawn on the card from
+    ``seed`` (in bulk), as a host array."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    rows = torch.randn(n, d, generator=g, device=DEVICE)
+    rows /= torch.linalg.vector_norm(rows, dim=1, keepdim=True)
+    return rows.cpu().numpy()
+
+
+def near_queries(rows, picks, seed: int):
+    """One unit query per picked row, at cosine ~0.9 to it."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    noise = rng.standard_normal((len(picks), rows.shape[1])).astype(
+        np.float32)
+    noise /= np.linalg.norm(noise, axis=1, keepdims=True)
+    queries = rows[picks] + 0.5 * noise
+    return queries / np.linalg.norm(queries, axis=1, keepdims=True)
+
+
+def fp32_closeness(metric: str, dot, row_norms, query_norm):
+    """The numpy exact path's closeness (engine/store.py ``closeness``) of
+    every row, from one fp32 ``matrix @ q`` and the rows' norms."""
+    import numpy as np
+    if metric == "dotproduct":
+        return dot
+    if metric == "prenormalized-angular":
+        return 1.0 / (1.0 + (1.0 - dot))
+    if metric == "angular":
+        cos = np.clip(dot / (np.maximum(row_norms, 1e-12) *
+                             max(query_norm, 1e-12)), -1.0, 1.0)
+        return 1.0 / (1.0 + np.arccos(cos))
+    if metric == "euclidean":
+        d2 = np.maximum(row_norms ** 2 - 2.0 * dot + query_norm ** 2, 0.0)
+        return 1.0 / (1.0 + np.sqrt(d2))
+    raise ValueError(metric)
+
+
+def exact_hits_check(ids, scores, closeness) -> dict:
+    """Top hits (row ids, scores, best first) against the fp32 closeness of
+    every row (-inf where deleted): each score within EXACT_TOLERANCE of
+    |score| of its row's, and every row of the fp32 top len(ids) that beats
+    the last hit's score by more than that margin among the ids."""
+    import numpy as np
+    ids = np.asarray(ids, dtype=np.int64)
+    scores = np.asarray(scores, dtype=np.float64)
+    k = len(ids)
+    ref = closeness[ids].astype(np.float64)
+    rel = np.abs(scores - ref) / np.maximum(np.abs(scores), 1e-30)
+    top = np.argpartition(-closeness, k)[:k]
+    beats = top[closeness[top] - scores[-1] >
+                EXACT_TOLERANCE * np.abs(closeness[top])]
+    missed = np.setdiff1d(beats, ids)
+    return {"k": k, "max_rel_err": float(rel.max()),
+            "missed": len(missed),
+            "ok": bool(rel.max() <= EXACT_TOLERANCE and not len(missed))}
+
+
+def exact_scorer_checks(torch, rows) -> dict:
+    """(a) engine/torch_scorer.py on the card at ``rows``: each metric's
+    top EXACT_K against fp32 numpy, its device, host and upload times and
+    its peak memory; the store's per-search host costs; the control."""
+    import numpy as np
+
+    from marqo_tpu_torch.engine import torch_scorer as ts
+    n = rows.shape[0]
+    rng = np.random.default_rng(EXACT_SEED)
+    valid = np.ones(n, dtype=bool)
+    valid[rng.choice(n, n // 100, replace=False)] = False
+    picks = rng.choice(np.flatnonzero(valid), len(ts.METRICS),
+                       replace=False)
+    queries = near_queries(rows, picks, EXACT_SEED + 1)
+    norms = np.linalg.norm(rows, axis=1)
+    mib = 2 ** 20
+    metrics = {}
+    for metric, pick, q in zip(ts.METRICS, picks, queries):
+        closeness = np.where(valid, fp32_closeness(
+            metric, rows @ q, norms, float(np.linalg.norm(q))), -np.inf)
+        scorer = ts.TorchExactScorer(metric)
+        upload_ms = []
+        for version in (1, 2):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            scorer._ensure(rows, version, DEVICE)
+            torch.cuda.synchronize()
+            upload_ms.append((time.perf_counter() - start) * 1e3)
+        torch.cuda.reset_peak_memory_stats()
+        allocated = torch.cuda.memory_allocated()
+        start = time.perf_counter()
+        ids, scores = scorer.top_k(rows, 2, q, EXACT_K, valid)
+        first_ms = (time.perf_counter() - start) * 1e3
+        peak = torch.cuda.max_memory_allocated() - allocated
+        result = exact_hits_check(ids, scores, closeness)
+        check(result["ok"] and result["k"] == EXACT_K and
+              int(ids[0]) == int(pick),
+              f"exact scan, {metric}: {result}, top row {ids[0]} for a "
+              f"query near row {pick}")
+        host_ms = []
+        for _ in range(EXACT_REPEATS):
+            start = time.perf_counter()
+            scorer.top_k(rows, 2, q, EXACT_K, valid)
+            host_ms.append((time.perf_counter() - start) * 1e3)
+        q_card = torch.from_numpy(q).to(DEVICE, torch.bfloat16)
+        valid_card = torch.from_numpy(valid).to(DEVICE)
+
+        def scan():
+            s = ts.score_matrix(scorer._device_matrix, q_card, metric)
+            torch.topk(s.masked_fill(~valid_card, float("-inf")), EXACT_K)
+        with torch.inference_mode():
+            device_ms = cuda_ms(scan, EXACT_REPEATS)
+        metrics[metric] = {
+            **result, "device_ms": device_ms,
+            "top_k_host_ms": statistics.median(host_ms),
+            "top_k_host_ms_all": host_ms, "first_top_k_ms": first_ms,
+            "upload_ms": upload_ms,
+            "matrix_mib": scorer._device_matrix.numel() * 2 / mib,
+            "peak_mib_over_matrix": peak / mib,
+            "max_memory_allocated_mib":
+                torch.cuda.max_memory_allocated() / mib}
+        del scorer, q_card, valid_card
+        torch.cuda.empty_cache()
+
+    # the store's host work on every search: the validity list to an
+    # array (engine/store.py ``matrix``, twice a search), and its copy
+    valid_list = [bool(v) for v in valid]
+    list_ms, copy_ms = [], []
+    for _ in range(EXACT_REPEATS):
+        start = time.perf_counter()
+        mask = np.asarray(valid_list, dtype=bool)
+        list_ms.append((time.perf_counter() - start) * 1e3)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        torch.from_numpy(mask).to(DEVICE)
+        torch.cuda.synchronize()
+        copy_ms.append((time.perf_counter() - start) * 1e3)
+
+    # the control: dotproduct's top hits held to angular's fp32 closeness
+    # on rows off unit norm must fail the same check
+    scaled = rows[:EXACT_CONTROL_ROWS] * rng.uniform(
+        0.5, 2.0, (EXACT_CONTROL_ROWS, 1)).astype(np.float32)
+    q = queries[0]
+    ids, scores = ts.TorchExactScorer("dotproduct").top_k(
+        scaled, 1, q, EXACT_K, np.ones(EXACT_CONTROL_ROWS, dtype=bool))
+    control = exact_hits_check(ids, scores, fp32_closeness(
+        "angular", scaled @ q, np.linalg.norm(scaled, axis=1),
+        float(np.linalg.norm(q))))
+    check(not control["ok"], f"exact scan control passed: {control}")
+    torch.cuda.empty_cache()
+    return {"rows": n, "dims": rows.shape[1], "k": EXACT_K,
+            "deleted": int((~valid).sum()), "metrics": metrics,
+            "valid_list_to_array_ms": statistics.median(list_ms),
+            "valid_copy_ms": statistics.median(copy_ms),
+            "control": control}
+
+
+def doc_text(i: int) -> str:
+    return f"document {i}"
+
+
+def feed_docs(store, index: str, rows, prefix: str = "d") -> float:
+    """Feeds one document a row, in the shape the API writes them; returns
+    the seconds."""
+    start = time.perf_counter()
+    for i, row in enumerate(rows):
+        text = doc_text(i)
+        store.feed(index, f"{prefix}{i}", {"text": text},
+                   {"text": {"chunks": [text], "embeddings": [row]}})
+    return time.perf_counter() - start
+
+
+def build_exact_corpora(exact_dir: str, crossing_dir: str, crossing: dict,
+                        rows, crossing_rows) -> dict:
+    """The engine's data dirs, fed with the port's own StoreEngine: the
+    stopped engine's state (its snapshots and WAL) plus one document a row
+    of ``rows`` ("d0" overwrites the API's), snapshotted as the engine's
+    daemon does (rotate the WAL, snapshot, drop the rotated log); and the
+    ``crossing`` index alone over ``crossing_rows`` in ``crossing_dir``."""
+    from marqo_tpu_torch.engine.descriptor import IndexDescriptor
+    from marqo_tpu_torch.engine.store import StoreEngine
+    from marqo_tpu_torch.engine.wal import WriteAheadLog
+    engine_dir = os.path.join(exact_dir, "engine_data")
+    store = StoreEngine()
+    store.restore(engine_dir)
+    wal = WriteAheadLog(os.path.join(engine_dir, "wal.log"))
+    try:
+        store.replay_wal(wal)
+        store.delete_index("crossing")
+        feed_s = feed_docs(store, "exact", rows)
+        start = time.perf_counter()
+        wal.rotate_begin()
+        store.snapshot(engine_dir)
+        wal.rotate_commit()
+        snapshot_s = time.perf_counter() - start
+    finally:
+        wal.close()
+    vectors = store.vector_count("exact")
+    del store
+    small = StoreEngine()
+    small.create_index(IndexDescriptor.from_json(crossing["descriptor"]))
+    feed_docs(small, "crossing", crossing_rows)
+    small.snapshot(os.path.join(crossing_dir, "engine_data"))
+    return {"feed_seconds": feed_s, "feed_docs_per_s": len(rows) / feed_s,
+            "snapshot_seconds": snapshot_s, "engine_rows": vectors,
+            "snapshot_bytes": sum(
+                os.path.getsize(os.path.join(engine_dir, f))
+                for f in os.listdir(engine_dir))}
+
+
+def bring_up_lines(log: str) -> list:
+    """The engine's "Exact scan up" lines: when (epoch seconds), rows and
+    the bring-up's ms, whole and by part."""
+    import datetime
+    import re
+    out = []
+    for m in re.finditer(BRING_UP_LINE, log):
+        when = datetime.datetime.strptime(m.group(1), "%Y-%m-%d %H:%M:%S,%f")
+        out.append({"at": when.timestamp(), "device": m.group(2),
+                    "rows": int(m.group(3)), "dims": int(m.group(4)),
+                    "metric": m.group(5), "ms": float(m.group(6)),
+                    "torch_and_cuda_init_ms": float(m.group(7)),
+                    "context_ms": float(m.group(8)),
+                    "upload_ms": float(m.group(9)),
+                    "first_scan_ms": float(m.group(10))})
+    return out
+
+
+def log_time(log: str, text: str) -> float:
+    """Epoch seconds of the first log line holding ``text``."""
+    import datetime
+    line = next(line for line in log.splitlines() if text in line)
+    return datetime.datetime.strptime(
+        " ".join(line.split()[:2]), "%Y-%m-%d %H:%M:%S,%f").timestamp()
+
+
+def exact_search(port: int, index: str, query) -> tuple:
+    """One approximate=False TENSOR search by the vector ``query`` (a
+    context tensor, as Marqo's API takes one). Returns (status, body, ms)."""
+    body = {"context": {"tensor": [{"vector": query.tolist(), "weight": 1}]},
+            "searchMethod": "TENSOR", "approximate": False,
+            "limit": EXACT_LIMIT}
+    start = time.perf_counter()
+    status, res = http_json(port, "POST", f"/indexes/{index}/search", body)
+    return status, res, (time.perf_counter() - start) * 1e3
+
+
+def hits_against(res, closeness, added_from: int) -> dict:
+    """An HTTP search's hits against the fp32 closeness of every row:
+    document "d<i>" is row i, "add<j>" row ``added_from`` + j."""
+    hits = res["hits"]
+    check(len(hits) == EXACT_LIMIT, f"exact search: {len(hits)} hits")
+    rows = [added_from + int(h["_id"][3:]) if h["_id"].startswith("add")
+            else int(h["_id"][1:]) for h in hits]
+    return exact_hits_check(rows, [h["_score"] for h in hits], closeness)
+
+
+def added_vectors(port: int, index: str, ids) -> "np.ndarray":
+    """The stored vectors of documents ``ids``, through the API."""
+    import numpy as np
+    status, body = http_json(port, "GET",
+                             f"/indexes/{index}/documents?expose_facets=true",
+                             list(ids))
+    check(status == 200 and all(d["_found"] for d in body["results"]),
+          f"get documents: {status} {str(body)[:500]}")
+    return np.asarray([d["_tensor_facets"][0]["_embedding"]
+                       for d in body["results"]], dtype=np.float32)
+
+
+def phase_exact_scan(torch, smi):
+    """The engine's exact scan (approximate=False) at EXACT_ROWS rows of
+    e5-base-v2's width. (a) engine/torch_scorer.py on the card, every
+    metric against fp32 numpy, with a control that must fail. (b) The
+    launch script's engine role restarted over a data dir of EXACT_ROWS
+    documents (the index made through an API worker; the corpus fed and
+    snapshotted with the port's StoreEngine): the device comes up before
+    /engine/health answers, the first search through a worker's HTTP
+    answers within MARQO_SEARCH_TIMEOUT_MS's default; then one add and
+    more searches. (c) An engine over EXACT_CROSSING_ROWS rows, without
+    torch until an add crosses MIN_ROWS_FOR_DEVICE: the add returns while
+    the device comes up. SIGTERM leaves nothing on the card."""
+    import gc
+
+    import numpy as np
+
+    from marqo_tpu_torch.engine import torch_scorer as ts
+    props = e5_props()
+    name, dims = props["name"], props["dimensions"]
+    rows = unit_rows(torch, EXACT_ROWS, dims, EXACT_SEED)
+    scorer = exact_scorer_checks(torch, rows)
+
+    # what (b) and (c) compare with, before the rows are freed
+    rng = np.random.default_rng(EXACT_SEED + 2)
+    picks = rng.choice(EXACT_ROWS, EXACT_SEARCHES + EXACT_AFTER_ADD,
+                       replace=False)
+    queries = near_queries(rows, picks, EXACT_SEED + 3)
+    dots = rows @ queries.T
+    crossing_rows = rows[:EXACT_CROSSING_ROWS].copy()
+    crossing_query = near_queries(crossing_rows, [EXACT_CROSSING_ROWS // 2],
+                                  EXACT_SEED + 4)[0]
+    preload = json.dumps([{"model": name, "modelProperties": props}])
+    _, text = text_docs(torch, 0, seed=EXACT_SEED)
+
+    used_before, apps_before = device_used_bytes(), gpu_compute_apps()
+    runs = []
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        workdir = tmp.name
+        exact_dir, crossing_dir, api_dir = (
+            os.path.join(workdir, d) for d in ("exact", "crossing", "api"))
+        engine_port, api_port = free_port(), free_port()
+
+        def start_engine(label, data_dir):
+            wall = time.time()
+            run = Launched(label, ["engine"], launch_env(
+                workdir, MARQO_ENGINE_PORT=engine_port,
+                MARQO_ENGINE_DATA_DIR=data_dir), workdir)
+            runs.append(run)
+            return run, wall, run.wait_ready(engine_port, "/engine/health")
+
+        def start_worker(label):
+            run = Launched(label, [], launch_env(
+                workdir, MARQO_HOST="127.0.0.1", MARQO_PORT=api_port,
+                MARQO_ENGINE_QUERY_URL=f"http://127.0.0.1:{engine_port}",
+                MARQO_ENGINE_DATA_DIR=api_dir,
+                MARQO_MODELS_TO_PRELOAD=preload), workdir)
+            runs.append(run)
+            return run, run.wait_ready(api_port, "/health")
+
+        def add(index, docs):
+            start = time.perf_counter()
+            status, res = http_json(api_port, "POST",
+                                    f"/indexes/{index}/documents",
+                                    {"documents": docs,
+                                     "tensorFields": ["text"]})
+            check(status == 200 and res["errors"] is False,
+                  f"{index} add: {status} {str(res)[:500]}")
+            return time.perf_counter() - start
+
+        # the indexes, made through a worker over the engine role, and one
+        # document as the API writes it, read back from the engine
+        engine, _, _ = start_engine("exact-create-engine", exact_dir)
+        worker, _ = start_worker("exact-create-api")
+        for index in ("exact", "crossing"):
+            status, body = http_json(api_port, "POST", f"/indexes/{index}",
+                                     {"model": name, "modelProperties": props})
+            check(status == 200, f"create {index}: {status} {body}")
+        add("exact", [{"_id": "d0", "text": doc_text(0)}])
+        status, dump = http_json(engine_port, "GET",
+                                 "/engine/indexes/exact/dump")
+        shape = dump["docs"][0] if status == 200 else {}
+        check(shape.get("fields") == {"text": doc_text(0)} and
+              [(e["chunk"], len(e["embedding"])) for e in
+               shape.get("tensors", {}).get("text", [])] ==
+              [(doc_text(0), dims)] and list(shape["tensors"]) == ["text"],
+              f"the API's document in the engine: {str(dump)[:1000]}")
+        status, crossing = http_json(engine_port, "GET",
+                                     "/engine/indexes/crossing/dump")
+        check(status == 200, f"crossing dump: {status}")
+        worker.stop([api_port])
+        engine.stop([engine_port])
+
+        build = build_exact_corpora(exact_dir, crossing_dir, crossing, rows,
+                                    crossing_rows)
+        del rows
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) the engine role restarted over the million rows
+        used_idle = device_used_bytes()
+        engine, wall, engine_s = start_engine("exact-engine", exact_dir)
+        used_engine = device_used_bytes()
+        log = engine.log()
+        up = bring_up_lines(log)
+        # the rows: the corpus and the API's "d0", overwritten, which a
+        # WAL replayed over a snapshot that holds it appends once more
+        check(len(up) == 1 and up[0]["rows"] > EXACT_ROWS and
+              up[0]["device"] == DEVICE and loads_torch(engine.proc.pid),
+              f"the engine's bring-up at restore: {up} {log[-3000:]}")
+        restored_s = log_time(log, "Restored") - wall
+        worker, worker_s = start_worker("exact-api")
+        searches = []
+        for j in range(EXACT_SEARCHES):
+            status, res, ms = exact_search(api_port, "exact", queries[j])
+            check(status == 200, f"exact search {j}: {status} "
+                  f"{str(res)[:500]} after {ms} ms")
+            searches.append({"ms": ms, **hits_against(
+                res, 1.0 / (2.0 - dots[:, j]), EXACT_ROWS)})
+        check(all(s["ok"] for s in searches),
+              f"exact searches against fp32 numpy: {searches}")
+        check(searches[0]["ms"] < EXACT_TIMEOUT_MS,
+              f"first exact search after the restart: "
+              f"{searches[0]['ms']} ms")
+
+        # one add over the engine role: the matrix is uploaded again
+        added = [{"_id": f"add{j}", "text": text(4 + j % 24)}
+                 for j in range(EXACT_ADD_DOCS)]
+        add_s = add("exact", added)
+        vectors = added_vectors(api_port, "exact", [d["_id"] for d in added])
+        after_add = []
+        for j in range(EXACT_SEARCHES, EXACT_SEARCHES + EXACT_AFTER_ADD):
+            status, res, ms = exact_search(api_port, "exact", queries[j])
+            entry = {"status": status, "ms": ms}
+            if status == 200:
+                closeness = 1.0 / (2.0 - np.concatenate(
+                    [dots[:, j], vectors @ queries[j]]))
+                entry.update(hits_against(res, closeness, EXACT_ROWS))
+            after_add.append(entry)
+        check(after_add[-1]["status"] == 200 and
+              all(e.get("ok", True) for e in after_add),
+              f"exact searches after the add: {after_add}")
+        used_after_add = device_used_bytes()
+        stop_worker = worker.stop([api_port])
+        stop_engine = engine.stop([engine_port])
+
+        # (c) crossing MIN_ROWS_FOR_DEVICE with a write
+        engine, _, crossing_engine_s = start_engine("crossing-engine",
+                                                    crossing_dir)
+        torch_at_start = loads_torch(engine.proc.pid)
+        check(not torch_at_start and not bring_up_lines(engine.log()),
+              "the engine under MIN_ROWS_FOR_DEVICE loaded PyTorch")
+        worker, _ = start_worker("crossing-api")
+        added = [{"_id": f"add{j}", "text": text(4 + j % 24)}
+                 for j in range(EXACT_CROSSING_ADD)]
+        add_wall = time.time()
+        crossing_add_s = add("crossing", added)
+        start = time.perf_counter()
+        while not bring_up_lines(engine.log()):
+            check(time.perf_counter() - start < EXACT_READY_S,
+                  f"no bring-up within {EXACT_READY_S} s of the crossing: "
+                  f"{engine.log()[-3000:]}")
+            time.sleep(0.1)
+        crossing_up = bring_up_lines(engine.log())
+        check(len(crossing_up) == 1 and
+              crossing_up[0]["rows"] == ts.MIN_ROWS_FOR_DEVICE and
+              loads_torch(engine.proc.pid) and
+              crossing_up[0]["at"] > add_wall + crossing_add_s,
+              f"the crossing's bring-up: {crossing_up}, add "
+              f"{crossing_add_s} s")
+        vectors = added_vectors(api_port, "crossing",
+                                [d["_id"] for d in added])
+        status, res, crossing_ms = exact_search(api_port, "crossing",
+                                                crossing_query)
+        check(status == 200, f"crossing search: {status} {str(res)[:500]}")
+        crossing_hits = hits_against(
+            res, 1.0 / (2.0 - np.concatenate([crossing_rows @ crossing_query,
+                                              vectors @ crossing_query])),
+            EXACT_CROSSING_ROWS)
+        check(crossing_hits["ok"], f"crossing search: {crossing_hits}")
+        used_crossing = device_used_bytes()
+        stop_crossing_worker = worker.stop([api_port])
+        stop_crossing_engine = engine.stop([engine_port])
+
+        apps_after = gpu_compute_apps()
+        check(len(apps_after) == len(apps_before),
+              f"compute processes on the card: {apps_after} after, "
+              f"{apps_before} before")
+        start = time.perf_counter()
+        while device_used_bytes() > used_before + LAUNCH_MEMORY_SLACK and \
+                time.perf_counter() - start < LAUNCH_STOP_S:
+            time.sleep(0.2)
+        used_after = device_used_bytes()
+        check(used_after <= used_before + LAUNCH_MEMORY_SLACK,
+              f"the card holds {(used_after - used_before) / 2 ** 20:.0f} "
+              f"MiB more than before the exact scan's runs")
+    finally:
+        for run in runs:
+            run.kill()
+        tmp.cleanup()
+    mib = 2 ** 20
+    ms = [s["ms"] for s in searches]
+    emit("exact_scan", ok=True, device=torch.cuda.get_device_name(0),
+         nvidia_smi=smi, scorer=scorer,
+         corpus={"rows": EXACT_ROWS, "dims": dims,
+                 "metric": "prenormalized-angular", **build},
+         restart={"engine_healthy_s": engine_s,
+                  "restored_s": restored_s,
+                  "bring_up": up[0], "worker_healthy_s": worker_s,
+                  "engine_card_mib": (used_engine - used_idle) / mib,
+                  "first_search_ms": ms[0],
+                  "search_median_ms": statistics.median(ms),
+                  "search_ms": ms, "searches": searches,
+                  "add_docs": EXACT_ADD_DOCS, "add_s": add_s,
+                  "after_add": after_add,
+                  "engine_card_mib_after_add":
+                      (used_after_add - used_idle) / mib,
+                  "worker_stop_s": stop_worker["stop_seconds"],
+                  "engine_stop_s": stop_engine["stop_seconds"]},
+         crossing={"rows": EXACT_CROSSING_ROWS,
+                   "engine_healthy_s": crossing_engine_s,
+                   "torch_at_start": torch_at_start,
+                   "add_docs": EXACT_CROSSING_ADD,
+                   "add_s": crossing_add_s,
+                   "device_ready_after_add_start_s":
+                       crossing_up[0]["at"] - add_wall,
+                   "bring_up": crossing_up[0],
+                   "search_ms": crossing_ms, "search": crossing_hits,
+                   "engine_card_mib": (used_crossing - used_idle) / mib,
+                   "worker_stop_s": stop_crossing_worker["stop_seconds"],
+                   "engine_stop_s": stop_crossing_engine["stop_seconds"]},
+         device_used_mib={"before": used_before / mib,
+                          "after": used_after / mib},
+         compute_apps_before=apps_before, compute_apps_after=apps_after)
+
+
 def main() -> int:
     try:
         import torch
@@ -3947,6 +4497,7 @@ def main() -> int:
         phase_launch(server, torch, smi)
     finally:
         server.close()
+    phase_exact_scan(torch, smi)
     phase_nllb_siglip_encode(torch)
     phase_conv_clip_encode(torch)
     phase_eva02_encode(torch)

@@ -33,6 +33,7 @@ from marqo_tpu_torch.engine.bm25 import (Bm25FieldIndex,
                                    make_field_index, tokenize)
 from marqo_tpu_torch.engine.descriptor import IndexDescriptor
 from marqo_tpu_torch.engine.filter_eval import evaluate_node
+from marqo_tpu_torch.engine.torch_scorer import bring_up_field
 from marqo_tpu_torch.logging import get_logger
 
 logger = get_logger(__name__)
@@ -218,6 +219,9 @@ class _FieldTensors:
         if self._hnsw is not None and n_new:
             self._hnsw.link(self._store, self._n, n_threads=1)
         self._version += 1
+        # the write that takes the field to MIN_ROWS_FOR_DEVICE rows starts
+        # the exact scan's device bring-up, in the background
+        bring_up_field(self, wait=False)
 
     def remove(self, doc_id: str) -> None:
         if doc_id not in self._live_docs:

@@ -247,6 +247,11 @@ def setup_engine_durability(engine, data_dir: str,
         start_daemon = engine_dir not in _ACTIVE
         _ACTIVE[engine_dir] = (engine, wal)
 
+    # the exact scan's device comes up here, before the server binds its
+    # port, never inside a search; a failure fails the start
+    from marqo_tpu_torch.engine.torch_scorer import bring_up_engine
+    bring_up_engine(engine)
+
     def snapshot_loop():
         import time as _time
         while True:

@@ -57,7 +57,14 @@ DELIBERATE_EDITS = {
     "core/monitoring.py": "get_accelerator_info reads torch.cuda and fills "
                           "the memory fields",
     "engine/store.py": "the exact-scan hook points at engine/torch_scorer.py; "
-                       "a docstring named jax",
+                       "a docstring named jax; the write that takes a field "
+                       "to MIN_ROWS_FOR_DEVICE rows starts the device "
+                       "bring-up (torch_scorer.bring_up_field), so no search "
+                       "brings CUDA up",
+    "engine/wal.py": "setup_engine_durability brings the exact scan's device "
+                     "up after the restore and the WAL's replay, before the "
+                     "server binds its port (torch_scorer.bring_up_engine); "
+                     "the reference brings it up inside the first search",
     "inference/model_registry.py": "docstrings and notes named the JAX model "
                                    "classes",
     "inference/image_patching.py": "the DINO/YOLOX/Faster R-CNN patchers "

@@ -1291,7 +1291,10 @@ def serve_text_index(server, torch, index: str, props: dict, n_docs: int,
     documents of mixed lengths (a one-document add first loads the model),
     run 8 TENSOR and 8 HYBRID searches, query a document's own text and
     embed. Launch counts are set to 0 before the first add; returns them
-    after the adds, over the searches and at the end."""
+    after the adds, over the searches and at the end, and the seconds of
+    each CUDA graph the index's model captured at a first use (the
+    in-process server warms no model), by bucket."""
+    from marqo_tpu_torch.inference.loaders import TorchHFTextModel
     req = server.req
     req("POST", f"/indexes/{index}",
         {"model": props["name"], "modelProperties": props})
@@ -1337,10 +1340,13 @@ def serve_text_index(server, torch, index: str, props: dict, n_docs: int,
     stats = req("GET", f"/indexes/{index}/stats")
     check(stats.get("numberOfDocuments") == n_docs + 1,
           f"{index} documents: {stats}")
+    model = _loaded_model(TorchHFTextModel, props["name"])
     return {"docs": n_docs + 1, "add_seconds": add_seconds,
             "latencies": latencies, "launches": launches,
             "add_launches": add_launches,
             "search_launches": search_launches,
+            "graph_captures": {graph_label(key): graph.seconds
+                               for key, graph in model.graphs.graphs.items()},
             "documents_in_index": stats.get("numberOfDocuments"),
             "vectors_in_index": stats.get("numberOfVectors"),
             "own_text_top_hit": res["hits"][0]["_id"]}
@@ -1371,6 +1377,7 @@ def phase_serve(server, torch):
          vectors_in_index=run["vectors_in_index"],
          searches=len(run["latencies"]), launches=launches,
          launches_during_add=run["add_launches"],
+         graph_captures=run["graph_captures"],
          model_devices=sorted(devices))
     return run
 
@@ -1414,6 +1421,7 @@ def phase_int8_serve(server, torch):
          searches=len(run["latencies"]), launches=run["launches"],
          launches_during_add=run["add_launches"],
          launches_during_search=run["search_launches"],
+         graph_captures=run["graph_captures"],
          w8a8_launches_by_layer=by_layer, buffer_devices=sorted(devices),
          memory_bytes=models[0].memory_bytes())
     return run
@@ -2237,19 +2245,41 @@ def _count_chunk_image_calls(image_patching):
 
 
 def _count_vision_tower_calls():
-    """A global forward hook counting every CLIPVisionTower call (the
-    index model's image embeddings; DINO and OWL-ViT call no tower
-    forward). Returns the count (a one-item list) and the hook's handle."""
+    """Count every CLIPVisionTower batch that runs on the card (the index
+    model's image embeddings; DINO and OWL-ViT call no tower forward):
+    an eager forward, seen by a global forward hook outside a CUDA graph's
+    capture, or a replay of a "vision" graph (inference/graphs.py).
+    Returns the count (a one-item list) and a handle whose ``remove()``
+    takes the hook and the wrapper off."""
+    import torch
     from torch.nn.modules.module import register_module_forward_hook
 
+    from marqo_tpu_torch.inference import graphs
     from marqo_tpu_torch.models.clip import CLIPVisionTower
     calls = [0]
+    replay = graphs.Graph.replay
 
     def hook(module, *_):
-        if isinstance(module, CLIPVisionTower):
+        if isinstance(module, CLIPVisionTower) and not (
+                torch.cuda.is_available() and
+                torch.cuda.is_current_stream_capturing()):
             calls[0] += 1
 
-    return calls, register_module_forward_hook(hook)
+    def counted_replay(self):
+        if self.key[0] == "vision":
+            calls[0] += 1
+        return replay(self)
+
+    graphs.Graph.replay = counted_replay
+    handle = register_module_forward_hook(hook)
+
+    class Handle:
+        @staticmethod
+        def remove():
+            handle.remove()
+            graphs.Graph.replay = replay
+
+    return calls, Handle()
 
 
 def _relative_error(a, b) -> float:
@@ -2850,46 +2880,345 @@ def phase_timing(fa, fused, qm, torch, clip_model, pixels, int8_encoder,
     return with_sdpa_ratio(rows), vit_row, encoder_row
 
 
+# --- encoder_graphs: one CUDA graph per bucket (inference/graphs.py) ---------
+
+GRAPH_QUERY_SEQS = (16, 32, 64)  # the e5 query at batch 1 (warmup's buckets)
+GRAPH_INGEST = (256, 128)        # the padded ingest step
+GRAPH_DOCS = 256                 # the packed step's documents
+GRAPH_IMAGES = 16                # ViT-L/14's image batch (bench --images)
+GRAPH_STEPS = 20                 # steps a timing
+# packed pooling sums with index_add_, whose atomics add in no fixed order
+# (models/bert.py packed_segment_sums): replay and eager differ in the
+# last bits; tests/test_packing.py's tolerance
+GRAPH_PACKED_ATOL = 2e-5
+
+
+def ragged_tokens(n: int, S: int, vocab: int, seed: int):
+    """n rows of S token ids with log-normal lengths around 60 tokens
+    (clipped to 4..S), zero past each length, and their 0/1 mask."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lengths = np.clip(rng.lognormal(np.log(60), 0.5, n), 4, S).astype(int)
+    mask = (np.arange(S)[None] < lengths[:, None]).astype(np.int32)
+    ids = rng.integers(5, vocab, (n, S)).astype(np.int32) * mask
+    return ids, mask
+
+
+def packed_rows(ids, mask, S: int):
+    """The packed path's host rows for ``ids`` (ops/packing.py at the
+    row ladder), and n_bucket."""
+    from marqo_tpu_torch.inference.batching import (pick_batch_bucket,
+                                                    row_buckets)
+    from marqo_tpu_torch.ops.packing import pack_sequences
+    packed = pack_sequences([row[:m.sum()] for row, m in zip(ids, mask)],
+                            seq_len=S, pad_id=0, row_buckets=row_buckets())
+    return ((packed.input_ids, packed.segment_ids, packed.positions,
+             packed.seq_index), packed.n_sequences,
+            pick_batch_bucket(packed.n_sequences))
+
+
+def graph_label(key) -> str:
+    """An EncoderGraphs key as "tower shape [n_bucket]"."""
+    tower, _, static, inputs = key
+    shape = "x".join(map(str, inputs[0][0]))
+    extra = [v for v in static if isinstance(v, int)]
+    return " ".join([tower, shape] + [f"n{v}" for v in extra])
+
+
+def tower_step(model, tower: str, array):
+    """One batch of a CLIP tower through the model's graph of its bucket,
+    as ``TorchCLIPModel._run`` calls it, left on the card."""
+    module = getattr(model.encoder, tower)
+    return model.graphs.run(tower, model.compute_dtype,
+                            lambda x: getattr(model.encoder, tower)(x),
+                            array, static=(module.config,))
+
+
+def device_busy_ms(torch, step, steps: int) -> tuple:
+    """Device ms a step: the CUDA-side events of torch.profiler over
+    ``steps`` calls (kernels inside a graph's replay among them); where it
+    shows none, the steps queued behind a device sleep (``queued_ms``).
+    Returns (ms, source, the profiled window's wall ms a step)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - start) * 1000 / steps
+    total_us = 0.0
+    for event in prof.key_averages():
+        if event.device_type.name != "CUDA":
+            continue
+        device_us = getattr(event, "device_time_total", None)
+        if device_us is None:
+            device_us = event.cuda_time_total
+        total_us += device_us
+    if total_us > 0:
+        return total_us / 1000 / steps, "torch.profiler", wall
+    return queued_ms(step, steps), "queued CUDA events", wall
+
+
+def host_device_split(torch, step, steps: int = GRAPH_STEPS) -> dict:
+    """A step's host ms (the call alone, the card idle before it; median),
+    its wall ms back to back (host clock, ending in a synchronize), its
+    device ms (``device_busy_ms``) and the device's busy share of the
+    wall time; ``profiled_busy_share`` is the device ms over the profiled
+    window's own wall ms, as scripts/profile_torch_encoder.py reads it
+    (the profiler's host overhead in it), and device ms over an
+    unprofiled wall may pass 1 by the kernels' own slowdown under the
+    profiler."""
+    step()
+    host = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        step()
+        host.append((time.perf_counter() - start) * 1000)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - start) * 1000 / steps
+    device, source, profiled_wall = device_busy_ms(torch, step, steps)
+    return {"host_ms": statistics.median(host), "wall_ms": wall,
+            "device_ms": device, "busy_share": device / wall,
+            "profiled_busy_share": device / profiled_wall,
+            "device_ms_from": source}
+
+
+def phase_encoder_graphs(torch, smi):
+    """The encoders as served on CUDA, one graph per bucket: e5-base-v2
+    width (bf16 and int8, the serve phases' models) and ViT-L/14's towers,
+    loaded fresh and warmed as a worker warms them (each warmup bucket
+    captured; the packed key at its first use). Every key's replay
+    against the eager forward on the same inputs: padded and CLIP equal
+    bit for bit, packed within GRAPH_PACKED_ATOL; the kernels' launches a
+    replay equal to the eager forward's (12 B1 an e5 batch, 48 B3 an int8
+    batch, 24 B2 a ViT-L/14 image batch). The control: inputs put in a
+    fresh tensor, not the static buffer, leave the replay on the old
+    inputs. Then host ms, device ms and the busy share, eager against
+    graph, at the query, ingest, packed, int8 and image batches; capture
+    seconds by bucket and the graphs' pool."""
+    import numpy as np
+
+    from marqo_tpu_torch.inference.batching import batched_device_encode
+    from marqo_tpu_torch.inference.loaders import TorchHFTextModel
+    from marqo_tpu_torch.models.bert import encode_tokens
+    from marqo_tpu_torch.models.clip import TorchCLIPModel
+    from marqo_tpu_torch.parallel.serving import run_data_parallel
+    mib = 2 ** 20
+    layers = E5_BASE["num_layers"]
+    vocab = E5_BASE["vocab_size"]
+    B, S = GRAPH_INGEST
+
+    def reserved():
+        """The card memory the process's allocator holds once its unused
+        cached blocks are released: what is left of the graphs' pools
+        counts, their static inputs and outputs beside them."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved()
+
+    def loaded(cls, props):
+        model = cls(props["name"], props, _device())
+        model.load()
+        before = reserved()
+        start = time.perf_counter()
+        buckets = model.warmup() if cls is TorchHFTextModel else \
+            model.warmup(GRAPH_IMAGES)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        return model, {"buckets": buckets, "seconds": seconds,
+                       "graphs_mib": (reserved() - before) / mib}
+
+    models, warmups = {}, {}
+    for name, cls, props in (
+            ("e5_bf16", TorchHFTextModel, e5_props()),
+            ("e5_int8", TorchHFTextModel,
+             {**e5_props(), "name": "smoke-e5-base-v2-int8",
+              "quantize": True}),
+            ("vit_l14", TorchCLIPModel, vit_l14_props())):
+        models[name], warmups[name] = loaded(cls, props)
+    bf16, int8, clip = (models[n] for n in ("e5_bf16", "e5_int8", "vit_l14"))
+    check(int8.config.quantize and not bf16.config.quantize,
+          "encoder_graphs: the int8 model is not quantized")
+
+    def compared(label, eager_fn, graph_fn, exact, expected):
+        """eager_fn() and graph_fn() on the same inputs, each with the
+        launch counts set to 0 before it and read after."""
+        reset_counts()
+        eager = eager_fn()
+        torch.cuda.synchronize()
+        eager_counts = read_counts()
+        reset_counts()
+        out = graph_fn()
+        torch.cuda.synchronize()
+        graph_counts = read_counts()
+        eager, out = (torch.as_tensor(t) for t in (eager, out))
+        err = float((out.float() - eager.float()).abs().max())
+        ok = torch.equal(out, eager) if exact else err <= GRAPH_PACKED_ATOL
+        check(ok and tuple(out.shape) == tuple(eager.shape) and
+              bool(torch.isfinite(out).all()),
+              f"encoder_graphs {label}: replay against eager, max |diff| "
+              f"{err} ({'bit for bit' if exact else GRAPH_PACKED_ATOL})")
+        check(graph_counts == eager_counts,
+              f"encoder_graphs {label}: launches a replay {graph_counts}, "
+              f"eager {eager_counts}")
+        for counter, n in expected.items():
+            check(graph_counts[counter] == n,
+                  f"encoder_graphs {label}: {counter} {graph_counts[counter]}"
+                  f" a replay, expected {n}")
+        return {"label": label, "max_abs_diff": err,
+                "tolerance": "bit for bit" if exact else GRAPH_PACKED_ATOL,
+                "launches_a_replay": {k: v for k, v in graph_counts.items()
+                                      if v}}
+
+    comparisons = []
+    for name, model in (("e5_bf16", bf16), ("e5_int8", int8)):
+        b3 = {"w8a8_matmul": 4 * layers} if model is int8 else {}
+        keys = sorted(model.graphs.graphs, key=graph_label)
+        check(len(keys) == warmups[name]["buckets"] and
+              all(key[0] == "padded" for key in keys),
+              f"encoder_graphs {name}: warmup captured {keys}")
+        for i, key in enumerate(keys):
+            rows, seq = key[3][0][0]
+            ids, mask = ragged_tokens(rows, seq, vocab, seed=10 + i)
+            comparisons.append(compared(
+                f"{name} {graph_label(key)}",
+                lambda: run_data_parallel(model, encode_tokens, ids, mask),
+                lambda: model._forward(ids, mask), True,
+                {"masked_attention_padding": layers, **b3}))
+        ids, mask = ragged_tokens(GRAPH_DOCS, S, vocab, seed=20)
+        rows, n, n_bucket = packed_rows(ids, mask, S)
+        model._packed(rows, n_bucket)  # captures the packed key
+        comparisons.append(compared(
+            f"{name} packed {rows[0].shape[0]}x{S} n{n_bucket}",
+            lambda: model._packed_eager(rows, n_bucket)[:n],
+            lambda: model._packed(rows, n_bucket)[:n], False,
+            {"masked_attention_segment": layers, **b3}))
+    rng = np.random.default_rng(30)
+    size = clip.vision_config.image_size
+    positions = clip.text_config.max_positions
+    for key in sorted(clip.graphs.graphs, key=graph_label):
+        tower, rows = key[0], key[3][0][0][0]
+        if tower == "vision":
+            array = rng.integers(0, 256, (rows, size, size, 3),
+                                 dtype=np.uint8)
+            expected = {"fused_attention_nomask":
+                        VIT_L14_VISION["num_layers"]}
+        else:
+            array = rng.integers(1, clip.text_config.vocab_size - 1,
+                                 (rows, positions)).astype(np.int32)
+            array[np.arange(rows), rng.integers(2, positions, rows)] = \
+                clip.text_config.eos_token_id
+            expected = {}
+        comparisons.append(compared(
+            f"vit_l14 {graph_label(key)}",
+            lambda: batched_device_encode(
+                clip, array, lambda encoder, x: getattr(encoder, tower)(x)),
+            lambda: clip._run(array, tower), True, expected))
+    check(len(clip.graphs.graphs) == warmups["vit_l14"]["buckets"],
+          f"encoder_graphs: ViT-L/14 keys {list(clip.graphs.graphs)}")
+
+    # the control: the next batch in a fresh tensor, not the static buffer
+    key = next(k for k in bf16.graphs.graphs
+               if k[0] == "padded" and k[3][0][0] == (B, S))
+    graph = bf16.graphs.graphs[key]
+    ids_a, mask_a = ragged_tokens(B, S, vocab, seed=40)
+    ids_b, mask_b = ragged_tokens(B, S, vocab, seed=41)
+    out_a = bf16._forward(ids_a, mask_a)
+    fresh = [torch.from_numpy(a).to(DEVICE) for a in (ids_b, mask_b)]
+    with torch.inference_mode():
+        stale = graph.replay()
+        expected_b = encode_tokens(bf16.encoder, *fresh)
+    torch.cuda.synchronize()
+    control = {"stale_equals_b": bool(torch.equal(stale, expected_b)),
+               "stale_equals_a": bool(torch.equal(stale, out_a)),
+               "max_abs_diff_to_b": float(
+                   (stale - expected_b).abs().max())}
+    check(not control["stale_equals_b"] and control["stale_equals_a"],
+          f"encoder_graphs control: a replay read inputs that were not "
+          f"put in its static buffer: {control}")
+
+    # host and device time, eager against graph
+    query = {s: ragged_tokens(1, s, vocab, seed=50 + s)
+             for s in GRAPH_QUERY_SEQS}
+    ingest = ragged_tokens(B, S, vocab, seed=60)
+    rows, n, n_bucket = packed_rows(*ragged_tokens(GRAPH_DOCS, S, vocab,
+                                                   seed=20), S)
+    pixels = rng.integers(0, 256, (GRAPH_IMAGES, size, size, 3),
+                          dtype=np.uint8)
+
+    def padded(model, ids, mask):
+        return (lambda: run_data_parallel(model, encode_tokens, ids, mask),
+                lambda: model._forward(ids, mask))
+
+    batches = [(f"e5 query 1x{s}", *padded(bf16, *query[s]))
+               for s in GRAPH_QUERY_SEQS]
+    batches += [
+        (f"e5 padded bf16 {B}x{S}", *padded(bf16, *ingest)),
+        (f"e5 packed bf16 {rows[0].shape[0]}x{S} ({n} docs)",
+         lambda: bf16._packed_eager(rows, n_bucket),
+         lambda: bf16._packed(rows, n_bucket)),
+        (f"e5 padded int8 {B}x{S}", *padded(int8, *ingest)),
+        (f"ViT-L/14 {GRAPH_IMAGES} images",
+         lambda: run_data_parallel(clip, lambda e, x: e.vision(x), pixels),
+         lambda: tower_step(clip, "vision", pixels))]
+    keys_before = {name: len(m.graphs.graphs) for name, m in models.items()}
+    timing = []
+    with torch.inference_mode():
+        for label, eager, graphed in batches:
+            row = {"batch": label}
+            for mode, step in (("eager", eager), ("graph", graphed),
+                               ("graph_again", graphed),
+                               ("eager_again", eager)):
+                row[mode] = host_device_split(torch, step)
+            timing.append(row)
+    check({name: len(m.graphs.graphs) for name, m in models.items()} ==
+          keys_before, "encoder_graphs: the timing captured new keys")
+    emit("encoder_graphs", ok=True, device=torch.cuda.get_device_name(0),
+         nvidia_smi=smi, warmups=warmups, captures={
+             name: {graph_label(k): g.seconds
+                    for k, g in sorted(m.graphs.graphs.items(),
+                                       key=lambda kv: graph_label(kv[0]))}
+             for name, m in models.items()},
+         comparisons=comparisons, control=control, timing=timing,
+         memory_allocated_mib=torch.cuda.memory_allocated() / mib,
+         memory_reserved_mib=torch.cuda.memory_reserved() / mib)
+    return timing
+
+
 # --- the multi-device mesh (parallel/) on the one card -----------------------
 
 class LaunchShapes:
-    """Counts, by (counter name, shape), the launches each kernel wrapper
-    makes while the block runs: the modules' ``_launch`` are wrapped for
-    its duration (the wrappers still count their launches themselves).
-    Attention records (B, N, S, D), B3 (M, K, N)."""
+    """Counts, by (counter name, shape), the launches the kernel wrappers
+    put on the card while the block runs, eagerly or replayed in a CUDA
+    graph: ops/launches.py ``add``, which adds every such launch to the
+    counts, is wrapped for the block's duration. Attention records
+    (B, N, S, D), B3 (M, K, N)."""
 
     def __enter__(self):
         from collections import Counter
-        modules = _counter_modules()
+
+        from marqo_tpu_torch.ops import launches
         self.shapes = Counter()
-        self._saved = {name: module._launch
-                       for name, module in modules.items()}
-        b1, b2, b3 = (self._saved[name] for name in (
-            "masked_attention", "fused_attention", "w8a8_matmul"))
+        self._add = add = launches.add
 
-        def masked(q, k, v, mask, mode):
-            self.shapes[(f"masked_attention_{mode}", tuple(q.shape))] += 1
-            return b1(q, k, v, mask, mode)
+        def counted(added):
+            added = tuple(added)
+            add(added)
+            for launch in added:
+                self.shapes[(launch.name, launch.shape)] += 1
 
-        def fused(q, k, v, ids):
-            mode = "nomask" if ids is None else "segment"
-            self.shapes[(f"fused_attention_{mode}", tuple(q.shape))] += 1
-            return b2(q, k, v, ids)
-
-        def w8a8(x, w_q, w_scale, bias):
-            self.shapes[("w8a8_matmul", (x.shape[0], w_q.shape[1],
-                                         w_q.shape[0]))] += 1
-            return b3(x, w_q, w_scale, bias)
-
-        for name, wrapper in (("masked_attention", masked),
-                              ("fused_attention", fused),
-                              ("w8a8_matmul", w8a8)):
-            modules[name]._launch = wrapper
+        launches.add = counted
         return self
 
     def __exit__(self, *_):
-        for name, module in _counter_modules().items():
-            module._launch = self._saved[name]
+        from marqo_tpu_torch.ops import launches
+        launches.add = self._add
 
     def listed(self) -> list:
         return [{"counter": name, "shape": list(shape), "launches": n}
@@ -4508,6 +4837,7 @@ def main() -> int:
                   "owl_rerank"):
         check_loop(phase, "fused_attention", "wgmma")
 
+    phase_encoder_graphs(torch, smi)
     timing, vit, encoder_times = phase_timing(
         fa, fused, qm, torch, clip_model, pixels, int8_encoder, bf16_encoder)
     emit("detector_timing", device=torch.cuda.get_device_name(0),

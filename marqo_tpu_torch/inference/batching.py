@@ -61,21 +61,37 @@ def pick_row_bucket(n: int) -> int:
     return pick_bucket(n, ladder)
 
 
-def batched_device_encode(model, array, forward, pad_value=0):
+def graphs_for(model):
+    """The model's CUDA graphs (inference/graphs.py ``EncoderGraphs``, its
+    ``graphs``) where its batches replay them: a model on a CUDA device
+    without a serving mesh. None elsewhere: on the CPU, and under a serving
+    mesh, batches run the eager forward."""
+    from marqo_tpu_torch.parallel.serving import model_mesh
+    if model._device.type != "cuda" or model_mesh(model) is not None:
+        return None
+    return model.graphs
+
+
+def batched_device_encode(model, array, forward, pad_value=0, graph=None,
+                          static=()):
     """Pad ``array`` rows to batch buckets (``pad_value``: a scalar or one
     row), launch EVERY device batch through ``forward(module, padded)``
     with ``model``'s module, then copy all outputs to the host at once
     (launches are asynchronous, so batch i+1's host-side padding overlaps
     batch i's compute — the ingest-path pattern from
-    loaders._dispatch_padded). Under a serving mesh each bucket rounds up
-    to a dp multiple and splits across the data-parallel groups, each
-    through its replica (parallel/serving.py). Returns the concatenated
-    rows as numpy."""
+    loaders._dispatch_padded). With a tower name ``graph`` (and the
+    ``static`` values the forward depends on), each batch replays the
+    model's CUDA graph of (tower, bucket shape) where ``graphs_for`` gives
+    one; without, or where it gives none, the forward runs eagerly. Under a
+    serving mesh each bucket rounds up to a dp multiple and splits across
+    the data-parallel groups, each through its replica
+    (parallel/serving.py). Returns the concatenated rows as numpy."""
     import numpy as np
     import torch
 
     from marqo_tpu_torch.parallel.serving import (model_mesh, round_up_to_dp,
                                                   run_data_parallel)
+    graphs = graphs_for(model) if graph is not None else None
     n = array.shape[0]
     bucket = round_up_to_dp(pick_batch_bucket(n), model_mesh(model))
     pending = []
@@ -85,7 +101,13 @@ def batched_device_encode(model, array, forward, pad_value=0):
         padded = np.full((bucket,) + array.shape[1:], pad_value,
                          dtype=array.dtype)
         padded[:size] = array[start:start + size]
-        pending.append((run_data_parallel(model, forward, padded), size))
+        if graphs is None:
+            out = run_data_parallel(model, forward, padded)
+        else:
+            out = graphs.run(graph, model.compute_dtype,
+                             lambda x: forward(model.encoder, x), padded,
+                             static=static)
+        pending.append((out, size))
         start += size
     # one device-to-host copy after all launches
     return torch.cat([out[:size] for out, size in pending]).cpu().numpy()

@@ -11,7 +11,9 @@ Multi-device serving (parallel/serving.py): when the process serving mesh
 spans a model's device, ``load`` places a replica of its module on each
 data-parallel group (the float BERT encoder split over the group's tp
 devices), and every encode batch splits across the groups; without a mesh
-a model runs on its one device. Served: the BERT-family text encoder (bf16, or
+a model runs on its one device, where the BERT-family text encoder and
+the ViT CLIP towers replay one CUDA graph per bucket (inference/graphs.py)
+on CUDA. Served: the BERT-family text encoder (bf16, or
 int8 W8A8 with ``quantize``), Stella (``hf_stella``), the ViT CLIP towers
 (models/clip.py), the HF-text CLIP composites (models/hf_clip.py), SigLIP,
 ResNet-CLIP, ConvNeXt-CLIP, NLLB-SigLIP, CoCa, EVA02-CLIP and LanguageBind:
@@ -28,15 +30,16 @@ import torch
 
 from marqo_tpu_torch.core.exceptions import (InvalidArgumentError,
                                              ModelLoadError, VectoriseError)
-from marqo_tpu_torch.inference.batching import (batch_buckets,
+from marqo_tpu_torch.inference.batching import (batch_buckets, graphs_for,
                                                 pick_batch_bucket,
                                                 pick_seq_bucket, row_buckets)
+from marqo_tpu_torch.inference.graphs import EncoderGraphs
 from marqo_tpu_torch.inference.types import Device, Modality
 from marqo_tpu_torch.logging import get_logger
 from marqo_tpu_torch.models.bert import (TextEncoder, TextEncoderConfig,
                                          check_kernel_shapes, config_from_hf,
-                                         encode_tokens, init_encoder,
-                                         packed_segment_sums,
+                                         encode_tokens, encode_tokens_packed,
+                                         init_encoder, packed_segment_sums,
                                          params_from_torch_state_dict,
                                          pool_segment_sums)
 from marqo_tpu_torch.models.tokenizer import TextTokenizer
@@ -110,6 +113,7 @@ class TorchHFTextModel(EmbeddingModel):
         self._device = torch.device(
             "cuda" if device == Device.CUDA else "cpu")
         self._param_bytes = 0
+        self.graphs = EncoderGraphs(self._device)
 
     # --- loading ---------------------------------------------------------
 
@@ -316,22 +320,33 @@ class TorchHFTextModel(EmbeddingModel):
         return pending
 
     def _forward(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
-        """One padded device batch → pooled embeddings, split across the
-        serving mesh's data-parallel groups when there is one."""
+        """One padded device batch → pooled embeddings: on CUDA the replay
+        of this model's graph of its (batch, seq) bucket (bf16, or int8 on
+        B3 when quantized), captured at its first use or by ``warmup``;
+        on the CPU and under a serving mesh the eager forward, split across
+        the mesh's data-parallel groups when there is one."""
         with torch.inference_mode():
-            return run_data_parallel(self, encode_tokens, ids, mask)
+            graphs = graphs_for(self)
+            if graphs is None:
+                return run_data_parallel(self, encode_tokens, ids, mask)
+            return graphs.run(
+                "padded", self.compute_dtype,
+                lambda ids, mask: encode_tokens(self.encoder, ids, mask),
+                ids, mask, static=(self.encoder.config,))
 
     def _dispatch_packed(self, batch, seq_bucket: int):
         """Sequence-packed dispatch (ops/packing.py): ~1/density fewer rows
         through the encoder at identical numerics. Returns (device tensor,
         n_sequences) pairs without copying back — see _dispatch_padded.
 
+        The pooled rows pad to ``n_bucket``, the batch bucket of the
+        chunk's sequence count, as in the JAX package, where it is the
+        compiled program's static ``num_sequences``: on CUDA the chunk
+        replays this model's graph of (row bucket, seq bucket, n_bucket).
         Under a serving mesh the packed rows split across dp, so the row
-        ladder rounds up to dp multiples. Packing never splits a sequence
-        across rows: each group's pooling sums index the whole batch's
-        sequences, and their sum on the lead device is the batch's (the
-        pooled rows themselves never split, so the JAX package's rounded
-        ``n_bucket`` has no counterpart here)."""
+        ladder rounds up to dp multiples; packing never splits a sequence
+        across rows, so each group's pooling sums index the whole chunk's
+        sequences, and their sum on the lead device is the chunk's."""
         from marqo_tpu_torch.ops.packing import pack_sequences
 
         ids, lengths = batch["input_ids"], batch["lengths"]
@@ -344,29 +359,49 @@ class TorchHFTextModel(EmbeddingModel):
                                     seq_len=seq_bucket,
                                     pad_id=self.tokenizer.pad_id,
                                     row_buckets=ladder)
-            n = packed.n_sequences
-            with torch.inference_mode():
-                parts = map_data_parallel(
-                    self, lambda encoder, *rows: packed_segment_sums(
-                        encoder, *rows, n),
-                    packed.input_ids, packed.segment_ids, packed.positions,
+            rows = (packed.input_ids, packed.segment_ids, packed.positions,
                     packed.seq_index)
-                sums, counts = parts[0]
-                for more_sums, more_counts in parts[1:]:
-                    sums, counts = sums + more_sums, counts + more_counts
-                emb = pool_segment_sums(sums, counts, self.config)
-            pending.append((emb, n))
+            pending.append((self._packed(
+                rows, pick_batch_bucket(packed.n_sequences)),
+                packed.n_sequences))
         return pending
+
+    def _packed(self, rows, n_bucket: int) -> torch.Tensor:
+        """One packed chunk's host rows (input ids, segment ids, positions,
+        sequence index) → (n_bucket, H) pooled embeddings: on CUDA the
+        replay of this model's graph, else ``_packed_eager``."""
+        with torch.inference_mode():
+            graphs = graphs_for(self)
+            if graphs is None:
+                return self._packed_eager(rows, n_bucket)
+            return graphs.run(
+                "packed", self.compute_dtype,
+                lambda *rows: encode_tokens_packed(self.encoder, *rows,
+                                                   n_bucket),
+                *rows, static=(self.encoder.config, n_bucket))
+
+    def _packed_eager(self, rows, n_bucket: int) -> torch.Tensor:
+        """The packed forward without a graph: each data-parallel group's
+        pooling sums, added on the lead device, then pooled."""
+        with torch.inference_mode():
+            parts = map_data_parallel(
+                self, lambda encoder, *rows: packed_segment_sums(
+                    encoder, *rows, n_bucket), *rows)
+            sums, counts = parts[0]
+            for more_sums, more_counts in parts[1:]:
+                sums, counts = sums + more_sums, counts + more_counts
+            return pool_segment_sums(sums, counts, self.config)
 
     def memory_bytes(self) -> int:
         return self._param_bytes
 
     def warmup(self, shapes: Optional[List[List[int]]] = None) -> int:
         """Run the hot (batch, seq) buckets once through ``_forward`` (the
-        int8 path too, when quantized) so serving latency never
-        pays first-use costs (kernel build, library handles; reference
-        CacheModels runs timed warmup vectorise at startup,
-        on_start_script.py:124-195). Returns #shapes run."""
+        int8 path too, when quantized), which on CUDA captures each
+        bucket's graph, so serving latency never pays first-use costs
+        (kernel build, library handles, capture; reference CacheModels runs
+        timed warmup vectorise at startup, on_start_script.py:124-195).
+        Returns #shapes run."""
         if shapes is None:
             from marqo_tpu_torch.api import configs
             raw = configs.read_env_vars_and_defaults("MARQO_TPU_WARMUP_SHAPES")

@@ -126,6 +126,9 @@ class TorchHFCLIPModel(TorchCLIPModel):
     go through ``TorchCLIPModel``'s host preprocessing and batch buckets;
     text through the BERT-family encoder and the projection head."""
 
+    # stays eager on CUDA (a later slice graphs these towers)
+    GRAPHED = False
+
     compute_dtype = torch.bfloat16
 
     def __init__(self, model_name: str, properties: dict, device: Device,

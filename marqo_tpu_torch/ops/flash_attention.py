@@ -37,11 +37,10 @@ launches per mode, ``LOOP_LAUNCHES`` per tile loop.
 
 import ctypes
 import math
-import threading
 
 import torch
 
-from marqo_tpu_torch.ops import _build
+from marqo_tpu_torch.ops import _build, launches
 
 _MASKED_SCORE = -1e9  # finite: fully masked rows softmax to uniform
 
@@ -51,11 +50,9 @@ HEAD_DIMS = tuple(range(8, 129, 8))
 DTYPES = (torch.float32, torch.bfloat16)
 
 # kernel launches per mask mode, and per tile loop (plain ints; the twin
-# never counts); serving threads launch concurrently, so increments take
-# the lock
+# never counts; ops/launches.py adds to them, replays of a CUDA graph too)
 LAUNCHES = {"padding": 0, "segment": 0}
 LOOP_LAUNCHES = {"wgmma": 0, "mma_sync": 0, "fma": 0}
-_launches_lock = threading.Lock()
 
 # the C entry points' codes of the tile loops (csrc/attention_tile_sm90.cuh
 # `Loop`), and the loops each dtype may run
@@ -185,9 +182,9 @@ def _launch(q, k, v, mask, mode: str, loop=None) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"masked attention kernel launch failed: CUDA "
                            f"error {err}")
-    with _launches_lock:
-        LAUNCHES[mode] += 1
-        LOOP_LAUNCHES[loop] += 1
+    launches.count(launches.Launch(LAUNCHES, mode, LOOP_LAUNCHES, loop,
+                                   f"masked_attention_{mode}",
+                                   tuple(q.shape)))
     return out
 
 

@@ -34,12 +34,11 @@ tile loop.
 """
 
 import math
-import threading
 from typing import Optional
 
 import torch
 
-from marqo_tpu_torch.ops import _build
+from marqo_tpu_torch.ops import _build, launches
 from marqo_tpu_torch.ops.flash_attention import (LOOP_CODES, check_layout,
                                                  check_loop, kernel_output,
                                                  kernel_strides,
@@ -54,10 +53,9 @@ DTYPES = (torch.float32, torch.bfloat16)
 MAX_BATCH = 65535
 
 # kernel launches per mode, and per tile loop (plain ints; the twin never
-# counts); serving threads launch concurrently, so increments take the lock
+# counts; ops/launches.py adds to them, replays of a CUDA graph too)
 LAUNCHES = {"nomask": 0, "segment": 0}
 LOOP_LAUNCHES = {"wgmma": 0, "mma_sync": 0, "fma": 0}
-_launches_lock = threading.Lock()
 
 
 def _segment_ids(pad_mask, segment_ids) -> Optional[torch.Tensor]:
@@ -134,9 +132,10 @@ def _launch(q, k, v, ids, loop=None) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"fused attention kernel launch failed: CUDA "
                            f"error {err}")
-    with _launches_lock:
-        LAUNCHES["nomask" if ids is None else "segment"] += 1
-        LOOP_LAUNCHES[loop] += 1
+    mode = "nomask" if ids is None else "segment"
+    launches.count(launches.Launch(LAUNCHES, mode, LOOP_LAUNCHES, loop,
+                                   f"fused_attention_{mode}",
+                                   tuple(q.shape)))
     return out
 
 

@@ -24,20 +24,18 @@ device launches the kernels or raises. ``LAUNCHES["w8a8"]`` counts kernel
 launches (one per call, for the pair).
 """
 
-import threading
 from typing import Tuple
 
 import torch
 
-from marqo_tpu_torch.ops import _build
+from marqo_tpu_torch.ops import _build, launches
 
 MAX_K = 131072
 DTYPES = (torch.float32, torch.bfloat16)
 
-# kernel launches (plain ints; the twin never counts); serving threads
-# launch concurrently, so increments take the lock
+# kernel launches (plain ints; the twin never counts; ops/launches.py adds
+# to them, replays of a CUDA graph too)
 LAUNCHES = {"w8a8": 0}
-_launches_lock = threading.Lock()
 
 
 def quantize_rows(x32: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -120,8 +118,8 @@ def _launch(x, w_q, w_scale, bias) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"w8a8 matmul kernel launch failed: CUDA error "
                            f"{err}")
-    with _launches_lock:
-        LAUNCHES["w8a8"] += 1
+    launches.count(launches.Launch(LAUNCHES, "w8a8", None, None,
+                                   "w8a8_matmul", (M, K, N)))
     return out
 
 

@@ -29,7 +29,8 @@ PORTED = {
     "models/siglip.py", "models/resnet_clip.py", "models/convnext_clip.py",
     "models/nllb_siglip.py", "models/eva02.py", "models/coca.py",
     "models/languagebind.py", "ops/audio_ops.py", "inference/types.py",
-    "inference/batching.py", "inference/loaders.py",
+    "inference/batching.py", "inference/loaders.py", "inference/graphs.py",
+    "ops/launches.py",
     "engine/torch_scorer.py", "models/dino_vit.py", "models/yolox.py",
     "models/frcnn.py", "models/owl_vit.py", "parallel/__init__.py",
     "parallel/mesh.py", "parallel/serving.py", "parallel/encode.py",

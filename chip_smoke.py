@@ -1536,6 +1536,7 @@ def phase_hf_clip_serve(server, torch):
               f"hfclip image query: top hit {res['hits'][0]['_id']}, "
               f"expected img{probe}")
     launches = read_counts()
+    GRAPHED_FAMILIES["xlmr_clip"] = _loaded_model(TorchHFCLIPModel, name)
     stats = req("GET", "/indexes/hfclip/stats")
     check(stats.get("numberOfDocuments") == HF_CLIP_DOCS + 1,
           f"hfclip index documents: {stats}")
@@ -1548,7 +1549,8 @@ def phase_hf_clip_serve(server, torch):
          documents_in_index=stats.get("numberOfDocuments"),
          vectors_in_index=stats.get("numberOfVectors"),
          image_query_top_hit=res["hits"][0]["_id"], launches=launches,
-         launches_during_add=add_launches, model_devices=sorted(devices))
+         launches_during_add=add_launches, model_devices=sorted(devices),
+         graphs=graph_state(torch, GRAPHED_FAMILIES["xlmr_clip"].graphs))
     return add_seconds
 
 
@@ -1658,18 +1660,59 @@ def _loaded_model(model_type, name):
     return models[0]
 
 
-def _count_tower_calls(towers: dict):
-    """Forward hooks that count each tower's calls; returns the counts and
-    the hooks' handles."""
+# the models of the families phase_family_graphs holds to their CUDA
+# graphs, registered by the phases that loaded them: a wrapper, or the
+# DINO patcher or OWL reranker (each holds its own ``graphs``)
+GRAPHED_FAMILIES = {}
+
+
+def graph_state(torch, *caches) -> dict:
+    """The keys captured in ``caches`` (EncoderGraphs) and the card's
+    memory once the allocator's unused cached blocks are released, printed
+    after each graphed family's phase: whether a served mix grows the
+    graphs' pools."""
+    mib = 2 ** 20
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"graph_keys": sum(len(cache.graphs) for cache in caches),
+            "memory_allocated_mib": torch.cuda.memory_allocated() / mib,
+            "memory_reserved_mib": torch.cuda.memory_reserved() / mib}
+
+
+def _count_tower_calls(towers: dict, model_graphs=None):
+    """Count each tower's batches on the card: an eager forward, seen by a
+    forward hook outside a CUDA graph's capture (a key's warm run among
+    them), or a replay of that tower's graph in ``model_graphs`` (the
+    model's EncoderGraphs, inference/graphs.py; None for a model that
+    runs eagerly). Returns the counts and handles whose ``remove()``
+    takes the hooks and the wrapper off."""
+    import torch
+
+    from marqo_tpu_torch.inference import graphs
     calls = dict.fromkeys(towers, 0)
+    replay = graphs.Graph.replay
 
     def hook(name):
         def count(*_):
-            calls[name] += 1
+            if not (torch.cuda.is_available() and
+                    torch.cuda.is_current_stream_capturing()):
+                calls[name] += 1
         return count
 
-    return calls, [tower.register_forward_hook(hook(name))
-                   for name, tower in towers.items()]
+    def counted_replay(self):
+        if model_graphs is not None and self.key[0] in calls and \
+                model_graphs.graphs.get(self.key) is self:
+            calls[self.key[0]] += 1
+        return replay(self)
+
+    class Restore:
+        @staticmethod
+        def remove():
+            graphs.Graph.replay = replay
+
+    graphs.Graph.replay = counted_replay
+    return calls, [Restore] + [tower.register_forward_hook(hook(name))
+                               for name, tower in towers.items()]
 
 
 def _kernel_against_plain(model, torch, texts, images, media=None) -> dict:
@@ -1718,7 +1761,8 @@ def phase_siglip_serve(server, torch):
         check(res["errors"] is False, f"siglip add_documents errors: {res}")
         model = _loaded_model(TorchSigLIPModel, name)
         calls, hooks = _count_tower_calls({"text": model.encoder.text,
-                                           "vision": model.encoder.vision})
+                                           "vision": model.encoder.vision},
+                                          model.graphs)
         reset_counts()
         try:
             start = time.perf_counter()
@@ -1746,6 +1790,7 @@ def phase_siglip_serve(server, torch):
         cos = _kernel_against_plain(
             model, torch, ["a red dress", "two shoes on a shelf",
                            "a long green coat with buttons"], paths[:8])
+    GRAPHED_FAMILIES["siglip"] = model
     stats = req("GET", "/indexes/siglip/stats")
     check(stats.get("numberOfDocuments") == SIGLIP_DOCS + 1,
           f"siglip index documents: {stats}")
@@ -1766,7 +1811,8 @@ def phase_siglip_serve(server, torch):
          vectors_in_index=stats.get("numberOfVectors"),
          image_query_top_hit=image_hits[0]["_id"], tower_calls=calls,
          launches=launches, min_cosine_kernel_vs_plain=cos,
-         model_devices=sorted(devices))
+         model_devices=sorted(devices),
+         graphs=graph_state(torch, model.graphs))
     return launches, add_seconds
 
 
@@ -1798,7 +1844,8 @@ def phase_nllb_siglip_encode(torch):
     with tempfile.TemporaryDirectory() as tmp:
         images = write_images(tmp, 8, seed=14)
         calls, hooks = _count_tower_calls({"text": model.encoder.text,
-                                           "vision": model.encoder.vision})
+                                           "vision": model.encoder.vision},
+                                          model.graphs)
         reset_counts()
         try:
             text = model.encode(texts)
@@ -1827,7 +1874,9 @@ def phase_nllb_siglip_encode(torch):
     emit("nllb_siglip_encode", ok=True, texts=len(texts),
          tokens=list(tokens.shape), pad_share=padding, images=len(images),
          tower_calls=calls, launches=launches,
-         min_cosine_kernel_vs_plain=cos, model_devices=sorted(devices))
+         min_cosine_kernel_vs_plain=cos, model_devices=sorted(devices),
+         graphs=graph_state(torch, model.graphs))
+    GRAPHED_FAMILIES["nllb_siglip"] = model
     return model, launches
 
 
@@ -1883,8 +1932,9 @@ def phase_conv_clip_encode(torch):
                   f"{key}: a kernel of this package ran: {launches}")
             results[key] = {"min_cosine_bf16_vs_fp32": cos,
                             "launches": launches,
-                            "model_devices": sorted(devices)}
-            models[key] = model
+                            "model_devices": sorted(devices),
+                            "graphs": graph_state(torch, model.graphs)}
+            models[key] = GRAPHED_FAMILIES[key] = model
     emit("conv_clip_encode", ok=True, tolerance=1 - CONV_COS_TOL,
          texts=len(texts), images=len(images), **results)
     return models
@@ -1935,7 +1985,8 @@ def phase_coca_serve(server, torch):
         check(res["errors"] is False, f"coca add_documents errors: {res}")
         model = _loaded_model(TorchCoCaModel, name)
         calls, hooks = _count_tower_calls({"text": model.encoder.text,
-                                           "vision": model.encoder.vision})
+                                           "vision": model.encoder.vision},
+                                          model.graphs)
         reset_counts()
         try:
             start = time.perf_counter()
@@ -1996,6 +2047,7 @@ def phase_coca_serve(server, torch):
     for kind, value in cos.items():
         check(value >= 1 - 1e-3, f"coca {kind}, kernel against the plain "
               f"twins: cosine {value}")
+    GRAPHED_FAMILIES["coca"] = model
     stats = req("GET", "/indexes/coca/stats")
     check(stats.get("numberOfDocuments") == COCA_DOCS + 1,
           f"coca index documents: {stats}")
@@ -2008,7 +2060,8 @@ def phase_coca_serve(server, torch):
          launches=launches, min_cosine_kernel_vs_plain=cos,
          greedy_caption_ids=captions_ids,
          greedy_captions_equal_plain=captions_ids == runs["plain"][1],
-         model_devices=sorted(devices))
+         model_devices=sorted(devices),
+         graphs=graph_state(torch, model.graphs))
     return launches, add_seconds
 
 
@@ -2032,7 +2085,8 @@ def phase_eva02_encode(torch):
     with tempfile.TemporaryDirectory() as tmp:
         images = write_images(tmp, EVA02_BATCH, seed=19)
         calls, hooks = _count_tower_calls({"text": model.encoder.text,
-                                           "vision": model.encoder.vision})
+                                           "vision": model.encoder.vision},
+                                          model.graphs)
         reset_counts()
         try:
             text = model.encode(texts)
@@ -2056,7 +2110,9 @@ def phase_eva02_encode(torch):
     emit("eva02_encode", ok=True, texts=len(texts), images=len(images),
          tokens=tokens, swiglu_hidden=vision.swiglu_hidden,
          tower_calls=calls, launches=launches,
-         min_cosine_kernel_vs_plain=cos, model_devices=sorted(devices))
+         min_cosine_kernel_vs_plain=cos, model_devices=sorted(devices),
+         graphs=graph_state(torch, model.graphs))
+    GRAPHED_FAMILIES["eva02"] = model
     return model
 
 
@@ -2329,6 +2385,30 @@ def detector_served_errors(model, inputs, torch) -> dict:
     return errors
 
 
+def _first_dino_image(image_patching, method: str, path: str) -> dict:
+    """The method's DINO patcher on one image before its index's add,
+    outside chunk_image: on CUDA its first image captures the patcher's
+    one graph, the key's warm run and first replay launching B2 twice over
+    (2 x 11 no-mask launches), so that each image of the add replays it
+    (11 launches an image, as eagerly)."""
+    import numpy as np
+    from PIL import Image
+    patcher = image_patching._get_patcher(method)
+    image = np.asarray(Image.open(path).convert("RGB"))
+    reset_counts()
+    start = time.perf_counter()
+    patcher.boxes(image)
+    seconds = time.perf_counter() - start
+    launches = {k: v for k, v in read_counts().items() if v}
+    blocks = patcher.model.config.num_layers - 1
+    keys = [graph_label(key) for key in patcher.graphs.graphs]
+    check(launches == {"fused_attention_nomask": 2 * blocks} and
+          len(keys) == 1, f"{method}: the first image launched {launches} "
+          f"and captured {keys}, expected 2 x {blocks} B2 no-mask and one "
+          f"key")
+    return {"seconds": seconds, "launches": launches, "keys": keys}
+
+
 def phase_patch_serve(server, torch):
     """The detector patch methods behind the HTTP server
     (MARQO_PATCH_MODELS_RANDOM_INIT, full-width ResNet-50): one index per
@@ -2368,6 +2448,9 @@ def phase_patch_serve(server, torch):
                 "model": props["name"], "modelProperties": props,
                 "treatUrlsAndPointersAsImages": True,
                 "imagePreprocessing": {"patchMethod": method}})
+            first_image = _first_dino_image(image_patching, method,
+                                            paths[0]) \
+                if method.startswith("dino") else None
             reset_counts()
             towers_before = tower_calls[0]
             start = time.perf_counter()
@@ -2417,7 +2500,8 @@ def phase_patch_serve(server, torch):
                 "launches_in_patcher": patch["launches"],
                 "launches_outside_patcher": embed,
                 "vision_tower_calls": towers,
-                "image_query_top_hit": hits[0]["_id"]}
+                "image_query_top_hit": hits[0]["_id"],
+                "first_image_outside_add": first_image}
         # kernel against twin and card against CPU, on the served models
         images = [np.asarray(Image.open(p).convert("RGB")) for p in paths]
     finally:
@@ -2425,6 +2509,8 @@ def phase_patch_serve(server, torch):
         restore()
         tmp.cleanup()
     dino = image_patching._get_patcher("dino-v1")
+    for method in ("dino-v1", "dino-v2"):
+        GRAPHED_FAMILIES[method] = image_patching._get_patcher(method)
     check(next(dino.model.parameters()).device.type == DEVICE,
           "DINO is not on the card")
     pixels = torch.from_numpy(np.stack([
@@ -2467,7 +2553,9 @@ def phase_patch_serve(server, torch):
          yolox_control_tf32_rel_err=yolox_err["control"],
          frcnn_control_tf32_rel_err=frcnn_err["control"],
          model_devices=sorted({str(next(p.model.parameters()).device.type)
-                               for p in (dino, yolox, frcnn)}))
+                               for p in (dino, yolox, frcnn)}),
+         graphs=graph_state(torch, *(GRAPHED_FAMILIES[m].graphs
+                                     for m in ("dino-v1", "dino-v2"))))
     return per_method["dino-v1"]["launches_in_patcher"][
         "fused_attention_nomask"]
 
@@ -2530,6 +2618,22 @@ def phase_owl_rerank(server, torch):
                           for i, p in enumerate(paths)],
             "tensorFields": ["image"]})
         check(res["errors"] is False, f"owl-images add: {res}")
+        # the search's hit count scored once before it: on CUDA that
+        # captures its graph, the key's warm run and first replay
+        # launching B2 twice over; the search's scoring call replays it
+        reset_counts()
+        start = time.perf_counter()
+        score_images(query, paths)
+        first_call = {"seconds": time.perf_counter() - start,
+                      "launches": {k: v for k, v in read_counts().items()
+                                   if v},
+                      "keys": [graph_label(k)
+                               for k in reranker.graphs.graphs]}
+        check(first_call["launches"] == {
+            "fused_attention_nomask": 2 * config.vision.num_layers} and
+            len(first_call["keys"]) == 1, f"owl first scoring call "
+            f"{first_call}, expected 2 x {config.vision.num_layers} B2 "
+            f"no-mask and one key")
         reset_counts()
         start = time.perf_counter()
         hits = req("POST", "/indexes/owl-images/search", {
@@ -2575,7 +2679,10 @@ def phase_owl_rerank(server, torch):
          tokens=(config.vision.image_size // config.vision.patch_size) ** 2
          + 1, logits_min_cosine_kernel_vs_plain=logits_cos,
          boxes_max_abs_err_kernel_vs_plain=box_err,
+         first_call_outside_search=first_call,
+         graphs=graph_state(torch, reranker.graphs),
          model_device=str(next(reranker.model.parameters()).device.type))
+    GRAPHED_FAMILIES["owl"] = reranker
     rerank.clear_rerankers()
     return launches["fused_attention_nomask"]
 
@@ -3189,6 +3296,236 @@ def phase_encoder_graphs(torch, smi):
          memory_allocated_mib=torch.cuda.memory_allocated() / mib,
          memory_reserved_mib=torch.cuda.memory_reserved() / mib)
     return timing
+
+
+# --- family_graphs: the other CLIP families, DINO and OWL-ViT ----------------
+
+FAMILY_STEPS = 10  # steps a timing
+
+
+def family_label(key) -> str:
+    """``graph_label``, and "plain" where the key's config runs the
+    kernels' twins."""
+    plain = any(getattr(v, "attention_impl", None) == "plain"
+                for v in key[2])
+    return graph_label(key) + (" plain" if plain else "")
+
+
+def _family_spec(name: str, obj) -> dict:
+    """What phase_family_graphs needs of one family's loaded object (a
+    CLIP-family wrapper, a DINO patcher, the OWL reranker): its graphs,
+    its eager forward of a key (``forward(key, *tensors)``, the key's
+    tower under the key's config), its host text rows of a shape
+    (``text(shape, rng)``) and its kernels' launches a call of a key on
+    the kernels (the twins' keys launch none)."""
+    import numpy as np
+
+    from marqo_tpu_torch.inference.rerank import owl_detections
+    from marqo_tpu_torch.models.hf_clip import encode_hf_clip_text
+    if name.startswith("dino"):
+        model = obj.model
+        return {"graphs": obj.graphs,
+                "forward": lambda key, x: model.last_selfattention(x),
+                "text": None,
+                "launches": {"dino": {"fused_attention_nomask":
+                                      model.config.num_layers - 1}}}
+    if name == "owl":
+        model = obj.model
+        ids = obj._tokenize(["a red photo"])
+        return {"graphs": obj.graphs,
+                "forward": lambda key, pixels, ids: owl_detections(
+                    model, pixels, ids),
+                "text": lambda shape, rng: ids,
+                "launches": {"detect": {"fused_attention_nomask":
+                                        model.config.vision.num_layers}}}
+    text_config, vision_config = obj.text_config, obj.vision_config
+    vocab = text_config.vocab_size
+
+    def forward(key, *tensors):
+        module = getattr(obj.encoder, key[0])
+        if name == "xlmr_clip" and key[0] == "text":
+            x, = tensors
+            return encode_hf_clip_text(obj.encoder, x[:, 0],
+                                       x[:, 1].contiguous())
+        config = module.config
+        module.config = key[2][0]
+        try:
+            return module(*tensors)
+        finally:
+            module.config = config
+
+    def text(shape, rng):
+        if name in ("nllb_siglip", "xlmr_clip"):
+            rows, S = shape[0], shape[-1]
+            lengths = rng.integers(1, S + 1, rows)
+            mask = (np.arange(S)[None] < lengths[:, None]).astype(np.int32)
+            low = 2 if name == "nllb_siglip" else 5
+            ids = rng.integers(low, vocab, (rows, S)).astype(np.int32)
+            if name == "xlmr_clip":
+                return np.stack([ids * mask, mask], axis=1)
+            return np.where(mask > 0, ids, 1).astype(np.int32)
+        if name in ("siglip", "coca"):
+            return rng.integers(1, vocab, shape).astype(np.int32)
+        # CLIP text towers pool at the EOS token
+        ids = rng.integers(1, vocab - 1, shape).astype(np.int32)
+        ids[np.arange(shape[0]), rng.integers(2, shape[1], shape[0])] = \
+            text_config.eos_token_id
+        return ids
+
+    b1 = {"masked_attention_padding": text_config.num_layers}
+    b2 = {"fused_attention_nomask": text_config.num_layers}
+    # the ResNet and ConvNeXt towers run no kernel of this package
+    vision_b2 = {} if name in ("rn50", "convnext_base") else \
+        {"fused_attention_nomask": vision_config.num_layers}
+    return {"graphs": obj.graphs, "forward": forward, "text": text,
+            "launches": {
+                "text": {"siglip": b2, "nllb_siglip": b1,
+                         "xlmr_clip": b1}.get(name, {}),
+                "vision": vision_b2}}
+
+
+def phase_family_graphs(torch, smi):
+    """The families whose towers this port graphs beside e5 and ViT-L/14,
+    on the objects their phases loaded and served (GRAPHED_FAMILIES):
+    SigLIP B-16, NLLB-SigLIP base, CoCa and EVA02 ViT-L/14, XLM-R/ViT-B-32,
+    RN50, convnext_base, the dino-v1 and dino-v2 patchers and the OWL-ViT
+    B/32 reranker. Every key each captured, replayed on new inputs of its
+    shapes, against the eager forward of its tower and config on the same
+    inputs: equal bit for bit, or for the cuDNN vision towers of RN50 and
+    convnext_base, where no kernel of ours runs, bit for bit or within
+    the bf16-vs-fp32 bound of conv_clip_encode (cosine >= 1 -
+    CONV_COS_TOL, the difference recorded); B1 and B2 launches a replay
+    equal to the eager forward's and to the family's count. The control:
+    the next batch in a fresh tensor, not the static buffer, leaves the
+    replay on the old inputs. Then host, wall and device ms and the busy
+    share, eager against graph, at each tower's largest served key; the
+    keys, their capture seconds and the card's memory after each family."""
+    import numpy as np
+    mib = 2 ** 20
+    dtypes = {str(d): d for d in (torch.bfloat16, torch.float16,
+                                  torch.float32)}
+    conv_vision = ("rn50", "convnext_base")
+    rng = np.random.default_rng(70)
+    results = {}
+    for name in ("siglip", "nllb_siglip", "coca", "eva02", "xlmr_clip",
+                 "rn50", "convnext_base", "dino-v1", "dino-v2", "owl"):
+        check(name in GRAPHED_FAMILIES,
+              f"family_graphs: no {name} model was registered")
+        spec = _family_spec(name, GRAPHED_FAMILIES[name])
+        cache = spec["graphs"]
+        check(cache.device.type == DEVICE and len(cache.graphs) > 0,
+              f"family_graphs {name}: no graphs on {DEVICE}: "
+              f"{list(cache.graphs)}")
+
+        def inputs(key):
+            return [rng.integers(0, 256, shape, dtype=np.uint8)
+                    if dtype == "|u1" else spec["text"](shape, rng)
+                    for shape, dtype in key[3]]
+
+        def eager(key, arrays):
+            with torch.inference_mode():
+                return spec["forward"](key, *[torch.from_numpy(a).to(DEVICE)
+                                              for a in arrays])
+
+        def replay(key, arrays):
+            return cache.run(key[0], dtypes[key[1]], spec["forward"],
+                             *arrays, static=key[2])
+
+        keys = sorted(cache.graphs, key=family_label)
+        comparisons = []
+        for key in keys:
+            arrays = inputs(key)
+            reset_counts()
+            ref = eager(key, arrays)
+            torch.cuda.synchronize()
+            eager_counts = read_counts()
+            reset_counts()
+            out = replay(key, arrays)
+            torch.cuda.synchronize()
+            graph_counts = read_counts()
+            label = family_label(key)
+            err = float((out.float() - ref.float()).abs().max())
+            equal = bool(torch.equal(out, ref))
+            cos = min_cos(out.flatten(1), ref.flatten(1))
+            tolerance = "bit for bit"
+            if name in conv_vision and key[0] == "vision":
+                tolerance = f"bit for bit or cosine >= {1 - CONV_COS_TOL}"
+            check((equal or (tolerance != "bit for bit" and
+                             cos >= 1 - CONV_COS_TOL)) and
+                  tuple(out.shape) == tuple(ref.shape) and
+                  bool(torch.isfinite(out).all()),
+                  f"family_graphs {name} {label}: replay against eager, "
+                  f"max |diff| {err}, cosine {cos} ({tolerance})")
+            expected = {} if label.endswith(" plain") else \
+                spec["launches"][key[0]]
+            check(graph_counts == eager_counts and
+                  {k: v for k, v in graph_counts.items() if v} ==
+                  {k: v for k, v in expected.items() if v},
+                  f"family_graphs {name} {label}: launches a replay "
+                  f"{graph_counts}, eager {eager_counts}, expected "
+                  f"{expected}")
+            comparisons.append({
+                "key": label, "bit_for_bit": equal, "max_abs_diff": err,
+                "min_cosine": cos, "tolerance": tolerance,
+                "launches_a_replay": {k: v for k, v in graph_counts.items()
+                                      if v}})
+        check(sorted(cache.graphs, key=family_label) == keys,
+              f"family_graphs {name}: the comparisons captured new keys")
+
+        # each tower's key of the largest batch, on the kernels
+        timed = {}
+        for key in keys:
+            if not family_label(key).endswith(" plain") and (
+                    key[0] not in timed or
+                    key[3][0][0][0] > timed[key[0]][3][0][0][0]):
+                timed[key[0]] = key
+        # the control: the next batch in a fresh tensor, not the static
+        # buffer
+        key = timed.get("vision", next(iter(timed.values())))
+        graph = cache.graphs[key]
+        batch_a, batch_b = inputs(key), inputs(key)
+        out_a = replay(key, batch_a)
+        with torch.inference_mode():
+            stale = graph.replay()
+        expected_b = eager(key, batch_b)
+        torch.cuda.synchronize()
+        control = {"key": family_label(key),
+                   "stale_equals_b": bool(torch.equal(stale, expected_b)),
+                   "stale_equals_a": bool(torch.equal(stale, out_a))}
+        check(not control["stale_equals_b"] and control["stale_equals_a"],
+              f"family_graphs {name} control: a replay read inputs that "
+              f"were not put in its static buffer: {control}")
+
+        timing = []
+        with torch.inference_mode():
+            for tower, key in sorted(timed.items()):
+                arrays = inputs(key)
+                steps = {
+                    "eager": lambda key=key, arrays=arrays: spec["forward"](
+                        key, *[torch.from_numpy(a).to(DEVICE)
+                               for a in arrays]),
+                    "graph": lambda key=key, arrays=arrays: replay(key,
+                                                                   arrays)}
+                row = {"key": family_label(key)}
+                for mode in ("eager", "graph", "graph_again", "eager_again"):
+                    row[mode] = host_device_split(
+                        torch, steps[mode.split("_")[0]], FAMILY_STEPS)
+                timing.append(row)
+        check(sorted(cache.graphs, key=family_label) == keys,
+              f"family_graphs {name}: the timing captured new keys")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        results[name] = {
+            "keys": len(keys),
+            "capture_seconds": {family_label(k): cache.graphs[k].seconds
+                                for k in keys},
+            "comparisons": comparisons, "control": control,
+            "timing": timing,
+            "memory_allocated_mib": torch.cuda.memory_allocated() / mib,
+            "memory_reserved_mib": torch.cuda.memory_reserved() / mib}
+    emit("family_graphs", ok=True, device=torch.cuda.get_device_name(0),
+         nvidia_smi=smi, steps=FAMILY_STEPS, families=results)
+    return results
 
 
 # --- the multi-device mesh (parallel/) on the one card -----------------------
@@ -4838,6 +5175,7 @@ def main() -> int:
         check_loop(phase, "fused_attention", "wgmma")
 
     phase_encoder_graphs(torch, smi)
+    phase_family_graphs(torch, smi)
     timing, vit, encoder_times = phase_timing(
         fa, fused, qm, torch, clip_model, pixels, int8_encoder, bf16_encoder)
     emit("detector_timing", device=torch.cuda.get_device_name(0),

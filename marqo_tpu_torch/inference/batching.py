@@ -72,6 +72,26 @@ def graphs_for(model):
     return model.graphs
 
 
+def card_graphs(graphs):
+    """``graphs`` (an ``EncoderGraphs``) where it lives on a CUDA device,
+    else None: ``graphs_for``'s rule for the callers that hold one module
+    outside the serving mesh, the DINO patcher and the OWL reranker."""
+    return graphs if graphs.device.type == "cuda" else None
+
+
+def tower_encode(model, array, tower: str, pad_value=0):
+    """``model.encoder``'s ``tower`` ("text" or "vision") over ``array`` in
+    batch buckets (``batched_device_encode``), each bucket through the
+    model's graph of the tower keyed by the tower's config: the CLIP-family
+    wrappers' ``_run``."""
+    import torch
+    module = getattr(model.encoder, tower)
+    with torch.inference_mode():
+        return batched_device_encode(
+            model, array, lambda encoder, x: getattr(encoder, tower)(x),
+            pad_value, graph=tower, static=(module.config,))
+
+
 def batched_device_encode(model, array, forward, pad_value=0, graph=None,
                           static=()):
     """Pad ``array`` rows to batch buckets (``pad_value``: a scalar or one

@@ -5,29 +5,34 @@ The JAX package runs each encoder as one XLA program per static bucket
 shape (marqo_tpu/models/bert.py ``encode_tokens_jit``,
 ``encode_tokens_packed_jit`` with a static ``num_sequences``;
 marqo_tpu/models/clip.py ``encode_clip_image_jit``,
-``encode_clip_text_jit``), compiled at a shape's first call or ahead of
-it by the loaders' ``warmup``, so a batch is one dispatch. Eager PyTorch
-instead issues every op of every layer from Python, each kernel call
-through its wrapper's checks and a ctypes call. Here a forward is captured
+``encode_clip_text_jit``, and the other CLIP families', DINO's
+``last_selfattention_jit`` and OWL-ViT's ``detect_jit``), compiled at a
+shape's first call or ahead of it by the loaders' ``warmup``, so a batch
+is one dispatch. Eager PyTorch instead issues every op of every layer
+from Python, each kernel call through its wrapper's checks and a ctypes
+call. Here a forward is captured
 once per key as a ``torch.cuda.CUDAGraph`` over static input and output
 tensors, and each batch replays it with one host call; the graph holds the
 same kernels (B1, B2, B3 and the library's matmuls) with the pointers and
 TMA maps of the capture, so every replay reads the same static inputs.
 
 ``EncoderGraphs`` holds one model's graphs, keyed by the tower's name
-("padded", "packed", "text", "vision"), the compute dtype, the static
-values the forward was built with (a config, the packed path's sequence
-bucket) and every input's shape and dtype; never by the callable, which
-callers pass as a new lambda each time. On a miss it runs the forward once
-eagerly on a side stream (the kernel library loads and the kernels' first
-launch sets their shared-memory attributes outside capture), then captures
-it; all graphs of a model share one memory pool. A replay copies the
+("padded", "packed", "text", "vision", "dino", "detect"), the compute
+dtype, the static values the forward was built with (a config, the
+packed path's sequence bucket) and every input's shape and dtype; never
+by the callable, which callers pass as a new lambda each time. On a miss
+it runs the forward once eagerly on a side stream (the kernel library
+loads, the kernels' first launch sets their shared-memory attributes and
+cuDNN picks its plans outside capture), then captures it; all graphs of a
+model share one memory pool. A replay copies the
 host batch into the static inputs through pinned memory, replays and
 returns a clone of the static output, all under the model's lock: callers
 keep several outputs pending before their one copy to the host, and
 serving threads call one model at once. A capture or replay error raises;
 nothing gives way to the eager forward. Only CUDA models without a
-serving mesh come here (inference/batching.py ``graphs_for``).
+serving mesh come here (inference/batching.py ``graphs_for``), and the
+DINO patcher and the OWL reranker on CUDA, each with graphs of its own
+(``card_graphs``).
 
 The launches a capture records (ops/launches.py) are added to the
 kernels' counts on every replay, so the counts keep meaning launches on

@@ -17,7 +17,9 @@ replace tiny boxes with centered 100×100 → clip → class-agnostic NMS
 Device shape: detectors are PyTorch modules (models/dino_vit.py,
 models/yolox.py, models/frcnn.py) on the serving device
 (Device.normalize(None)), one image per call and one copy back to the host
-per image, with the box pipeline in numpy on the host. Real detector
+per image, with the box pipeline in numpy on the host; on CUDA each DINO
+patcher replays one CUDA graph of its attention map (inference/graphs.py),
+captured at its first image. Real detector
 weights are hub-gated offline (like the reference's torch-hub/onnx
 downloads); MARQO_PATCH_MODELS_RANDOM_INIT=TRUE runs deterministic
 random-init detectors (weights drawn from a torch.Generator seeded from
@@ -180,6 +182,7 @@ class _DinoPatcher:
     def __init__(self, attention_method: str):
         import torch
 
+        from marqo_tpu_torch.inference.graphs import EncoderGraphs
         from marqo_tpu_torch.models.dino_vit import DinoViTConfig, init_params
         self.method = attention_method  # 'abs' (v1) | 'pos' (v2)
         self.config = DinoViTConfig.vit_small(patch_size=16)
@@ -190,6 +193,8 @@ class _DinoPatcher:
                 dtype=torch.bfloat16, device=self.device)
         else:
             self.model = self._load_real_weights()
+        # this patcher's own graphs and lock: v1 and v2 hold a model each
+        self.graphs = EncoderGraphs(self.device)
 
     def _load_real_weights(self):
         import os
@@ -210,16 +215,29 @@ class _DinoPatcher:
             "deployment), or set MARQO_PATCH_MODELS_RANDOM_INIT=TRUE for "
             "a synthetic-weight smoke mode.")
 
+    def attention(self, pixels: np.ndarray):
+        """(1, size, size, 3) uint8 → the last block's CLS attention maps,
+        (1, heads, n_side, n_side) fp32 on the device: on CUDA the replay
+        of this patcher's graph, captured at its first image."""
+        import torch
+
+        from marqo_tpu_torch.inference import batching
+        model = self.model
+        graphs = batching.card_graphs(self.graphs)
+        if graphs is None:
+            with torch.inference_mode():
+                return model.last_selfattention(
+                    torch.from_numpy(pixels).to(self.device))
+        return graphs.run("dino", model.patch_embedding.dtype,
+                          model.last_selfattention, pixels,
+                          static=(model.config,))
+
     def boxes(self, image: np.ndarray) -> Tuple[List[Tuple], List[float]]:
         import cv2
-        import torch
         size = self.config.image_size
         resized = cv2.resize(image, (size, size),
                              interpolation=cv2.INTER_LINEAR)
-        with torch.inference_mode():
-            attn = self.model.last_selfattention(
-                torch.from_numpy(resized[None]).to(self.device))
-        attn = attn.cpu().numpy()[0]
+        attn = self.attention(resized[None]).cpu().numpy()[0]
         # upsample patch grid → pixels (reference: nearest, scale=patch)
         maps = np.repeat(np.repeat(attn, self.config.patch_size, axis=1),
                          self.config.patch_size, axis=2)

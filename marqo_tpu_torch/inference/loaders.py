@@ -11,10 +11,12 @@ Multi-device serving (parallel/serving.py): when the process serving mesh
 spans a model's device, ``load`` places a replica of its module on each
 data-parallel group (the float BERT encoder split over the group's tp
 devices), and every encode batch splits across the groups; without a mesh
-a model runs on its one device, where the BERT-family text encoder and
-the ViT CLIP towers replay one CUDA graph per bucket (inference/graphs.py)
-on CUDA. Served: the BERT-family text encoder (bf16, or
-int8 W8A8 with ``quantize``), Stella (``hf_stella``), the ViT CLIP towers
+a model runs on its one device, where on CUDA the BERT-family text
+encoder and the towers of the CLIP family (ViT, HF-text, ResNet,
+ConvNeXt, SigLIP, NLLB-SigLIP, CoCa, EVA02) replay one CUDA graph per
+bucket (inference/graphs.py); Stella and LanguageBind run eagerly.
+Served: the BERT-family text encoder (bf16, or int8 W8A8 with
+``quantize``), Stella (``hf_stella``), the ViT CLIP towers
 (models/clip.py), the HF-text CLIP composites (models/hf_clip.py), SigLIP,
 ResNet-CLIP, ConvNeXt-CLIP, NLLB-SigLIP, CoCa, EVA02-CLIP and LanguageBind:
 every registry entry.

@@ -46,16 +46,28 @@ OWL_MODEL_MAP = {
 }
 
 
+def owl_detections(model, pixels, ids):
+    """OWL-ViT's ``detect`` as one tensor, (B, P, 5) fp32: each patch's
+    probability for the query, then its cxcywh box in [0, 1]."""
+    import torch
+
+    from marqo_tpu_torch.models.owl_vit import detect
+    logits, boxes = detect(model, pixels, ids)
+    return torch.cat([torch.sigmoid(logits[..., :1]), boxes], dim=-1)
+
+
 class TorchOwlReranker:
     """OWL-ViT image reranker (models/owl_vit.py) on one device, in bf16.
     Scores each hit's image by its best box for the query; highlight = that
     box in original-image pixel corners (reference sort_owl_boxes_scores +
-    rescale_box)."""
+    rescale_box). On CUDA each scoring call replays one CUDA graph per hit
+    count (inference/graphs.py), captured at the count's first call."""
 
     def __init__(self, model_name: str, device: Device,
                  properties: Optional[dict] = None):
         import torch
 
+        from marqo_tpu_torch.inference.graphs import EncoderGraphs
         from marqo_tpu_torch.models.owl_vit import OwlViTConfig
         self.model_name = model_name
         self.properties = dict(properties or {})
@@ -65,6 +77,7 @@ class TorchOwlReranker:
         self.config: Optional[OwlViTConfig] = None
         self.model = None
         self.tokenizer = None
+        self.graphs = EncoderGraphs(self._device)
 
     def load(self) -> None:
         import torch
@@ -172,12 +185,29 @@ class TorchOwlReranker:
         img = img.resize((size, size), Image.BICUBIC)
         return np.asarray(img, dtype=np.uint8), orig
 
+    def detections(self, pixels: np.ndarray, ids: np.ndarray):
+        """(B, size, size, 3) uint8 images and (1, L) query ids → (B, P, 5)
+        fp32 on the device: each patch's query probability, then its
+        cxcywh box in [0, 1]. On CUDA the replay of this reranker's graph
+        of the batch's image count, captured at the count's first call."""
+        import torch
+
+        from marqo_tpu_torch.inference import batching
+        model = self.model
+        graphs = batching.card_graphs(self.graphs)
+        if graphs is None:
+            with torch.inference_mode():
+                return owl_detections(
+                    model, torch.from_numpy(pixels).to(self._device),
+                    torch.from_numpy(ids).to(self._device))
+        return graphs.run(
+            "detect", model.merge_ln.weight.dtype,
+            lambda pixels, ids: owl_detections(model, pixels, ids), pixels,
+            ids, static=(model.text.config, model.vision.config))
+
     def score_images(self, query: str, pointers: List) -> List[dict]:
         """Per image: {'score': best box score, 'box': [x1,y1,x2,y2] in
         original pixels, 'boxes'/'scores': top-k lists} — or {'error'}."""
-        import torch
-
-        from marqo_tpu_torch.models.owl_vit import detect
         ids = self._tokenize([query])
         loaded, sizes, index = [], [], []
         results: List[Optional[dict]] = [None] * len(pointers)
@@ -190,15 +220,9 @@ class TorchOwlReranker:
             except Exception as e:
                 results[i] = {"error": str(e)}
         if loaded:
-            with torch.inference_mode():
-                logits, boxes = detect(
-                    self.model,
-                    torch.from_numpy(np.stack(loaded)).to(self._device),
-                    torch.from_numpy(ids).to(self._device))
-                # (B, P) probabilities and (B, P, 4) cxcywh boxes in
-                # [0,1], in one copy back to the host
-                best = torch.cat([torch.sigmoid(logits[..., :1]), boxes],
-                                 dim=-1).cpu().numpy()
+            # (B, P) probabilities and (B, P, 4) cxcywh boxes in [0,1], in
+            # one copy back to the host
+            best = self.detections(np.stack(loaded), ids).cpu().numpy()
             probs, boxes = best[..., 0], best[..., 1:]
             for row, i in enumerate(index):
                 best = int(np.argmax(probs[row]))

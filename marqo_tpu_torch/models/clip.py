@@ -37,7 +37,7 @@ import torch
 import torch.nn as nn
 
 from marqo_tpu_torch.core.exceptions import ModelLoadError, VectoriseError
-from marqo_tpu_torch.inference.batching import batched_device_encode
+from marqo_tpu_torch.inference.batching import tower_encode
 from marqo_tpu_torch.inference.graphs import EncoderGraphs
 from marqo_tpu_torch.inference.types import Device, Modality
 from marqo_tpu_torch.models.bert import (empty_module, fill_parameters,
@@ -573,9 +573,6 @@ class TorchCLIPModel:
     without one it runs on its one device."""
 
     compute_dtype = torch.bfloat16
-    # on CUDA both towers replay a CUDA graph per bucket; the subclasses
-    # whose towers are not ViT-CLIP's stay eager
-    GRAPHED = True
 
     def __init__(self, model_name: str, properties: dict, device: Device,
                  model_auth=None):
@@ -716,15 +713,10 @@ class TorchCLIPModel:
         """The ``tower`` ("text" or "vision") of this model's encoder over
         ``array`` in batch buckets, the short last bucket filled with
         ``pad_value`` (a scalar or one row); one device-to-host copy. On
-        CUDA, where ``GRAPHED``, the tower replays one graph per bucket
-        (inference/graphs.py); ``batched_device_encode`` without ``graph``
-        is the eager forward."""
-        graph = tower if self.GRAPHED else None
-        static = (getattr(self.encoder, tower).config,) if graph else ()
-        with torch.inference_mode():
-            return batched_device_encode(
-                self, array, lambda encoder, x: getattr(encoder, tower)(x),
-                pad_value, graph=graph, static=static)
+        CUDA the tower replays one graph per bucket (inference/graphs.py),
+        in every subclass: the ResNet and ConvNeXt towers and the HF
+        composite's too."""
+        return tower_encode(self, array, tower, pad_value)
 
     def _encode_text(self, texts: List[str]) -> np.ndarray:
         ids = self._tokenize(texts)
@@ -762,9 +754,8 @@ class TorchCLIPModel:
     def warmup(self, images: int = 16) -> int:
         """Encode the image buckets of 1 and ``images`` and the text buckets
         of as many captions once each: on CUDA that captures the towers'
-        graphs, so serving never pays a capture (elsewhere, and in the
-        subclasses that stay eager, it is an eager warm run). Returns
-        #buckets run."""
+        graphs, so serving never pays a capture (elsewhere it is an eager
+        warm run). Returns #buckets run."""
         size = self.vision_config.image_size
         for n in (1, images):
             self._run(np.zeros((n, size, size, 3), dtype=np.uint8),

@@ -40,7 +40,8 @@ import torch
 import torch.nn as nn
 
 from marqo_tpu_torch.core.exceptions import ModelLoadError, VectoriseError
-from marqo_tpu_torch.inference.batching import batched_device_encode
+from marqo_tpu_torch.inference.batching import tower_encode
+from marqo_tpu_torch.inference.graphs import EncoderGraphs
 from marqo_tpu_torch.inference.types import Device, Modality
 from marqo_tpu_torch.logging import get_logger
 from marqo_tpu_torch.models.bert import (empty_module, fill_parameters,
@@ -419,6 +420,7 @@ class TorchEVA02Model:
         self._device = torch.device(
             "cuda" if device == Device.CUDA else "cpu")
         self._param_bytes = 0
+        self.graphs = EncoderGraphs(self._device)
 
     @property
     def dimensions(self) -> int:
@@ -544,11 +546,10 @@ class TorchEVA02Model:
 
     def _run(self, array: np.ndarray, tower: str) -> np.ndarray:
         """The ``tower`` ("text" or "vision") of this model's encoder over
-        ``array`` in batch buckets, split across the serving mesh's
-        data-parallel groups when there is one."""
-        with torch.inference_mode():
-            return batched_device_encode(
-                self, array, lambda encoder, x: getattr(encoder, tower)(x))
+        ``array`` in batch buckets: on CUDA one graph per bucket (the RoPE
+        tables are buffers, read by the capture in place), under a serving
+        mesh split across its data-parallel groups."""
+        return tower_encode(self, array, tower)
 
     def encode(self, contents: List[Any], normalize: bool = True,
                modality: Modality = Modality.TEXT) -> np.ndarray:

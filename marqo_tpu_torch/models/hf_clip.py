@@ -126,9 +126,6 @@ class TorchHFCLIPModel(TorchCLIPModel):
     go through ``TorchCLIPModel``'s host preprocessing and batch buckets;
     text through the BERT-family encoder and the projection head."""
 
-    # stays eager on CUDA (a later slice graphs these towers)
-    GRAPHED = False
-
     compute_dtype = torch.bfloat16
 
     def __init__(self, model_name: str, properties: dict, device: Device,
@@ -338,9 +335,10 @@ class TorchHFCLIPModel(TorchCLIPModel):
         pad_row = np.zeros(both.shape[1:], dtype=np.int32)
         pad_row[1, 0] = 1
 
+        # on CUDA one graph per (batch bucket, text length)
         from marqo_tpu_torch.inference.batching import batched_device_encode
         with torch.inference_mode():
             return batched_device_encode(
                 self, both, lambda encoder, padded: encode_hf_clip_text(
                     encoder, padded[:, 0], padded[:, 1].contiguous()),
-                pad_row)
+                pad_row, graph="text", static=(self.encoder.text.config,))

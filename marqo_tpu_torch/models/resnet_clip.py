@@ -342,9 +342,6 @@ class ConvCLIPModel(TorchCLIPModel):
     (shorter-side resize, centre crop) are ``TorchCLIPModel``'s. A subclass
     gives ``family`` and ``_load_from_checkpoint`` / ``_load_random_init``."""
 
-    # stays eager on CUDA (a later slice graphs these towers)
-    GRAPHED = False
-
     family = ""
 
     @property

@@ -36,7 +36,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from marqo_tpu_torch.core.exceptions import ModelLoadError, VectoriseError
-from marqo_tpu_torch.inference.batching import batched_device_encode
+from marqo_tpu_torch.inference.batching import tower_encode
+from marqo_tpu_torch.inference.graphs import EncoderGraphs
 from marqo_tpu_torch.inference.types import Device, Modality
 from marqo_tpu_torch.models.bert import (empty_module, fill_parameters,
                                          random_init)
@@ -406,6 +407,7 @@ class TorchSigLIPModel:
         self._device = torch.device(
             "cuda" if device == Device.CUDA else "cpu")
         self._param_bytes = 0
+        self.graphs = EncoderGraphs(self._device)
 
     @property
     def dimensions(self) -> int:
@@ -520,12 +522,11 @@ class TorchSigLIPModel:
     def _run(self, array: np.ndarray, tower: str,
              pad_value=0) -> np.ndarray:
         """The ``tower`` ("text" or "vision") of this model's encoder over
-        ``array`` in batch buckets, split across the serving mesh's
-        data-parallel groups when there is one; one device-to-host copy."""
-        with torch.inference_mode():
-            return batched_device_encode(
-                self, array, lambda encoder, x: getattr(encoder, tower)(x),
-                pad_value)
+        ``array`` in batch buckets: on CUDA one graph per bucket (and per
+        text length, NLLB-SigLIP's texts being padded to their batch's
+        longest), under a serving mesh split across its data-parallel
+        groups; one device-to-host copy."""
+        return tower_encode(self, array, tower, pad_value)
 
     def _tokenize(self, texts: List[str]) -> np.ndarray:
         # SigLIP pools the LAST position: pad to the full context length

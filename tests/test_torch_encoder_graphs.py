@@ -321,9 +321,42 @@ def test_clip_towers_replay_their_graphs(monkeypatch):
     assert capture.captures == 4  # 5 images and 3 texts take bucket 8
 
 
-def test_eager_clip_subclasses_keep_their_towers_eager():
+RN50_PROPS = {"type": "open_clip", "random_init": True, "dimensions": 16,
+              "image_size": 64,
+              "architecture": {"vocab_size": 256, "text_hidden_size": 32,
+                               "text_layers": 1, "text_heads": 2,
+                               "text_intermediate": 64, "width": 16,
+                               "heads": 2}}
+XLMR_PROPS = {"type": "open_clip", "random_init": True, "dimensions": 16,
+              "image_size": 32, "architecture": {"vocab_size": 256}}
+
+
+def test_eager_clip_subclasses_keep_their_towers_eager(monkeypatch):
+    """The CLIP subclasses that ran eagerly before, ConvCLIPModel's (the
+    ResNet and ConvNeXt towers) and TorchHFCLIPModel (XLM-R text), now
+    replay their graphs as TorchCLIPModel does: no ``GRAPHED`` flag is
+    left, the inherited ``warmup`` captures both towers' buckets and
+    ``encode`` returns the eager rows."""
     from marqo_tpu_torch.models.clip import TorchCLIPModel
     from marqo_tpu_torch.models.hf_clip import TorchHFCLIPModel
-    from marqo_tpu_torch.models.resnet_clip import ConvCLIPModel
-    assert TorchCLIPModel.GRAPHED
-    assert not ConvCLIPModel.GRAPHED and not TorchHFCLIPModel.GRAPHED
+    from marqo_tpu_torch.models.resnet_clip import TorchResNetCLIPModel
+    assert not hasattr(TorchCLIPModel, "GRAPHED")
+    for cls, props in ((TorchResNetCLIPModel, RN50_PROPS),
+                       (TorchHFCLIPModel, XLMR_PROPS)):
+        assert not hasattr(cls, "GRAPHED")
+        eager = cls(f"graphs-test-{cls.__name__}", dict(props), Device.CPU)
+        eager.load()
+        model = cls(f"graphs-test-{cls.__name__}", dict(props), Device.CPU)
+        model.load()
+        capture = _graphed(monkeypatch, model)
+        assert model.warmup(images=8) == 4
+        assert sorted(key[0] for key in model.graphs.graphs) == \
+            ["text", "text", "vision", "vision"] and capture.captures == 4
+        size = props["image_size"]
+        pixels = np.random.default_rng(4).integers(
+            0, 256, (5, size, size, 3), dtype=np.uint8)
+        np.testing.assert_array_equal(model._run(pixels, "vision"),
+                                      eager._run(pixels, "vision"))
+        texts = ["a red photo", "a green photo", "blue"]
+        np.testing.assert_array_equal(model.encode(texts),
+                                      eager.encode(texts))

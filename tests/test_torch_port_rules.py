@@ -72,12 +72,14 @@ DELIBERATE_EDITS = {
                                    "hold torch modules on the serving "
                                    "device, their random weights drawn from "
                                    "a torch.Generator; one host copy per "
-                                   "image",
+                                   "image; on CUDA each DINO patcher "
+                                   "replays a CUDA graph of its own",
     "inference/rerank.py": "the cross-encoder is models/cross_encoder.py's "
                            "TorchCrossEncoder and the OWL-ViT reranker "
                            "TorchOwlReranker: a torch module on one device, "
                            "random weights from a torch.Generator, one host "
-                           "copy per batch",
+                           "copy per batch; on CUDA one CUDA graph per hit "
+                           "count",
 }
 
 

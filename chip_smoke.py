@@ -152,6 +152,21 @@ phases and prints one JSON object per phase:
                    phase); the detectors' device ms per image come from
                    scripts/profile_torch_encoder.py
 
+The CUDA graphs, before timing: encoder_graphs (e5-base bf16 and int8,
+ViT-L/14, loaded and warmed afresh), family_graphs (every key the other
+CLIP families, the DINO patchers and the OWL reranker captured while they
+served) and last_family_graphs (every key Stella, the cross-encoder, the
+YOLOX and Faster R-CNN patchers and LanguageBind's four towers captured
+while they served, and Stella's warmup of a 1 x 16 query and a 16 x 128
+batch): each key's replay on new inputs against the eager forward under
+its config, bit for bit; the kernels' launches a replay as eager's (24
+B1 a Stella batch, 6 a cross-encoder batch, 24 B2 a LanguageBind image
+or audio call, 48 a video); the stale-input control; host, wall and
+device ms and the busy share, eager against graph; capture seconds, keys
+and the card's memory. The detectors' replays, with cuDNN's TF32 on in
+the process, within 1e-3 of the fp32 CPU run; a graph captured from the
+forward's body outside ``fp32_convolutions`` (TF32 on) must miss it.
+
 The serving mesh (marqo_tpu_torch/parallel/) on the one card, as a virtual
 mesh (the card repeated), forced with MARQO_TPU_SERVING_MESH=TRUE and
 MARQO_TPU_MESH_SHAPE; every phase above serves without one:
@@ -1461,9 +1476,11 @@ def phase_rerank(server, torch):
               f"by {gap}")
     check(launches["masked_attention_padding"] > 0,
           f"rerank did not run B1 padding mode: {launches}")
+    GRAPHED_FAMILIES["cross_encoder"] = model
     emit("rerank", ok=True, queries=len(queries), hits=10,
          top_scores=[r["hits"][0]["_score"] for r in results],
-         launches=launches, model_device=DEVICE)
+         launches=launches, model_device=DEVICE,
+         graphs=graph_state(torch, model.graphs))
     return launches
 
 
@@ -1481,12 +1498,16 @@ def phase_stella_serve(server, torch):
     check(devices == {DEVICE}, f"Stella parameters on {devices}")
     check(run["launches"]["masked_attention_padding"] > 0,
           f"stella serve did not run B1: {run['launches']}")
+    model = GRAPHED_FAMILIES["stella"] = _loaded_model(TorchStellaModel,
+                                                       props["name"])
     emit("stella_serve", ok=True, docs=run["docs"],
          documents_in_index=run["documents_in_index"],
          vectors_in_index=run["vectors_in_index"],
          searches=len(run["latencies"]), launches=run["launches"],
          launches_during_add=run["add_launches"],
-         model_devices=sorted(devices))
+         model_devices=sorted(devices),
+         graph_captures=run["graph_captures"],
+         graphs=graph_state(torch, model.graphs))
     return run
 
 
@@ -2174,7 +2195,8 @@ def phase_languagebind_serve(server, torch):
         model = _loaded_model(TorchLanguageBindModel, name)
         towers = {"text": model.encoder.text, "image": model.encoder.vision,
                   "audio": model.encoder.audio}
-        calls, hooks = _count_tower_calls(towers)
+        # the tower names are the graphs' own: a replay counts as a call
+        calls, hooks = _count_tower_calls(towers, model.graphs)
         reset_counts()
         try:
             start = time.perf_counter()
@@ -2223,6 +2245,7 @@ def phase_languagebind_serve(server, torch):
           f"languagebind index documents and vectors: {stats}")
     devices = _model_devices(TorchLanguageBindModel)
     check(devices == {DEVICE}, f"LanguageBind parameters on {devices}")
+    GRAPHED_FAMILIES["languagebind"] = model
     emit("languagebind_serve", ok=True,
          audio_docs=LANGUAGEBIND_CLIPS, image_docs=LANGUAGEBIND_IMAGES + 1,
          audio_tokens=model.audio_config.n_tokens + 1,
@@ -2231,7 +2254,8 @@ def phase_languagebind_serve(server, torch):
          vectors_in_index=stats.get("numberOfVectors"),
          audio_query_top_hit=audio_hits[0]["_id"], tower_calls=calls,
          launches=launches, min_cosine_kernel_vs_plain=cos,
-         model_devices=sorted(devices))
+         model_devices=sorted(devices),
+         graphs=graph_state(torch, model.graphs))
     return model, launches, add_seconds
 
 
@@ -2241,7 +2265,10 @@ def phase_languagebind_video(model, torch):
     served LanguageBind model: the wrapper encodes one video per call, each
     layer's temporal attention (257 tokens x 8 frames) and spatial
     attention (8 frames x 257 tokens) on B2's no-mask mode, 48 launches per
-    video; held against the plain twins on the same card."""
+    video; held against the plain twins on the same card. The tower is
+    assigned to the serving model, so its first video captures the video
+    key (the warm run and the replay: twice 48 launches) before the
+    counted window."""
     import numpy as np
 
     from marqo_tpu_torch.inference.types import Modality
@@ -2255,6 +2282,19 @@ def phase_languagebind_video(model, torch):
     rng = np.random.default_rng(23)
     videos = [[rng.integers(0, 256, (240, 320, 3), dtype=np.uint8)
                for _ in range(config.num_frames)] for _ in range(VIDEO_COUNT)]
+    per_video = 2 * config.num_layers if config.add_time_attn else \
+        config.num_layers
+    reset_counts()
+    start = time.perf_counter()
+    model.encode(videos[:1], modality=Modality.VIDEO)
+    first = {"seconds": time.perf_counter() - start,
+             "launches": {k: v for k, v in read_counts().items() if v},
+             "keys": [graph_label(key) for key in model.graphs.graphs
+                      if key[0] == "video"]}
+    check(first["launches"] == {"fused_attention_nomask": 2 * per_video} and
+          len(first["keys"]) == 1, f"video: the first video launched "
+          f"{first['launches']} and captured {first['keys']}, expected "
+          f"2 x {per_video} B2 no-mask and one key")
     reset_counts()
     out = model.encode(videos, modality=Modality.VIDEO)
     launches = read_counts()
@@ -2262,8 +2302,6 @@ def phase_languagebind_video(model, torch):
                                 {"video": (Modality.VIDEO, videos)})
     check(out.shape == (VIDEO_COUNT, LANGUAGEBIND_DIMS) and np_finite(out),
           f"video output {out.shape}")
-    per_video = 2 * config.num_layers if config.add_time_attn else \
-        config.num_layers
     check(launches["fused_attention_nomask"] == per_video * VIDEO_COUNT and
           sum(launches.values()) == launches["fused_attention_nomask"],
           f"video: expected {per_video} B2 no-mask launches per video: "
@@ -2274,7 +2312,8 @@ def phase_languagebind_video(model, torch):
          frames=config.num_frames, tokens=(config.image_size //
                                            config.patch_size) ** 2 + 1,
          launches=launches, launches_per_video=per_video,
-         min_cosine_kernel_vs_plain=cos)
+         first_video_before_the_count=first, min_cosine_kernel_vs_plain=cos,
+         graphs=graph_state(torch, model.graphs))
     return launches
 
 
@@ -2344,6 +2383,26 @@ def _relative_error(a, b) -> float:
                  b.float().abs().max().clamp_min(1e-30))
 
 
+def detector_error(card, ref) -> float:
+    """A detector's outputs on the card against its fp32 CPU run,
+    relative to each output group's largest magnitude, the largest:
+    YOLOX's (B, N, 85) by xy, wh, objectness and classes, Faster R-CNN's
+    levels by each level's objectness and deltas."""
+    import torch
+    if isinstance(card, torch.Tensor):
+        return max(_relative_error(card[..., s].cpu(), ref[..., s])
+                   for s in (slice(0, 2), slice(2, 4), slice(4, 5),
+                             slice(5, None)))
+    return max(_relative_error(c.cpu(), r)
+               for c_level, r_level in zip(card, ref)
+               for c, r in zip(c_level, r_level))
+
+
+# the detectors' inputs patch_serve held against the fp32 CPU run (by
+# family_graphs' name), which last_family_graphs replays
+DETECTOR_INPUTS = {}
+
+
 def detector_served_errors(model, inputs, torch) -> dict:
     """A detector's card outputs with cuDNN's TF32 on, as a served process
     has it (PyTorch's default), against the same module's fp32 CPU run, on
@@ -2354,16 +2413,6 @@ def detector_served_errors(model, inputs, torch) -> dict:
     miss the tolerance. Returns the largest error of each."""
     import copy
     host = copy.deepcopy(model).cpu()
-
-    def error(card, ref):
-        if isinstance(card, torch.Tensor):
-            return max(_relative_error(card[..., s].cpu(), ref[..., s])
-                       for s in (slice(0, 2), slice(2, 4), slice(4, 5),
-                                 slice(5, None)))
-        return max(_relative_error(c.cpu(), r)
-                   for c_level, r_level in zip(card, ref)
-                   for c, r in zip(c_level, r_level))
-
     errors = {"served": 0.0, "control": 0.0}
     setting = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = True
@@ -2373,8 +2422,8 @@ def detector_served_errors(model, inputs, torch) -> dict:
                 ref = host(x)
                 for key, fn in (("served", model),
                                 ("control", model._forward)):
-                    errors[key] = max(errors[key], error(fn(x.to(DEVICE)),
-                                                         ref))
+                    errors[key] = max(errors[key], detector_error(
+                        fn(x.to(DEVICE)), ref))
     finally:
         torch.backends.cudnn.allow_tf32 = setting
     check(errors["served"] <= DETECTOR_REL_TOL < errors["control"],
@@ -2385,12 +2434,12 @@ def detector_served_errors(model, inputs, torch) -> dict:
     return errors
 
 
-def _first_dino_image(image_patching, method: str, path: str) -> dict:
-    """The method's DINO patcher on one image before its index's add,
-    outside chunk_image: on CUDA its first image captures the patcher's
-    one graph, the key's warm run and first replay launching B2 twice over
-    (2 x 11 no-mask launches), so that each image of the add replays it
-    (11 launches an image, as eagerly)."""
+def _first_patch_image(image_patching, method: str, path: str) -> dict:
+    """The method's patcher on one image before its index's add, outside
+    chunk_image: on CUDA its first image captures the patcher's one graph,
+    the key's warm run and first replay launching twice what an image
+    does (DINO 2 x 11 B2 no-mask, YOLOX and Faster R-CNN no kernel of
+    ours), so that each image of the add replays it."""
     import numpy as np
     from PIL import Image
     patcher = image_patching._get_patcher(method)
@@ -2400,12 +2449,14 @@ def _first_dino_image(image_patching, method: str, path: str) -> dict:
     patcher.boxes(image)
     seconds = time.perf_counter() - start
     launches = {k: v for k, v in read_counts().items() if v}
-    blocks = patcher.model.config.num_layers - 1
+    expected = {}
+    if method.startswith("dino"):
+        expected = {"fused_attention_nomask":
+                    2 * (patcher.model.config.num_layers - 1)}
     keys = [graph_label(key) for key in patcher.graphs.graphs]
-    check(launches == {"fused_attention_nomask": 2 * blocks} and
-          len(keys) == 1, f"{method}: the first image launched {launches} "
-          f"and captured {keys}, expected 2 x {blocks} B2 no-mask and one "
-          f"key")
+    check(launches == expected and len(keys) == 1,
+          f"{method}: the first image launched {launches} and captured "
+          f"{keys}, expected {expected} and one key")
     return {"seconds": seconds, "launches": launches, "keys": keys}
 
 
@@ -2448,9 +2499,8 @@ def phase_patch_serve(server, torch):
                 "model": props["name"], "modelProperties": props,
                 "treatUrlsAndPointersAsImages": True,
                 "imagePreprocessing": {"patchMethod": method}})
-            first_image = _first_dino_image(image_patching, method,
-                                            paths[0]) \
-                if method.startswith("dino") else None
+            first_image = _first_patch_image(image_patching, method,
+                                             paths[0])
             reset_counts()
             towers_before = tower_calls[0]
             start = time.perf_counter()
@@ -2509,8 +2559,9 @@ def phase_patch_serve(server, torch):
         restore()
         tmp.cleanup()
     dino = image_patching._get_patcher("dino-v1")
-    for method in ("dino-v1", "dino-v2"):
-        GRAPHED_FAMILIES[method] = image_patching._get_patcher(method)
+    for method, name in (("dino-v1", "dino-v1"), ("dino-v2", "dino-v2"),
+                         ("marqo-yolo", "yolox"), ("frcnn", "frcnn")):
+        GRAPHED_FAMILIES[name] = image_patching._get_patcher(method)
     check(next(dino.model.parameters()).device.type == DEVICE,
           "DINO is not on the card")
     pixels = torch.from_numpy(np.stack([
@@ -2544,6 +2595,7 @@ def phase_patch_serve(server, torch):
                 for img in images[:DETECTOR_IMAGES]]
     yolox_err = detector_served_errors(yolox.model, yolo_in, torch)
     frcnn_err = detector_served_errors(frcnn.model, frcnn_in, torch)
+    DETECTOR_INPUTS.update(yolox=yolo_in, frcnn=frcnn_in)
     emit("patch_serve", ok=True, images=PATCH_IMAGES,
          image_size=list(PATCH_IMAGE_SIZE), methods=per_method,
          frcnn_width=frcnn.config.width,
@@ -2555,7 +2607,8 @@ def phase_patch_serve(server, torch):
          model_devices=sorted({str(next(p.model.parameters()).device.type)
                                for p in (dino, yolox, frcnn)}),
          graphs=graph_state(torch, *(GRAPHED_FAMILIES[m].graphs
-                                     for m in ("dino-v1", "dino-v2"))))
+                                     for m in ("dino-v1", "dino-v2",
+                                               "yolox", "frcnn"))))
     return per_method["dino-v1"]["launches_in_patcher"][
         "fused_attention_nomask"]
 
@@ -3338,6 +3391,8 @@ def _family_spec(name: str, obj) -> dict:
                 "text": lambda shape, rng: ids,
                 "launches": {"detect": {"fused_attention_nomask":
                                         model.config.vision.num_layers}}}
+    if name in LAST_FAMILIES:
+        return _last_family_spec(name, obj)
     text_config, vision_config = obj.text_config, obj.vision_config
     vocab = text_config.vocab_size
 
@@ -3384,147 +3439,347 @@ def _family_spec(name: str, obj) -> dict:
                 "vision": vision_b2}}
 
 
-def phase_family_graphs(torch, smi):
-    """The families whose towers this port graphs beside e5 and ViT-L/14,
-    on the objects their phases loaded and served (GRAPHED_FAMILIES):
-    SigLIP B-16, NLLB-SigLIP base, CoCa and EVA02 ViT-L/14, XLM-R/ViT-B-32,
-    RN50, convnext_base, the dino-v1 and dino-v2 patchers and the OWL-ViT
-    B/32 reranker. Every key each captured, replayed on new inputs of its
-    shapes, against the eager forward of its tower and config on the same
-    inputs: equal bit for bit, or for the cuDNN vision towers of RN50 and
-    convnext_base, where no kernel of ours runs, bit for bit or within
-    the bf16-vs-fp32 bound of conv_clip_encode (cosine >= 1 -
-    CONV_COS_TOL, the difference recorded); B1 and B2 launches a replay
-    equal to the eager forward's and to the family's count. The control:
-    the next batch in a fresh tensor, not the static buffer, leaves the
-    replay on the old inputs. Then host, wall and device ms and the busy
-    share, eager against graph, at each tower's largest served key; the
-    keys, their capture seconds and the card's memory after each family."""
+def graph_family_checks(torch, name: str, spec: dict, rng) -> dict:
+    """One object's CUDA graphs (``spec``, as ``_family_spec`` gives it):
+    every key it captured, replayed on new inputs of its shapes, against
+    the eager forward of its tower and config on the same inputs: equal
+    bit for bit, or for the cuDNN vision towers of RN50 and convnext_base,
+    where no kernel of ours runs, bit for bit or within the bf16-vs-fp32
+    bound of conv_clip_encode (cosine >= 1 - CONV_COS_TOL, the difference
+    recorded); B1 and B2 launches a replay equal to the eager forward's
+    and to the family's count. The control: the next batch in a fresh
+    tensor, not the static buffer, leaves the replay on the old inputs.
+    Then host, wall and device ms and the busy share, eager against graph,
+    at ``spec["timed"]``'s keys (else each tower's largest batch); the
+    keys, their capture seconds and the card's memory after."""
     import numpy as np
+    start = time.perf_counter()
     mib = 2 ** 20
     dtypes = {str(d): d for d in (torch.bfloat16, torch.float16,
                                   torch.float32)}
     conv_vision = ("rn50", "convnext_base")
-    rng = np.random.default_rng(70)
-    results = {}
-    for name in ("siglip", "nllb_siglip", "coca", "eva02", "xlmr_clip",
-                 "rn50", "convnext_base", "dino-v1", "dino-v2", "owl"):
-        check(name in GRAPHED_FAMILIES,
-              f"family_graphs: no {name} model was registered")
-        spec = _family_spec(name, GRAPHED_FAMILIES[name])
-        cache = spec["graphs"]
-        check(cache.device.type == DEVICE and len(cache.graphs) > 0,
-              f"family_graphs {name}: no graphs on {DEVICE}: "
-              f"{list(cache.graphs)}")
+    cache = spec["graphs"]
+    check(cache.device.type == DEVICE and len(cache.graphs) > 0,
+          f"family_graphs {name}: no graphs on {DEVICE}: "
+          f"{list(cache.graphs)}")
 
-        def inputs(key):
-            return [rng.integers(0, 256, shape, dtype=np.uint8)
-                    if dtype == "|u1" else spec["text"](shape, rng)
-                    for shape, dtype in key[3]]
+    def inputs(key):
+        if "inputs" in spec:
+            return spec["inputs"](key, rng)
+        return [rng.integers(0, 256, shape, dtype=np.uint8)
+                if dtype == "|u1" else spec["text"](shape, rng)
+                for shape, dtype in key[3]]
 
-        def eager(key, arrays):
-            with torch.inference_mode():
-                return spec["forward"](key, *[torch.from_numpy(a).to(DEVICE)
-                                              for a in arrays])
+    def eager(key, arrays):
+        with torch.inference_mode():
+            return spec["forward"](key, *[torch.from_numpy(a).to(DEVICE)
+                                          for a in arrays])
 
-        def replay(key, arrays):
-            return cache.run(key[0], dtypes[key[1]], spec["forward"],
-                             *arrays, static=key[2])
+    def replay(key, arrays):
+        return cache.run(key[0], dtypes[key[1]], spec["forward"],
+                         *arrays, static=key[2])
 
-        keys = sorted(cache.graphs, key=family_label)
-        comparisons = []
-        for key in keys:
+    keys = sorted(cache.graphs, key=family_label)
+    comparisons = []
+    for key in keys:
+        arrays = inputs(key)
+        reset_counts()
+        ref = eager(key, arrays)
+        torch.cuda.synchronize()
+        eager_counts = read_counts()
+        reset_counts()
+        out = replay(key, arrays)
+        torch.cuda.synchronize()
+        graph_counts = read_counts()
+        label = family_label(key)
+        err = float((out.float() - ref.float()).abs().max())
+        equal = bool(torch.equal(out, ref))
+        # rows of a batch, or one row where the output is one vector
+        rows = len(out) if out.dim() > 1 else 1
+        cos = min_cos(out.reshape(rows, -1).float(),
+                      ref.reshape(rows, -1).float())
+        tolerance = "bit for bit"
+        if name in conv_vision and key[0] == "vision":
+            tolerance = f"bit for bit or cosine >= {1 - CONV_COS_TOL}"
+        check((equal or (tolerance != "bit for bit" and
+                         cos >= 1 - CONV_COS_TOL)) and
+              tuple(out.shape) == tuple(ref.shape) and
+              bool(torch.isfinite(out).all()),
+              f"family_graphs {name} {label}: replay against eager, "
+              f"max |diff| {err}, cosine {cos} ({tolerance})")
+        expected = {} if label.endswith(" plain") else \
+            spec["launches"][key[0]]
+        check(graph_counts == eager_counts and
+              {k: v for k, v in graph_counts.items() if v} ==
+              {k: v for k, v in expected.items() if v},
+              f"family_graphs {name} {label}: launches a replay "
+              f"{graph_counts}, eager {eager_counts}, expected "
+              f"{expected}")
+        comparisons.append({
+            "key": label, "bit_for_bit": equal, "max_abs_diff": err,
+            "min_cosine": cos, "tolerance": tolerance,
+            "launches_a_replay": {k: v for k, v in graph_counts.items()
+                                  if v}})
+    check(sorted(cache.graphs, key=family_label) == keys,
+          f"family_graphs {name}: the comparisons captured new keys")
+
+    # each tower's key of the largest batch, on the kernels
+    largest = {}
+    for key in keys:
+        if not family_label(key).endswith(" plain") and (
+                key[0] not in largest or
+                key[3][0][0][0] > largest[key[0]][3][0][0][0]):
+            largest[key[0]] = key
+    timed = spec["timed"](keys) if "timed" in spec else \
+        [largest[tower] for tower in sorted(largest)]
+    # the control: the next batch in a fresh tensor, not the static
+    # buffer
+    key = largest.get("vision", largest.get("image", timed[0]))
+    graph = cache.graphs[key]
+    batch_a, batch_b = inputs(key), inputs(key)
+    out_a = replay(key, batch_a)
+    with torch.inference_mode():
+        stale = graph.replay()
+    expected_b = eager(key, batch_b)
+    torch.cuda.synchronize()
+    control = {"key": family_label(key),
+               "stale_equals_b": bool(torch.equal(stale, expected_b)),
+               "stale_equals_a": bool(torch.equal(stale, out_a))}
+    check(not control["stale_equals_b"] and control["stale_equals_a"],
+          f"family_graphs {name} control: a replay read inputs that "
+          f"were not put in its static buffer: {control}")
+
+    timing = []
+    with torch.inference_mode():
+        for key in timed:
             arrays = inputs(key)
-            reset_counts()
-            ref = eager(key, arrays)
-            torch.cuda.synchronize()
-            eager_counts = read_counts()
-            reset_counts()
-            out = replay(key, arrays)
-            torch.cuda.synchronize()
-            graph_counts = read_counts()
-            label = family_label(key)
-            err = float((out.float() - ref.float()).abs().max())
-            equal = bool(torch.equal(out, ref))
-            cos = min_cos(out.flatten(1), ref.flatten(1))
-            tolerance = "bit for bit"
-            if name in conv_vision and key[0] == "vision":
-                tolerance = f"bit for bit or cosine >= {1 - CONV_COS_TOL}"
-            check((equal or (tolerance != "bit for bit" and
-                             cos >= 1 - CONV_COS_TOL)) and
-                  tuple(out.shape) == tuple(ref.shape) and
-                  bool(torch.isfinite(out).all()),
-                  f"family_graphs {name} {label}: replay against eager, "
-                  f"max |diff| {err}, cosine {cos} ({tolerance})")
-            expected = {} if label.endswith(" plain") else \
-                spec["launches"][key[0]]
-            check(graph_counts == eager_counts and
-                  {k: v for k, v in graph_counts.items() if v} ==
-                  {k: v for k, v in expected.items() if v},
-                  f"family_graphs {name} {label}: launches a replay "
-                  f"{graph_counts}, eager {eager_counts}, expected "
-                  f"{expected}")
-            comparisons.append({
-                "key": label, "bit_for_bit": equal, "max_abs_diff": err,
-                "min_cosine": cos, "tolerance": tolerance,
-                "launches_a_replay": {k: v for k, v in graph_counts.items()
-                                      if v}})
-        check(sorted(cache.graphs, key=family_label) == keys,
-              f"family_graphs {name}: the comparisons captured new keys")
-
-        # each tower's key of the largest batch, on the kernels
-        timed = {}
-        for key in keys:
-            if not family_label(key).endswith(" plain") and (
-                    key[0] not in timed or
-                    key[3][0][0][0] > timed[key[0]][3][0][0][0]):
-                timed[key[0]] = key
-        # the control: the next batch in a fresh tensor, not the static
-        # buffer
-        key = timed.get("vision", next(iter(timed.values())))
-        graph = cache.graphs[key]
-        batch_a, batch_b = inputs(key), inputs(key)
-        out_a = replay(key, batch_a)
-        with torch.inference_mode():
-            stale = graph.replay()
-        expected_b = eager(key, batch_b)
-        torch.cuda.synchronize()
-        control = {"key": family_label(key),
-                   "stale_equals_b": bool(torch.equal(stale, expected_b)),
-                   "stale_equals_a": bool(torch.equal(stale, out_a))}
-        check(not control["stale_equals_b"] and control["stale_equals_a"],
-              f"family_graphs {name} control: a replay read inputs that "
-              f"were not put in its static buffer: {control}")
-
-        timing = []
-        with torch.inference_mode():
-            for tower, key in sorted(timed.items()):
-                arrays = inputs(key)
-                steps = {
-                    "eager": lambda key=key, arrays=arrays: spec["forward"](
-                        key, *[torch.from_numpy(a).to(DEVICE)
-                               for a in arrays]),
-                    "graph": lambda key=key, arrays=arrays: replay(key,
-                                                                   arrays)}
-                row = {"key": family_label(key)}
-                for mode in ("eager", "graph", "graph_again", "eager_again"):
-                    row[mode] = host_device_split(
-                        torch, steps[mode.split("_")[0]], FAMILY_STEPS)
-                timing.append(row)
-        check(sorted(cache.graphs, key=family_label) == keys,
-              f"family_graphs {name}: the timing captured new keys")
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        results[name] = {
-            "keys": len(keys),
+            steps = {
+                "eager": lambda key=key, arrays=arrays: spec["forward"](
+                    key, *[torch.from_numpy(a).to(DEVICE)
+                           for a in arrays]),
+                "graph": lambda key=key, arrays=arrays: replay(key,
+                                                               arrays)}
+            row = {"key": family_label(key)}
+            for mode in ("eager", "graph", "graph_again", "eager_again"):
+                row[mode] = host_device_split(
+                    torch, steps[mode.split("_")[0]], FAMILY_STEPS)
+            timing.append(row)
+    check(sorted(cache.graphs, key=family_label) == keys,
+          f"family_graphs {name}: the timing captured new keys")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"keys": len(keys), "seconds": time.perf_counter() - start,
             "capture_seconds": {family_label(k): cache.graphs[k].seconds
                                 for k in keys},
             "comparisons": comparisons, "control": control,
             "timing": timing,
             "memory_allocated_mib": torch.cuda.memory_allocated() / mib,
             "memory_reserved_mib": torch.cuda.memory_reserved() / mib}
+
+
+def padded_token_rows(shape, vocab: int, rng, types: bool = False):
+    """(B, S) int32 token ids of random lengths (at least one token), their
+    0/1 mask and, with ``types``, token types that switch to 1 at a random
+    point inside each length (a query-document pair)."""
+    import numpy as np
+    rows, S = shape
+    lengths = rng.integers(1, S + 1, rows)
+    mask = (np.arange(S)[None] < lengths[:, None]).astype(np.int32)
+    ids = (rng.integers(5, vocab, shape) * mask).astype(np.int32)
+    if not types:
+        return [ids, mask]
+    split = rng.integers(0, lengths)
+    pair = ((np.arange(S)[None] > split[:, None]) & (mask > 0))
+    return [ids, mask, pair.astype(np.int32)]
+
+
+def _last_family_spec(name: str, obj) -> dict:
+    """``_family_spec`` for LAST_FAMILIES: Stella's padded forward, the
+    cross-encoder's scores, the YOLOX and Faster R-CNN patchers' models
+    (inside ``fp32_convolutions``; Faster R-CNN's levels as the patcher's
+    one tensor) and LanguageBind's towers, each under its key's config."""
+    import numpy as np
+
+    from marqo_tpu_torch.models.cross_encoder import cross_encoder_scores
+    from marqo_tpu_torch.models.frcnn import flatten_levels
+    from marqo_tpu_torch.models.languagebind import TOWERS
+    if name == "stella":
+        config = obj.encoder.config
+
+        def timed(keys):
+            largest = max(keys, key=lambda k: k[3][0][0][0])
+            return [k for k in keys if k[3][0][0] in STELLA_TIMED] + \
+                ([largest] if largest[3][0][0] not in STELLA_TIMED else [])
+
+        return {"graphs": obj.graphs,
+                "forward": lambda key, ids, mask: obj.encode_tokens(
+                    obj.encoder, ids, mask),
+                "inputs": lambda key, rng: padded_token_rows(
+                    key[3][0][0], config.vocab_size, rng),
+                "timed": timed,
+                "launches": {"padded": {"masked_attention_padding":
+                                        config.num_layers}}}
+    if name == "cross_encoder":
+        model = obj.model
+        return {"graphs": obj.graphs,
+                "forward": lambda key, *arrays: cross_encoder_scores(
+                    model, *arrays),
+                "inputs": lambda key, rng: padded_token_rows(
+                    key[3][0][0], model.config.vocab_size, rng, types=True),
+                "launches": {"scores": {"masked_attention_padding":
+                                        model.config.num_layers}}}
+    if name in ("yolox", "frcnn"):
+        model = obj.model
+
+        def pixels(key, rng):
+            shape = key[3][0][0]
+            if name == "yolox":  # YOLOX's pixels / 255, as patch_serve
+                return [rng.uniform(0, 1, shape).astype(np.float32)]
+            return [rng.standard_normal(shape).astype(np.float32)]
+
+        forward = model if name == "yolox" else \
+            (lambda x: flatten_levels(model(x)))
+        return {"graphs": obj.graphs, "forward": lambda key, x: forward(x),
+                "inputs": pixels, "launches": {name: {}}}
+    encoder = obj.encoder
+    eos = obj.text_config.eos_token_id
+
+    def forward(key, x):
+        tower = getattr(encoder, TOWERS[key[0]])
+        config = tower.config
+        tower.config = key[2][0]
+        try:
+            return tower(x)
+        finally:
+            tower.config = config
+
+    def inputs(key, rng):
+        (shape, dtype), = key[3]
+        if dtype == "|u1":
+            return [rng.integers(0, 256, shape, dtype=np.uint8)]
+        if key[0] == "audio":  # log-mel values
+            return [rng.standard_normal(shape).astype(np.float32)]
+        # CLIP text towers pool at the EOS token
+        ids = rng.integers(1, eos, shape).astype(np.int32)
+        ids[np.arange(shape[0]), rng.integers(2, shape[1], shape[0])] = eos
+        return [ids]
+
+    b2 = {"fused_attention_nomask": obj.vision_config.num_layers}
+    video = obj.video_config
+    return {"graphs": obj.graphs, "forward": forward, "inputs": inputs,
+            "launches": {
+                "text": {}, "image": b2,
+                "audio": {"fused_attention_nomask":
+                          obj.audio_config.num_layers},
+                "video": {"fused_attention_nomask": video.num_layers * (
+                    2 if video.add_time_attn else 1)} if video else {}}}
+
+
+def phase_family_graphs(torch, smi):
+    """The families whose towers this port graphs beside e5 and ViT-L/14,
+    on the objects their phases loaded and served (GRAPHED_FAMILIES):
+    SigLIP B-16, NLLB-SigLIP base, CoCa and EVA02 ViT-L/14, XLM-R/ViT-B-32,
+    RN50, convnext_base, the dino-v1 and dino-v2 patchers and the OWL-ViT
+    B/32 reranker, each through ``graph_family_checks``."""
+    import numpy as np
+    rng = np.random.default_rng(70)
+    results = {}
+    for name in ("siglip", "nllb_siglip", "coca", "eva02", "xlmr_clip",
+                 "rn50", "convnext_base", "dino-v1", "dino-v2", "owl"):
+        check(name in GRAPHED_FAMILIES,
+              f"family_graphs: no {name} model was registered")
+        results[name] = graph_family_checks(
+            torch, name, _family_spec(name, GRAPHED_FAMILIES[name]), rng)
     emit("family_graphs", ok=True, device=torch.cuda.get_device_name(0),
          nvidia_smi=smi, steps=FAMILY_STEPS, families=results)
+    return results
+
+
+def detector_graph_errors(torch, name: str, patcher) -> dict:
+    """The YOLOX or Faster R-CNN patcher's graph replayed on the inputs
+    patch_serve held eagerly (DETECTOR_INPUTS), with cuDNN's TF32 on in
+    the process as a served process has it, against the same module's
+    fp32 CPU run (``detector_error``): its capture ran inside the forward's
+    ``fp32_convolutions``. The control: a graph captured from the forward's
+    body, outside that block, keeps TF32 plans and must miss by more than
+    DETECTOR_REL_TOL."""
+    import copy
+
+    from marqo_tpu_torch.inference.graphs import EncoderGraphs
+    from marqo_tpu_torch.models.frcnn import flatten_levels, split_levels
+    model = patcher.model
+    host = copy.deepcopy(model).cpu()
+    (key,) = patcher.graphs.graphs
+
+    def body(x):
+        out = model._forward(x)
+        return out if name == "yolox" else flatten_levels(out)
+
+    def split(out):
+        return out if name == "yolox" else split_levels(out, patcher.config)
+
+    control_graphs = EncoderGraphs(DEVICE)
+    errors = {"replay": 0.0, "control": 0.0}
+    setting = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for x in DETECTOR_INPUTS[name]:
+            with torch.inference_mode():
+                ref = host(x)
+            array = x.numpy()
+            replay = patcher.graphs.run(key[0], torch.float32, None, array,
+                                        static=key[2])
+            control = control_graphs.run("control", torch.float32, body,
+                                         array)
+            errors["replay"] = max(errors["replay"],
+                                   detector_error(split(replay), ref))
+            errors["control"] = max(errors["control"],
+                                    detector_error(split(control), ref))
+    finally:
+        torch.backends.cudnn.allow_tf32 = setting
+    del control_graphs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    check(errors["replay"] <= DETECTOR_REL_TOL < errors["control"],
+          f"{name} graph with TF32 on in the process, card vs fp32 CPU: "
+          f"relative error {errors['replay']} (tolerance "
+          f"{DETECTOR_REL_TOL}; the control, a graph of the forward's "
+          f"body with TF32 on, {errors['control']})")
+    return {"images": len(DETECTOR_INPUTS[name]), **errors}
+
+
+LAST_FAMILIES = ("stella", "cross_encoder", "yolox", "frcnn", "languagebind")
+# Stella's query and a 16-document batch, captured by its own warmup
+STELLA_TIMED = ((1, 16), (16, 128))
+
+
+def phase_last_family_graphs(torch, smi):
+    """The encoders graphed last, on the objects their phases loaded and
+    served (GRAPHED_FAMILIES): Stella 400M, the MiniLM-L-6 cross-encoder,
+    the YOLOX-S and Faster R-CNN patchers and LanguageBind's four towers
+    at ViT-L/14, each through ``graph_family_checks`` (Stella's warmup
+    first captures STELLA_TIMED, which are timed beside its largest served
+    key); then the detectors' replays against the fp32 CPU run and the
+    TF32 control (``detector_graph_errors``)."""
+    import numpy as np
+    start = time.perf_counter()
+    for name in LAST_FAMILIES:
+        check(name in GRAPHED_FAMILIES,
+              f"last_family_graphs: no {name} object was registered")
+    stella = GRAPHED_FAMILIES["stella"]
+    stella.warmup([list(shape) for shape in STELLA_TIMED])
+    rng = np.random.default_rng(71)
+    results = {}
+    for name in LAST_FAMILIES:
+        results[name] = graph_family_checks(
+            torch, name, _family_spec(name, GRAPHED_FAMILIES[name]), rng)
+    for name in ("yolox", "frcnn"):
+        results[name]["graph_vs_fp32_cpu"] = detector_graph_errors(
+            torch, name, GRAPHED_FAMILIES[name])
+    emit("last_family_graphs", ok=True,
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+         steps=FAMILY_STEPS, seconds=time.perf_counter() - start,
+         families=results)
     return results
 
 
@@ -5176,6 +5431,7 @@ def main() -> int:
 
     phase_encoder_graphs(torch, smi)
     phase_family_graphs(torch, smi)
+    phase_last_family_graphs(torch, smi)
     timing, vit, encoder_times = phase_timing(
         fa, fused, qm, torch, clip_model, pixels, int8_encoder, bf16_encoder)
     emit("detector_timing", device=torch.cuda.get_device_name(0),

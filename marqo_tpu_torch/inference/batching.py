@@ -75,7 +75,9 @@ def graphs_for(model):
 def card_graphs(graphs):
     """``graphs`` (an ``EncoderGraphs``) where it lives on a CUDA device,
     else None: ``graphs_for``'s rule for the callers that hold one module
-    outside the serving mesh, the DINO patcher and the OWL reranker."""
+    outside the serving mesh: the DINO, YOLOX and Faster R-CNN patchers,
+    the cross-encoder and OWL rerankers, and LanguageBind, which stays on
+    its one device under a mesh."""
     return graphs if graphs.device.type == "cuda" else None
 
 

@@ -5,19 +5,22 @@ The JAX package runs each encoder as one XLA program per static bucket
 shape (marqo_tpu/models/bert.py ``encode_tokens_jit``,
 ``encode_tokens_packed_jit`` with a static ``num_sequences``;
 marqo_tpu/models/clip.py ``encode_clip_image_jit``,
-``encode_clip_text_jit``, and the other CLIP families', DINO's
-``last_selfattention_jit`` and OWL-ViT's ``detect_jit``), compiled at a
-shape's first call or ahead of it by the loaders' ``warmup``, so a batch
-is one dispatch. Eager PyTorch instead issues every op of every layer
-from Python, each kernel call through its wrapper's checks and a ctypes
-call. Here a forward is captured
+``encode_clip_text_jit``, and the other CLIP families', Stella's
+``encode_tokens_jit``, ``cross_encoder_scores``, DINO's
+``last_selfattention_jit``, OWL-ViT's ``detect_jit``, YOLOX's and Faster
+R-CNN's ``forward_jit`` and LanguageBind's audio and video towers),
+compiled at a shape's first call or ahead of it by the loaders'
+``warmup``, so a batch is one dispatch. Eager PyTorch instead issues
+every op of every layer from Python, each kernel call through its
+wrapper's checks and a ctypes call. Here a forward is captured
 once per key as a ``torch.cuda.CUDAGraph`` over static input and output
 tensors, and each batch replays it with one host call; the graph holds the
 same kernels (B1, B2, B3 and the library's matmuls) with the pointers and
 TMA maps of the capture, so every replay reads the same static inputs.
 
 ``EncoderGraphs`` holds one model's graphs, keyed by the tower's name
-("padded", "packed", "text", "vision", "dino", "detect"), the compute
+("padded", "packed", "text", "vision", "image", "audio", "video",
+"scores", "dino", "yolox", "frcnn", "detect"), the compute
 dtype, the static values the forward was built with (a config, the
 packed path's sequence bucket) and every input's shape and dtype; never
 by the callable, which callers pass as a new lambda each time. On a miss
@@ -31,8 +34,10 @@ keep several outputs pending before their one copy to the host, and
 serving threads call one model at once. A capture or replay error raises;
 nothing gives way to the eager forward. Only CUDA models without a
 serving mesh come here (inference/batching.py ``graphs_for``), and the
-DINO patcher and the OWL reranker on CUDA, each with graphs of its own
-(``card_graphs``).
+patchers, the rerankers and LanguageBind on CUDA, each with graphs of
+its own (``card_graphs``). A graph reads its module's weights through the
+capture's pointers: a caller that assigns a module anew ``forget``s its
+tower's graphs.
 
 The launches a capture records (ops/launches.py) are added to the
 kernels' counts on every replay, so the counts keep meaning launches on
@@ -101,6 +106,16 @@ class EncoderGraphs:
             else:
                 self._fill(graph.inputs, arrays)
             return graph.replay()
+
+    def forget(self, tower: str) -> None:
+        """Drop every graph of ``tower``, once the card has run what was
+        queued: for a module assigned anew, whose captures read the old
+        module's weights."""
+        with self.lock:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            for key in [key for key in self.graphs if key[0] == tower]:
+                del self.graphs[key]
 
     def _fill(self, inputs: Sequence[torch.Tensor], arrays) -> None:
         """Copy the host arrays into the static inputs. The staging copy is

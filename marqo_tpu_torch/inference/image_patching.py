@@ -17,9 +17,10 @@ replace tiny boxes with centered 100×100 → clip → class-agnostic NMS
 Device shape: detectors are PyTorch modules (models/dino_vit.py,
 models/yolox.py, models/frcnn.py) on the serving device
 (Device.normalize(None)), one image per call and one copy back to the host
-per image, with the box pipeline in numpy on the host; on CUDA each DINO
-patcher replays one CUDA graph of its attention map (inference/graphs.py),
-captured at its first image. Real detector
+per image, with the box pipeline in numpy on the host; on CUDA each
+patcher replays one CUDA graph of its model (inference/graphs.py): DINO's
+attention map, YOLOX's outputs, Faster R-CNN's level outputs in one
+tensor, captured at its first image. Real detector
 weights are hub-gated offline (like the reference's torch-hub/onnx
 downloads); MARQO_PATCH_MODELS_RANDOM_INIT=TRUE runs deterministic
 random-init detectors (weights drawn from a torch.Generator seeded from
@@ -285,6 +286,7 @@ class _YoloxPatcher:
     objectness-scored boxes decoded exactly like demo_postprocess."""
 
     def __init__(self):
+        from marqo_tpu_torch.inference.graphs import EncoderGraphs
         from marqo_tpu_torch.models.yolox import YoloxConfig, init_params
         self.config = YoloxConfig()
         self.device = _serving_device()
@@ -299,10 +301,27 @@ class _YoloxPatcher:
                 "cannot be downloaded in this deployment. Set "
                 "MARQO_PATCH_MODELS_RANDOM_INIT=TRUE for a synthetic-weight "
                 "smoke mode.")
+        self.graphs = EncoderGraphs(self.device)
+
+    def outputs(self, pixels: np.ndarray):
+        """(1, size, size, 3) fp32 letterboxed BGR → (1, N, 85) fp32 on
+        the device: on CUDA the replay of this patcher's graph, captured
+        at its first image. The capture is of the model itself, whose
+        forward turns cuDNN's TF32 off: a capture of its body alone would
+        keep TF32 plans in every replay."""
+        import torch
+
+        from marqo_tpu_torch.inference import batching
+        model = self.model
+        graphs = batching.card_graphs(self.graphs)
+        if graphs is None:
+            with torch.inference_mode():
+                return model(torch.from_numpy(pixels).to(self.device))
+        return graphs.run("yolox", model.backbone.stem.conv.w.dtype, model,
+                          pixels, static=(self.config,))
 
     def boxes(self, image: np.ndarray) -> Tuple[List[Tuple], List[float]]:
         import cv2
-        import torch
 
         from marqo_tpu_torch.models.yolox import decode_outputs
         size = self.config.input_size
@@ -313,12 +332,11 @@ class _YoloxPatcher:
         resized = cv2.resize(work, (int(work.shape[1] * ratio),
                                     int(work.shape[0] * ratio)),
                              interpolation=cv2.INTER_LINEAR)
-        padded = np.full((size, size, 3), 114, dtype=np.float32)
-        padded[:resized.shape[0], :resized.shape[1]] = resized
-        with torch.inference_mode():
-            outputs = self.model(
-                torch.from_numpy(padded[None]).to(self.device))
-        outputs = outputs.cpu().numpy()
+        # a batch of one with a real batch stride (``[None]`` gives it
+        # stride 0, and the CPU's convolutions then round otherwise)
+        padded = np.full((1, size, size, 3), 114, dtype=np.float32)
+        padded[0, :resized.shape[0], :resized.shape[1]] = resized
+        outputs = self.outputs(padded).cpu().numpy()
         preds = decode_outputs(outputs, (size, size))[0]
         boxes_cxcywh = preds[:, :4]
         scores = preds[:, 4:5]
@@ -346,6 +364,7 @@ class _FrcnnPatcher:
 
     def __init__(self):
         from marqo_tpu_torch.api import configs
+        from marqo_tpu_torch.inference.graphs import EncoderGraphs
         from marqo_tpu_torch.models.frcnn import FrcnnConfig, init_params
         width = float(configs.read_env_vars_and_defaults(
             "MARQO_FRCNN_WIDTH") or 1.0)
@@ -362,33 +381,46 @@ class _FrcnnPatcher:
                 "(torchvision absent, no egress). Set "
                 "MARQO_PATCH_MODELS_RANDOM_INIT=TRUE for a synthetic-weight "
                 "smoke mode, or use marqo-yolo / dino-v1 / dino-v2.")
+        self.graphs = EncoderGraphs(self.device)
+
+    def levels(self, pixels: np.ndarray):
+        """(1, size, size, 3) fp32 normalized → the ten level outputs
+        (each level's objectness, then its deltas, P2..P6) flattened into
+        one fp32 tensor on the device: on CUDA the replay of this patcher's
+        graph, captured at its first image, through the model's forward,
+        which turns cuDNN's TF32 off."""
+        import torch
+
+        from marqo_tpu_torch.inference import batching
+        from marqo_tpu_torch.models.frcnn import flatten_levels
+        model = self.model
+
+        def flat(x):
+            return flatten_levels(model(x))
+
+        graphs = batching.card_graphs(self.graphs)
+        if graphs is None:
+            with torch.inference_mode():
+                return flat(torch.from_numpy(pixels).to(self.device))
+        return graphs.run("frcnn", model.rpn.conv.w.dtype, flat, pixels,
+                          static=(self.config,))
 
     def boxes(self, image: np.ndarray) -> Tuple[List[Tuple], List[float]]:
         import cv2
-        import torch
 
         from marqo_tpu_torch.models.frcnn import (IMAGENET_MEAN, IMAGENET_STD,
-                                                  decode_proposals)
+                                                  decode_proposals,
+                                                  split_levels)
         size = self.config.input_size
         work = cv2.resize(image, WORK_SIZE, interpolation=cv2.INTER_LINEAR)
         resized = cv2.resize(work, (size, size),
                              interpolation=cv2.INTER_LINEAR)
         pixels = (resized.astype(np.float32) / 255.0 -
                   np.asarray(IMAGENET_MEAN)) / np.asarray(IMAGENET_STD)
-        with torch.inference_mode():
-            levels = self.model(torch.from_numpy(
-                pixels[None].astype(np.float32)).to(self.device))
-            # one copy back to the host for the ten level outputs
-            flat = torch.cat([t.reshape(-1) for level in levels
-                              for t in level]).cpu().numpy()
-        outputs, start = [], 0
-        for level in levels:
-            pair = []
-            for t in level:
-                pair.append(flat[start:start + t.numel()].reshape(t.shape))
-                start += t.numel()
-            outputs.append(pair)
-        boxes, scores = decode_proposals(outputs, self.config)
+        # one copy back to the host for the ten level outputs
+        flat = self.levels(pixels[None].astype(np.float32)).cpu().numpy()
+        boxes, scores = decode_proposals(split_levels(flat, self.config),
+                                         self.config)
         if scores.size > TOP_K_SCORES:
             order = np.argsort(scores)[::-1][:TOP_K_SCORES]
             boxes, scores = boxes[order], scores[order]

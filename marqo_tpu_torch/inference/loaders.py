@@ -14,8 +14,9 @@ devices), and every encode batch splits across the groups; without a mesh
 a model runs on its one device, where on CUDA the BERT-family text
 encoder and the towers of the CLIP family (ViT, HF-text, ResNet,
 ConvNeXt, SigLIP, NLLB-SigLIP, CoCa, EVA02) replay one CUDA graph per
-bucket (inference/graphs.py); Stella and LanguageBind run eagerly.
-Served: the BERT-family text encoder (bf16, or int8 W8A8 with
+bucket (inference/graphs.py), and so does Stella; LanguageBind replays
+its towers' graphs on its one device under a mesh too. Served: the
+BERT-family text encoder (bf16, or int8 W8A8 with
 ``quantize``), Stella (``hf_stella``), the ViT CLIP towers
 (models/clip.py), the HF-text CLIP composites (models/hf_clip.py), SigLIP,
 ResNet-CLIP, ConvNeXt-CLIP, NLLB-SigLIP, CoCa, EVA02-CLIP and LanguageBind:
@@ -44,6 +45,8 @@ from marqo_tpu_torch.models.bert import (TextEncoder, TextEncoderConfig,
                                          init_encoder, packed_segment_sums,
                                          params_from_torch_state_dict,
                                          pool_segment_sums)
+from marqo_tpu_torch.models.stella import \
+    encode_tokens as stella_encode_tokens
 from marqo_tpu_torch.models.tokenizer import TextTokenizer
 from marqo_tpu_torch.parallel.serving import (map_data_parallel, model_mesh,
                                               put_params, round_up_to_dp,
@@ -106,6 +109,8 @@ class TorchHFTextModel(EmbeddingModel):
     """
 
     compute_dtype = torch.bfloat16
+    # the padded forward, ``(encoder, ids, mask) -> pooled``
+    encode_tokens = staticmethod(encode_tokens)
 
     def __init__(self, model_name, properties, device, model_auth=None):
         super().__init__(model_name, properties, device, model_auth)
@@ -330,10 +335,10 @@ class TorchHFTextModel(EmbeddingModel):
         with torch.inference_mode():
             graphs = graphs_for(self)
             if graphs is None:
-                return run_data_parallel(self, encode_tokens, ids, mask)
+                return run_data_parallel(self, self.encode_tokens, ids, mask)
             return graphs.run(
                 "padded", self.compute_dtype,
-                lambda ids, mask: encode_tokens(self.encoder, ids, mask),
+                lambda ids, mask: self.encode_tokens(self.encoder, ids, mask),
                 ids, mask, static=(self.encoder.config,))
 
     def _dispatch_packed(self, batch, seq_bucket: int):
@@ -431,9 +436,12 @@ class TorchStellaModel(TorchHFTextModel):
     lives in models/stella.py; weights load from a local checkpoint dir
     (`model_properties.localpath`, remote code can't be fetched offline)
     or random-init for tests. Packing is disabled: RoPE + the projection
-    head use the plain padded path."""
+    head use the plain padded path, which on CUDA replays the model's graph
+    of each (batch, seq) bucket as the BERT family's does (the RoPE tables
+    are built inside the forward, so the capture holds them)."""
 
     PACKING_THRESHOLD = -1.0  # never pack
+    encode_tokens = staticmethod(stella_encode_tokens)
 
     def load(self) -> None:
         from marqo_tpu_torch.models.stella import (
@@ -491,11 +499,6 @@ class TorchStellaModel(TorchHFTextModel):
         self.encoder = put_params(self, self.encoder)
         self.loaded = True
         self._param_bytes = module_bytes(self.encoder)
-
-    def _forward(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
-        from marqo_tpu_torch.models.stella import encode_tokens as stella
-        with torch.inference_mode():
-            return run_data_parallel(self, stella, ids, mask)
 
 
 class TestModel(TorchHFTextModel):

@@ -10,7 +10,9 @@ B1's padding mode on a CUDA device) + pooler (dense + tanh over CLS) +
 single-logit classification head — the BertForSequenceClassification
 scoring graph. As in the JAX package, the pooler and head weights are held
 in the compute dtype and their math runs in fp32, and positions carry no
-``position_offset``.
+``position_offset``. The JAX package jits ``cross_encoder_scores`` once per
+(batch bucket, sequence bucket); on CUDA ``TorchCrossEncoder`` replays one
+CUDA graph per such key (inference/graphs.py), captured at its first use.
 """
 
 import hashlib
@@ -22,8 +24,10 @@ import torch
 import torch.nn as nn
 
 from marqo_tpu_torch.core.exceptions import ModelLoadError
+from marqo_tpu_torch.inference import batching
 from marqo_tpu_torch.inference.batching import (pick_batch_bucket,
                                                 pick_seq_bucket)
+from marqo_tpu_torch.inference.graphs import EncoderGraphs
 from marqo_tpu_torch.inference.types import Device
 from marqo_tpu_torch.models import bert
 from marqo_tpu_torch.models.bert import TextEncoder, TextEncoderConfig
@@ -122,7 +126,8 @@ def params_from_jax(params_numpy: dict, config: TextEncoderConfig,
 
 class TorchCrossEncoder:
     """Reranker model wrapper (loads from HF hub / local dir / random-init
-    for tests)."""
+    for tests). On CUDA each (batch bucket, sequence bucket) replays one
+    CUDA graph of ``cross_encoder_scores``, captured at its first use."""
 
     compute_dtype = torch.bfloat16
 
@@ -136,6 +141,7 @@ class TorchCrossEncoder:
         self.tokenizer: Optional[TextTokenizer] = None
         self._device = torch.device(
             "cuda" if device == Device.CUDA else "cpu")
+        self.graphs = EncoderGraphs(self._device)
 
     def load(self) -> None:
         if self.properties.get("random_init"):
@@ -192,21 +198,36 @@ class TorchCrossEncoder:
         bucket = pick_batch_bucket(n)
         out = []
         start = 0
+        while start < n:
+            size = min(bucket, n - start)
+            shape = (bucket, pairs["input_ids"].shape[1])
+            ids = np.zeros(shape, dtype=np.int32)
+            mask = np.zeros(shape, dtype=np.int32)
+            types = np.zeros(shape, dtype=np.int32)
+            ids[:size] = pairs["input_ids"][start:start + size]
+            mask[:size] = pairs["attention_mask"][start:start + size]
+            types[:size] = pairs["token_type_ids"][start:start + size]
+            mask[size:, 0] = 1
+            out.append(self.scores(ids, mask, types)[:size])
+            start += size
+        # one device-to-host copy after all launches
         with torch.inference_mode():
-            while start < n:
-                size = min(bucket, n - start)
-                shape = (bucket, pairs["input_ids"].shape[1])
-                ids = np.zeros(shape, dtype=np.int32)
-                mask = np.zeros(shape, dtype=np.int32)
-                types = np.zeros(shape, dtype=np.int32)
-                ids[:size] = pairs["input_ids"][start:start + size]
-                mask[:size] = pairs["attention_mask"][start:start + size]
-                types[:size] = pairs["token_type_ids"][start:start + size]
-                mask[size:, 0] = 1
-                scores = cross_encoder_scores(
-                    self.model, *(torch.from_numpy(a).to(self._device)
-                                  for a in (ids, mask, types)))
-                out.append(scores[:size])
-                start += size
-            # one device-to-host copy after all launches
             return torch.cat(out).cpu().numpy().astype(np.float32)
+
+    def scores(self, ids: np.ndarray, mask: np.ndarray,
+               types: np.ndarray) -> torch.Tensor:
+        """One bucket's (B, S) int32 pair ids, mask and token types → (B,)
+        fp32 logits on the device: on CUDA the replay of this reranker's
+        graph of (B, S), captured at its first use; on the CPU the eager
+        forward."""
+        model = self.model
+        graphs = batching.card_graphs(self.graphs)
+        if graphs is None:
+            with torch.inference_mode():
+                return cross_encoder_scores(
+                    model, *(torch.from_numpy(a).to(self._device)
+                             for a in (ids, mask, types)))
+        return graphs.run(
+            "scores", model.pooler.weight.dtype,
+            lambda *arrays: cross_encoder_scores(model, *arrays),
+            ids, mask, types, static=(model.config,))

@@ -204,6 +204,38 @@ def params_from_jax(params_numpy: dict, config: FrcnnConfig,
         values)
 
 
+def flatten_levels(levels) -> torch.Tensor:
+    """``FasterRCNNProposer.forward``'s level outputs as one flat tensor:
+    each level's objectness, then its deltas, P2..P6 (``level_shapes``
+    splits it)."""
+    return torch.cat([t.reshape(-1) for level in levels for t in level])
+
+
+def level_shapes(config: FrcnnConfig, batch: int = 1) -> list:
+    """The shapes ``FasterRCNNProposer.forward`` returns at
+    ``config.input_size``: per level P2..P6 (stride 4 to 64), (objectness,
+    deltas)."""
+    A = len(config.anchor_ratios)
+    sides = [config.input_size // 4 // 2 ** level
+             for level in range(len(config.anchor_sizes))]
+    return [((batch, side, side, A), (batch, side, side, 4 * A))
+            for side in sides]
+
+
+def split_levels(flat, config: FrcnnConfig) -> list:
+    """``flatten_levels``' one vector (numpy or torch, batch of one) back
+    into per level (objectness, deltas) of ``level_shapes``."""
+    levels, start = [], 0
+    for shapes in level_shapes(config):
+        pair = []
+        for shape in shapes:
+            n = int(np.prod(shape))
+            pair.append(flat[start:start + n].reshape(shape))
+            start += n
+        levels.append(pair)
+    return levels
+
+
 def decode_proposals(outputs, config: FrcnnConfig
                      ) -> Tuple[np.ndarray, np.ndarray]:
     """Anchors + deltas → (N, 4) xyxy proposals and (N,) objectness scores

@@ -22,6 +22,13 @@ JAX package scales q.k in the compute dtype before its fp32 softmax; B2
 computes the scores in fp32 (ROADMAP §C). The module's dtype is the compute
 dtype; LayerNorm statistics and the projections run in fp32.
 
+The JAX package compiles each tower once per batch shape
+(``encode_clip_text_jit``, ``encode_clip_image_jit``,
+``encode_audio_tower_jit``, ``encode_video_tower_jit``); on CUDA the wrapper
+replays one CUDA graph per (tower, dtype, config, batch shape), captured at
+its first use (inference/graphs.py), on its one device with or without a
+serving mesh.
+
 Real LanguageBind checkpoints require hub access; offline deployments use
 random-init (tests) or local converted checkpoints (``localpaths``).
 """
@@ -34,6 +41,8 @@ import torch
 import torch.nn as nn
 
 from marqo_tpu_torch.core.exceptions import ModelLoadError, VectoriseError
+from marqo_tpu_torch.inference import batching
+from marqo_tpu_torch.inference.graphs import EncoderGraphs
 from marqo_tpu_torch.inference.types import Device, Modality
 from marqo_tpu_torch.models.bert import (empty_module, fill_parameters,
                                          random_init)
@@ -414,6 +423,11 @@ def params_from_jax(params_numpy: dict, text_config: CLIPTextConfig,
 
 # --- wrapper -----------------------------------------------------------------
 
+# the graphs' tower names → LanguageBindEncoder's attributes
+TOWERS = {"text": "text", "image": "vision", "audio": "audio",
+          "video": "video"}
+
+
 class TorchLanguageBindModel:
     """Multi-tower wrapper (loader type ``languagebind``; reference
     JaxLanguageBindModel). One device per model."""
@@ -441,6 +455,9 @@ class TorchLanguageBindModel:
         self._device = torch.device(
             "cuda" if device == Device.CUDA else "cpu")
         self._param_bytes = 0
+        self.graphs = EncoderGraphs(self._device)
+        # each tower name's module when its graphs were captured
+        self._captured = {}
 
     @property
     def dimensions(self) -> int:
@@ -648,17 +665,37 @@ class TorchLanguageBindModel:
                 np.linalg.norm(out, axis=-1, keepdims=True), 1e-12)
         return out.astype(np.float32)
 
-    def _run(self, tower, array: np.ndarray) -> np.ndarray:
-        """``tower`` over the whole batch on this model's device. The model
-        stays on that device under a serving mesh: the JAX package feeds
-        every tower from the model's one device
+    def _run(self, name: str, array: np.ndarray) -> np.ndarray:
+        """The tower ``name`` ("text", "image", "audio" or "video") over
+        the whole batch on this model's device: on CUDA the replay of this
+        model's graph of (tower, dtype, the tower's config, the batch's
+        shape), captured at the key's first use; on the CPU the eager
+        forward. The model stays on that device under a serving mesh: the
+        JAX package feeds every tower from the model's one device
         (marqo_tpu/models/languagebind.py ``_encode_text`` and the other
         modalities), so a replica elsewhere would compute nothing."""
+        tower = getattr(self.encoder, TOWERS[name])
+        graphs = batching.card_graphs(self.graphs)
+        if graphs is None:
+            with torch.inference_mode():
+                return tower(torch.from_numpy(array).to(self._device)
+                             ).cpu().numpy()
+        if self._captured.get(name) is not tower:
+            # a tower assigned anew: its name's graphs replay the old
+            # module's weights through the capture's pointers
+            graphs.forget(name)
+            self._captured[name] = tower
+        out = graphs.run(name, self.compute_dtype, tower, array,
+                         static=(tower.config,))
         with torch.inference_mode():
-            return tower(torch.from_numpy(array).to(self._device)
-                         ).cpu().numpy()
+            return out.cpu().numpy()
 
     def _encode_text(self, texts: List[str]) -> np.ndarray:
+        return self._run("text", self._tokenize(texts))
+
+    def _tokenize(self, texts: List[str]) -> np.ndarray:
+        """(B, max_positions) int32 ids, each text ending at the EOS the
+        text tower pools at."""
         max_len = self.text_config.max_positions
         if self._hf_tokenizer:
             enc = self.tokenizer(texts, padding="max_length", truncation=True,
@@ -670,7 +707,7 @@ class TorchLanguageBindModel:
                    self.text_config.vocab_size).astype(np.int32)
             for i, L in enumerate(batch["lengths"]):
                 ids[i, min(L, max_len) - 1] = self.text_config.eos_token_id
-        return self._run(self.encoder.text, ids)
+        return ids
 
     @staticmethod
     def _square(array: np.ndarray, size: int) -> np.ndarray:
@@ -682,7 +719,7 @@ class TorchLanguageBindModel:
     def _encode_images(self, contents: List[Any]) -> np.ndarray:
         from marqo_tpu_torch.ops.image_ops import host_decode
         size = self.vision_config.image_size
-        return self._run(self.encoder.vision, np.stack(
+        return self._run("image", np.stack(
             [self._square(host_decode(c), size) for c in contents]))
 
     def _prep_audio(self, content) -> np.ndarray:
@@ -702,7 +739,7 @@ class TorchLanguageBindModel:
 
     def _encode_audio(self, contents: List[Any]) -> np.ndarray:
         mels = np.stack([self._prep_audio(c) for c in contents])
-        return self._run(self.encoder.audio, mels)
+        return self._run("audio", mels)
 
     def _encode_video(self, contents: List[Any]) -> np.ndarray:
         """Video embedding. With converted LanguageBind weights the
@@ -726,7 +763,7 @@ class TorchLanguageBindModel:
                     frames.append(frames[-1])
                 pixels = np.stack([self._square(np.asarray(f), size)
                                    for f in frames])
-                outs.append(self._run(self.encoder.video, pixels[None])[0])
+                outs.append(self._run("video", pixels[None])[0])
             else:
                 frame_embs = self._encode_images(list(frames))
                 outs.append(frame_embs.mean(axis=0))

@@ -12,6 +12,9 @@ frames through the video tower), and the detectors of the patch methods
 and the image reranker (DINO ViT-S/16 on one 224 px image, YOLOX-S and
 Faster R-CNN R50-FPN on one 384 px image, each as served (TF32 off in
 its convolutions) and with cuDNN's TF32 on, and OWL-ViT B/32 scoring --hits 768 px images against one query),
+LanguageBind's text and image towers (--texts, --images), and the query
+encoders: stella_en_400M on a 1 x 16 query and a 16 x 128 batch, and the
+ms-marco-MiniLM-L-6 cross-encoder on --hits pairs in their bucket,
 all at full width with random weights, under torch.profiler. The script
 prints one
 JSON line per batch with the device time by kernel family (attention
@@ -181,10 +184,60 @@ def new_family_towers(torch, rng, n_images: int, n_texts: int) -> list:
     frames = torch.from_numpy(rng.integers(
         0, 256, (cs.VIDEO_COUNT, config.num_frames, 224, 224, 3),
         dtype=np.uint8)).cuda()
-    out += [("languagebind_audio", run(lb.encoder.audio, mels), n_images,
+    lb_ids = torch.from_numpy(lb._tokenize(
+        cs._text_lengths(n_texts, seed=0))).cuda()
+    out += [("languagebind_texts", run(lb.encoder.text, lb_ids), n_texts,
+             n_texts, int(lb_ids.shape[1])),
+            ("languagebind_images", run(lb.encoder.vision, pixels(224)),
+             n_images, n_images, 257),
+            ("languagebind_audio", run(lb.encoder.audio, mels), n_images,
              n_images, lb.audio_config.n_tokens + 1),
             ("languagebind_video", run(video, frames), cs.VIDEO_COUNT,
              cs.VIDEO_COUNT * config.num_frames, 257)]
+    return out
+
+
+def query_encoders(torch, rng, n_hits: int) -> list:
+    """(name, fn, docs, rows, seq) for the text encoders on the query path
+    at chip_smoke.py's full widths, random weights, eagerly: Stella
+    (stella_en_400M) on a 1 x 16 query and a 16 x 128 batch, and the
+    cross-encoder (ms-marco-MiniLM-L-6) scoring ``n_hits`` pairs padded to
+    their batch bucket at 128 positions, as a rerank does."""
+    import chip_smoke as cs
+    from marqo_tpu_torch.inference.batching import pick_batch_bucket
+    from marqo_tpu_torch.inference.loaders import load_model
+    from marqo_tpu_torch.inference.types import Device
+    from marqo_tpu_torch.models.cross_encoder import (TorchCrossEncoder,
+                                                      cross_encoder_scores)
+    stella = load_model("stella-en-400m", {
+        "name": "stella-en-400m", "type": "hf_stella", "random_init": True,
+        "dimensions": cs.STELLA_DIMS, "tokens": 512,
+        "architecture": cs.STELLA_400M}, Device.CUDA)
+    reranker = TorchCrossEncoder("ms-marco-MiniLM-L-6-v2", Device.CUDA,
+                                 {"random_init": True,
+                                  "architecture": cs.MINILM_L6})
+    reranker.load()
+
+    def rows(n, S, vocab, types=False):
+        return [torch.from_numpy(a).cuda() for a in
+                cs.padded_token_rows((n, S), vocab, rng, types)]
+
+    def run(fn, *inputs):
+        def step():
+            with torch.inference_mode():
+                fn(*inputs)
+        return step
+
+    out = []
+    for n, S in ((1, 16), (16, 128)):
+        out.append((f"stella_{n}x{S}",
+                    run(stella.encode_tokens, stella.encoder,
+                        *rows(n, S, stella.config.vocab_size)), n, n, S))
+    bucket = pick_batch_bucket(n_hits)
+    out.append(("cross_encoder_hits",
+                run(cross_encoder_scores, reranker.model,
+                    *rows(bucket, 128, reranker.config.vocab_size,
+                          types=True)), n_hits, bucket, 128))
     return out
 
 
@@ -313,6 +366,7 @@ def main() -> int:
     towers = clip_family_towers(torch, rng, args.images, args.texts)
     towers += new_family_towers(torch, rng, args.images, args.texts)
     towers += detector_models(torch, rng, args.hits)
+    towers += query_encoders(torch, rng, args.hits)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()

@@ -72,8 +72,11 @@ DELIBERATE_EDITS = {
                                    "hold torch modules on the serving "
                                    "device, their random weights drawn from "
                                    "a torch.Generator; one host copy per "
-                                   "image; on CUDA each DINO patcher "
-                                   "replays a CUDA graph of its own",
+                                   "image; on CUDA each DINO, YOLOX and "
+                                   "Faster R-CNN patcher replays a CUDA "
+                                   "graph of its own (Faster R-CNN's ten "
+                                   "level outputs as one tensor, YOLOX's "
+                                   "batch of one with a real stride)",
     "inference/rerank.py": "the cross-encoder is models/cross_encoder.py's "
                            "TorchCrossEncoder and the OWL-ViT reranker "
                            "TorchOwlReranker: a torch module on one device, "

@@ -143,7 +143,8 @@ class App:
             if params is None:
                 continue
             request = Request(method, path, params, query, body, headers)
-            metrics = RequestMetricsStore.set_in_request()
+            metrics = RequestMetricsStore.set_in_request(
+                traced=request.query_flag("telemetry"))
             try:
                 with metrics.time("wholeRequest"):
                     result = route.handler(request)

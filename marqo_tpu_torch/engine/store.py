@@ -23,6 +23,7 @@ from typing import Any, Dict, Iterable, List, Optional, Set, Tuple
 
 import numpy as np
 
+from marqo_tpu_torch.api import telemetry
 from marqo_tpu_torch.core.exceptions import (IndexExistsError, IndexNotFoundError,
                                        InvalidArgumentError)
 from marqo_tpu_torch.core.models.score_modifier import (ScoreModifier,
@@ -317,10 +318,12 @@ class _Shard:
                 # (the ingest hot path) skip the per-index removal scans.
                 self.delete(doc_id)
             self.docs[doc_id] = dict(fields)
-            for field, value in fields.items():
-                if self._is_lexical_field(field, value):
-                    text = " ".join(value) if isinstance(value, list) else value
-                    self._lexical_index(field).add(doc_id, text)
+            with telemetry.summed("engine.feed.lexical"):
+                for field, value in fields.items():
+                    if self._is_lexical_field(field, value):
+                        text = " ".join(value) if isinstance(value, list) \
+                            else value
+                        self._lexical_index(field).add(doc_id, text)
             for field, payload in (tensors or {}).items():
                 self._tensor_store(field).add(
                     doc_id, payload["chunks"], payload["embeddings"])
@@ -584,7 +587,7 @@ class StoreEngine:
         # log under the shard lock (RLock): WAL order must match apply
         # order per document, else a crash replay can resurrect a deleted
         # doc or revert an upsert (apply-then-log outside the lock races)
-        with shard.lock:
+        with telemetry.locked(shard.lock, "engine.lock_wait"):
             shard.feed(doc_id, fields, tensors or {})
             if self._wal is not None:
                 self._log({"op": "feed", "index": index_name,

@@ -41,9 +41,13 @@ tower's graphs.
 
 The launches a capture records (ops/launches.py) are added to the
 kernels' counts on every replay, so the counts keep meaning launches on
-the card.
+the card. On a traced request (api/telemetry.py) a run of a key already
+captured is the span ``inference.dispatch`` (the wait for the lock, the
+copy in, the replay) and a capture ``inference.graph_capture``, counted
+in ``graphs.captured``.
 """
 
+import contextlib
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence
@@ -51,6 +55,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from marqo_tpu_torch.api import telemetry
 from marqo_tpu_torch.ops import launches
 
 
@@ -98,7 +103,10 @@ class EncoderGraphs:
         arrays = [np.ascontiguousarray(a) for a in arrays]
         key = (tower, str(dtype), static,
                tuple((a.shape, a.dtype.str) for a in arrays))
-        with self.lock, torch.inference_mode():
+        # a capture is a span of its own, not a dispatch
+        span = telemetry.span("inference.dispatch") if key in self.graphs \
+            else contextlib.nullcontext()
+        with span, self.lock, torch.inference_mode():
             graph = self.graphs.get(key)
             if graph is None:
                 graph = self.graphs[key] = self._build(key, forward,
@@ -129,12 +137,16 @@ class EncoderGraphs:
 
     def _build(self, key: tuple, forward: Callable, arrays) -> Graph:
         start = time.perf_counter()
-        inputs = [torch.empty(a.shape, dtype=torch.from_numpy(a).dtype,
-                              device=self.device) for a in arrays]
-        self._fill(inputs, arrays)
-        self._warm(forward, inputs)
-        with launches.recording() as recorded:
-            replay, output = self._capture(forward, inputs)
+        with telemetry.span("inference.graph_capture"):
+            inputs = [torch.empty(a.shape, dtype=torch.from_numpy(a).dtype,
+                                  device=self.device) for a in arrays]
+            self._fill(inputs, arrays)
+            self._warm(forward, inputs)
+            with launches.recording() as recorded:
+                replay, output = self._capture(forward, inputs)
+        traced = telemetry.traced()
+        if traced:
+            traced.increment_counter("graphs.captured")
         return Graph(key, inputs, output, replay, recorded,
                      time.perf_counter() - start)
 

@@ -31,6 +31,7 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
+from marqo_tpu_torch.api import telemetry
 from marqo_tpu_torch.core.exceptions import (InvalidArgumentError,
                                              ModelLoadError, VectoriseError)
 from marqo_tpu_torch.inference.batching import (batch_buckets, graphs_for,
@@ -271,21 +272,9 @@ class TorchHFTextModel(EmbeddingModel):
         pending = []  # (device tensor, n_valid)
         for start in range(0, len(texts), max_seqs):
             chunk = texts[start:start + max_seqs]
-            batch = self.tokenizer.encode_batch(chunk)
-            seq_bucket = pick_seq_bucket(
-                min(max(batch["lengths"]), self.tokenizer.max_length))
-            width = batch["input_ids"].shape[1]
-            if width < seq_bucket:
-                pad = seq_bucket - width
-                batch["input_ids"] = np.pad(
-                    batch["input_ids"], ((0, 0), (0, pad)),
-                    constant_values=self.tokenizer.pad_id)
-                batch["attention_mask"] = np.pad(
-                    batch["attention_mask"], ((0, 0), (0, pad)))
-            elif width > seq_bucket:  # can't happen (bucket ≥ max length)
-                batch["input_ids"] = batch["input_ids"][:, :seq_bucket]
-                batch["attention_mask"] = \
-                    batch["attention_mask"][:, :seq_bucket]
+            with telemetry.span("inference.tokenize"):
+                batch = self._tokenize(chunk)
+            seq_bucket = batch["input_ids"].shape[1]
             n = len(chunk)
             density = sum(batch["lengths"]) / (n * seq_bucket)
             if n > 1 and density < self.PACKING_THRESHOLD:
@@ -295,15 +284,37 @@ class TorchHFTextModel(EmbeddingModel):
 
         def resolve() -> np.ndarray:
             # ONE device-to-host copy for all pending outputs
-            with torch.inference_mode():
+            with telemetry.span("inference.device_wait"), \
+                    torch.inference_mode():
                 result = torch.cat([emb[:size] for emb, size in pending])
                 result = result.cpu().numpy()
-            if normalize:
-                norms = np.linalg.norm(result, axis=-1, keepdims=True)
-                result = result / np.maximum(norms, 1e-12)
-            return result.astype(np.float32)
+            with telemetry.span("inference.to_lists"):
+                if normalize:
+                    norms = np.linalg.norm(result, axis=-1, keepdims=True)
+                    result = result / np.maximum(norms, 1e-12)
+                return result.astype(np.float32)
 
         return resolve
+
+    def _tokenize(self, texts: List[str]) -> dict:
+        """WordPiece ids and masks of ``texts``, padded to their sequence
+        bucket."""
+        batch = self.tokenizer.encode_batch(texts)
+        seq_bucket = pick_seq_bucket(
+            min(max(batch["lengths"]), self.tokenizer.max_length))
+        width = batch["input_ids"].shape[1]
+        if width < seq_bucket:
+            pad = seq_bucket - width
+            batch["input_ids"] = np.pad(
+                batch["input_ids"], ((0, 0), (0, pad)),
+                constant_values=self.tokenizer.pad_id)
+            batch["attention_mask"] = np.pad(
+                batch["attention_mask"], ((0, 0), (0, pad)))
+        elif width > seq_bucket:  # can't happen (bucket ≥ max length)
+            batch["input_ids"] = batch["input_ids"][:, :seq_bucket]
+            batch["attention_mask"] = \
+                batch["attention_mask"][:, :seq_bucket]
+        return batch
 
     def _dispatch_padded(self, batch, seq_bucket: int, n: int):
         """Launch padded batches WITHOUT copying results back; encode()
@@ -315,13 +326,14 @@ class TorchHFTextModel(EmbeddingModel):
         start = 0
         while start < n:
             size = min(batch_bucket, n - start)
-            ids = np.zeros((batch_bucket, seq_bucket), dtype=np.int32)
-            mask = np.zeros((batch_bucket, seq_bucket), dtype=np.int32)
-            ids[:size] = batch["input_ids"][start:start + size]
-            mask[:size] = batch["attention_mask"][start:start + size]
-            # pad rows must still be valid: give them one real token so
-            # mean-pool denominators never hit zero
-            mask[size:, 0] = 1
+            with telemetry.span("inference.pack"):
+                ids = np.zeros((batch_bucket, seq_bucket), dtype=np.int32)
+                mask = np.zeros((batch_bucket, seq_bucket), dtype=np.int32)
+                ids[:size] = batch["input_ids"][start:start + size]
+                mask[:size] = batch["attention_mask"][start:start + size]
+                # pad rows must still be valid: give them one real token so
+                # mean-pool denominators never hit zero
+                mask[size:, 0] = 1
             pending.append((self._forward(ids, mask), size))
             start += size
         return pending
@@ -357,15 +369,16 @@ class TorchHFTextModel(EmbeddingModel):
         from marqo_tpu_torch.ops.packing import pack_sequences
 
         ids, lengths = batch["input_ids"], batch["lengths"]
-        sequences = [ids[i, :lengths[i]] for i in range(len(lengths))]
         max_seqs = batch_buckets()[-1]
         ladder = [round_up_to_dp(b, model_mesh(self)) for b in row_buckets()]
         pending = []
-        for start in range(0, len(sequences), max_seqs):
-            packed = pack_sequences(sequences[start:start + max_seqs],
-                                    seq_len=seq_bucket,
-                                    pad_id=self.tokenizer.pad_id,
-                                    row_buckets=ladder)
+        for start in range(0, len(lengths), max_seqs):
+            with telemetry.span("inference.pack"):
+                packed = pack_sequences(
+                    [ids[i, :lengths[i]] for i in
+                     range(start, min(start + max_seqs, len(lengths)))],
+                    seq_len=seq_bucket, pad_id=self.tokenizer.pad_id,
+                    row_buckets=ladder)
             rows = (packed.input_ids, packed.segment_ids, packed.positions,
                     packed.seq_index)
             pending.append((self._packed(

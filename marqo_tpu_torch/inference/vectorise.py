@@ -18,7 +18,7 @@ from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 
-from marqo_tpu_torch.api import configs
+from marqo_tpu_torch.api import configs, telemetry
 from marqo_tpu_torch.core.exceptions import (InvalidArgumentError,
                                        ModelNotInCacheError, VectoriseError)
 from marqo_tpu_torch.inference.inference_cache import MarqoInferenceCache
@@ -325,8 +325,7 @@ def vectorise(model_name: str,
                 results[i] = hit
             else:
                 misses.append(i)
-        from marqo_tpu_torch.api.telemetry import RequestMetricsStore
-        metrics = RequestMetricsStore.for_request()
+        metrics = telemetry.RequestMetricsStore.for_request()
         metrics.increment_counter("inference_cache.hits",
                                   len(contents) - len(misses))
         metrics.increment_counter("inference_cache.misses", len(misses))
@@ -484,10 +483,11 @@ def _encode(model: EmbeddingModel, cache_key: str, contents: List[Any],
 def _float_list(arr) -> List[List[float]]:
     """Normalize encoder output (reference _convert_vectorized_output,
     s2_inference.py:705-749)."""
-    arr = np.asarray(arr, dtype=np.float32)
-    if arr.ndim == 1:
-        arr = arr[None, :]
-    return arr.tolist()
+    with telemetry.span("inference.to_lists"):
+        arr = np.asarray(arr, dtype=np.float32)
+        if arr.ndim == 1:
+            arr = arr[None, :]
+        return arr.tolist()
 
 
 def get_model_dimensions(model_name: str,

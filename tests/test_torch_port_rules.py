@@ -51,6 +51,14 @@ COPIED_DEFINITIONS = {
 # copies with deliberate edits, and why
 DELIBERATE_EDITS = {
     "__init__.py": "package docstring names the PyTorch/CUDA port",
+    "api/telemetry.py": "a span recorder: request ids, per-thread stacks "
+                        "of open spans, a bounded span log on time.time_ns's "
+                        "clock, stage sites and a collector hook for traced "
+                        "requests; Timer, TimerError and merge, which the "
+                        "port never used, went",
+    "api/http_framework.py": "a request with ?telemetry=true is traced",
+    "inference/vectorise.py": "_float_list is the span inference.to_lists "
+                              "of a traced request",
     "api/app.py": "startup picks the device first and keeps a "
                   "MARQO_BEST_AVAILABLE_DEVICE already set; without one and "
                   "without CUDA it raises instead of serving on the CPU",

@@ -177,6 +177,20 @@ def _validate_map_numeric_field(field_content: dict) -> None:
                 f"object.")
 
 
+def _row_ranges(slots) -> Dict[Tuple[str, str], Tuple[int, int]]:
+    """{(doc_id, field): (start, stop)} of ``slots`` ((doc_id, field, row)
+    in encode order). The collection appends each key's rows in one run,
+    so a key's rows are the slots from its first to its last."""
+    ranges: Dict[Tuple[str, str], Tuple[int, int]] = {}
+    for i, (doc_id, field, row) in enumerate(slots):
+        key = (doc_id, field)
+        start = ranges[key][0] if key in ranges else i
+        if row != i - start:
+            raise RuntimeError(f"rows of {key} are not consecutive slots")
+        ranges[key] = (start, i + 1)
+    return ranges
+
+
 class SemiStructuredFieldCountConfig:
     """Per-kind dynamic-field limits for semi-structured indexes
     (reference semi_structured_add_document_handler.py:23-28 — defaults
@@ -1000,27 +1014,20 @@ class AddDocumentsHandler:
             if encode_failed:
                 failed_docs.update(encode_failed)
                 plans[:] = [p for p in plans if p[0] not in failed_docs]
-            vectors = encoded[Modality.TEXT]
-            image_vectors = encoded[Modality.IMAGE]
-            audio_vectors = encoded[Modality.AUDIO]
-            video_vectors = encoded[Modality.VIDEO]
-
-            # scatter into the per-field arrays the feed takes
+            # scatter into the per-field arrays the feed takes: each
+            # (doc, field) key's rows are consecutive slots of its
+            # modality's array, so its rows are one slice of it (the store
+            # copies what it keeps)
             traced = telemetry.traced()
             if traced:
                 traced.start("inference.to_lists")
-            grouped: Dict[Tuple[str, str], Dict[int, List[float]]] = \
-                defaultdict(dict)
-            for (doc_id, field, row), vec in zip(slots, vectors):
-                grouped[(doc_id, field)][row] = vec
-            image_grouped: Dict[Tuple[str, str], Dict[int, List[float]]] = \
-                defaultdict(dict)
-            for (doc_id, field, row), vec in zip(image_slots, image_vectors):
-                image_grouped[(doc_id, field)][row] = vec
-            for (doc_id, field, row), vec in zip(audio_slots, audio_vectors):
-                image_grouped[(doc_id, field)][row] = vec
-            for (doc_id, field, row), vec in zip(video_slots, video_vectors):
-                image_grouped[(doc_id, field)][row] = vec
+            rows: Dict[Tuple[str, str], np.ndarray] = {}
+            for modality, (_contents, mslots) in modal_inputs.items():
+                vectors = encoded[modality]
+                if vectors is None:
+                    continue  # no contents, or every one of its docs failed
+                for key, (start, stop) in _row_ranges(mslots).items():
+                    rows[key] = vectors[start:stop]
 
             result: Dict[Tuple[str, str], np.ndarray] = dict(ready)
             # combine multimodal children
@@ -1033,11 +1040,9 @@ class AddDocumentsHandler:
                         acc = None
                         n_children = 0
                         for child, content in plan["sub_content"].items():
-                            key = (assigned_id, field + "::" + child)
-                            rows = grouped.pop(key, None)
-                            if rows is None:
-                                rows = image_grouped.pop(key, None)
-                            if not rows:
+                            child_rows = rows.pop(
+                                (assigned_id, field + "::" + child), None)
+                            if child_rows is None:
                                 # a child that produced ZERO chunks (e.g.
                                 # a degenerate/empty waveform chunks to
                                 # []) simply contributes nothing — the
@@ -1047,9 +1052,7 @@ class AddDocumentsHandler:
                             # multi-row children (audio/video clips) use
                             # the clip-mean as the subfield embedding
                             # (reference tensor_fields_container.py:320-323)
-                            vec = np.mean(
-                                np.asarray([rows[i] for i in sorted(rows)],
-                                           dtype=np.float32), axis=0)
+                            vec = np.mean(child_rows, axis=0)
                             w = float(weights[child])
                             acc = vec * w if acc is None else acc + vec * w
                             n_children += 1
@@ -1065,16 +1068,11 @@ class AddDocumentsHandler:
                             if norm > 0:
                                 acc = acc / norm
                         result[(assigned_id, field)] = acc[None, :]
-                    elif plan["kind"] in ("image", "audio", "video") and \
-                            (assigned_id, field) in image_grouped:
-                        rows = image_grouped.pop((assigned_id, field))
-                        result[(assigned_id, field)] = np.asarray(
-                            [rows[i] for i in sorted(rows)], dtype=np.float32)
-                    elif plan["kind"] == "text" and \
-                            (assigned_id, field) in grouped:
-                        rows = grouped.pop((assigned_id, field))
-                        result[(assigned_id, field)] = np.asarray(
-                            [rows[i] for i in sorted(rows)], dtype=np.float32)
+                    elif plan["kind"] in ("image", "audio", "video",
+                                          "text") and \
+                            (assigned_id, field) in rows:
+                        result[(assigned_id, field)] = rows.pop(
+                            (assigned_id, field))
             if traced:
                 traced.stop("inference.to_lists")
             return result
@@ -1093,7 +1091,8 @@ class AddDocumentsHandler:
         try:
             handles = {
                 modality: (inference.vectorise_async(
-                    content=contents, modality=modality, **common)
+                    content=contents, modality=modality, as_array=True,
+                    **common)
                     if contents else None)
                 for modality, (contents, _slots) in modal_inputs.items()}
         except Exception:
@@ -1104,7 +1103,8 @@ class AddDocumentsHandler:
             results = {}
             try:
                 for modality, handle in handles.items():
-                    results[modality] = handle() if handle is not None else []
+                    results[modality] = (inference.float_rows(handle())
+                                         if handle is not None else None)
                 return results, set()
             except Exception:
                 return self._encode_with_isolation(modal_inputs, common,
@@ -1128,17 +1128,20 @@ class AddDocumentsHandler:
           keeps its vectors. A field failure fails its whole document in
           both modes, matching the reference's remove_doc semantics.
 
-        Returns ({modality: vectors-aligned-with-contents}, failed_doc_ids);
-        failed docs keep None placeholders so slot alignment is preserved.
+        Returns ({modality: (n, dim) float32 rows aligned with contents,
+        or None for a modality without contents}, failed_doc_ids); failed
+        docs' rows are left as zeros and never fed. A vectorise that
+        answers in lists (a patched one) costs one conversion a modality.
         Documents with no tensor chunks are never failed by a model error —
         they proceed to the feed stage regardless.
         """
         results = {}
         try:
             for modality, (contents, _slots) in modal_inputs.items():
-                results[modality] = (
+                results[modality] = (inference.float_rows(
                     inference.vectorise(content=contents, modality=modality,
-                                        **common) if contents else [])
+                                        as_array=True, **common))
+                    if contents else None)
             return results, set()
         except Exception as e:
             if self.params.batch_vectorisation_mode == \
@@ -1170,7 +1173,7 @@ class AddDocumentsHandler:
                     seen_keys.add(key)
                     group_keys.append(key)
 
-        results = {m: [None] * len(c) for m, (c, _s) in modal_inputs.items()}
+        results = {m: None for m in modal_inputs}
         failed: set = set()
         for key in group_keys:
             doc_id = key[0] if per_field else key
@@ -1182,11 +1185,13 @@ class AddDocumentsHandler:
                             if key_of(s) == key]
                     if not idxs:
                         continue
-                    vecs = inference.vectorise(
+                    vecs = inference.float_rows(inference.vectorise(
                         content=[contents[i] for i in idxs],
-                        modality=modality, **common)
-                    for i, vec in zip(idxs, vecs):
-                        results[modality][i] = vec
+                        modality=modality, as_array=True, **common))
+                    if results[modality] is None:
+                        results[modality] = np.zeros(
+                            (len(contents), vecs.shape[1]), dtype=np.float32)
+                    results[modality][idxs] = vecs
             except VectoriseError as e:
                 # invalid inputs to vectorise (e.g. no_model) are the
                 # user's error: 400/invalid_argument per item (reference

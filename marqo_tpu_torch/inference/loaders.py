@@ -292,7 +292,7 @@ class TorchHFTextModel(EmbeddingModel):
                 if normalize:
                     norms = np.linalg.norm(result, axis=-1, keepdims=True)
                     result = result / np.maximum(norms, 1e-12)
-                return result.astype(np.float32)
+                return result.astype(np.float32, copy=False)
 
         return resolve
 

@@ -298,40 +298,25 @@ def vectorise(model_name: str,
               model_auth=None,
               enable_cache: bool = False,
               modality: Modality = Modality.TEXT,
-              **kwargs) -> List[List[float]]:
+              as_array: bool = False,
+              **kwargs) -> Union[List[List[float]], np.ndarray]:
     """Embed content → List[List[float]] (reference s2_inference.py:48).
 
     ``content`` may be a single string or a list of strings / preprocessed
     media tensors. ``enable_cache`` consults the embedding-result cache
-    (search-query path passes True, as in the reference).
+    (search-query path passes True, as in the reference). ``as_array``
+    returns the rows as one ``(n, dim)`` float32 array instead of lists:
+    the add path feeds the store arrays, so it skips the lists.
     """
-    if content is None or (isinstance(content, list) and len(content) == 0):
-        raise VectoriseError("Received empty content for vectorise")
-    contents = [content] if isinstance(content, str) else list(content)
-
-    dev = Device.normalize(device)
-    properties = _resolve_properties(model_name, model_properties)
-    cache_key = _create_model_cache_key(model_name, dev.value, properties)
-    model = _update_available_models(cache_key, model_name, properties, dev,
-                                     model_auth)
-
-    cache = _get_inference_cache()
-    results: List[Optional[List[float]]] = [None] * len(contents)
-    misses: List[int] = []
-    if enable_cache and cache.enabled and normalize_embeddings:
-        for i, item in enumerate(contents):
-            hit = cache.get(cache_key, item)
-            if hit is not None:
-                results[i] = hit
-            else:
-                misses.append(i)
+    model, cache_key, contents, hits, misses, use_cache = _prepare(
+        model_name, content, model_properties, device, model_auth,
+        enable_cache, normalize_embeddings)
+    if use_cache:
         metrics = telemetry.RequestMetricsStore.for_request()
-        metrics.increment_counter("inference_cache.hits",
-                                  len(contents) - len(misses))
+        metrics.increment_counter("inference_cache.hits", len(hits))
         metrics.increment_counter("inference_cache.misses", len(misses))
-    else:
-        misses = list(range(len(contents)))
 
+    encoded = None
     if misses:
         # MARQO_MAX_VECTORISE_BATCH_SIZE chunks encode calls (reference
         # s2_inference.py:134-146) and its value is validated either way.
@@ -359,13 +344,8 @@ def vectorise(model_name: str,
             raise VectoriseError(
                 f"Error vectorising content with model `{model_name}`: {e}",
                 cause=e) from e
-        encoded = _float_list(encoded)
-        for j, i in enumerate(misses):
-            results[i] = encoded[j]
-            if enable_cache and cache.enabled and normalize_embeddings:
-                cache.set(cache_key, contents[i], encoded[j])
-
-    return results  # type: ignore[return-value]
+    return _finish(contents, hits, misses, encoded, cache_key, use_cache,
+                   as_array)
 
 
 def vectorise_async(model_name: str,
@@ -376,9 +356,11 @@ def vectorise_async(model_name: str,
                     model_auth=None,
                     enable_cache: bool = False,
                     modality: Modality = Modality.TEXT,
+                    as_array: bool = False,
                     **kwargs):
     """Pipelined variant of :func:`vectorise`: tokenizes and dispatches the
-    device work NOW, returns ``resolve() -> List[List[float]]`` that
+    device work NOW, returns ``resolve() -> List[List[float]]`` (or, with
+    ``as_array``, the ``(n, dim)`` float32 array) that
     performs the batched host fetch. The add_documents ingest pipeline
     (core/add_documents.py) dispatches sub-batch N+1 and feeds sub-batch
     N-1 between a sub-batch's dispatch and resolve, hiding device compute
@@ -387,31 +369,13 @@ def vectorise_async(model_name: str,
     serially). Cache lookups happen at dispatch; cache writes at resolve.
     The dynamic micro-batching scheduler is bypassed — this path exists
     for large offline batches, not concurrent small requests."""
-    if content is None or (isinstance(content, list) and len(content) == 0):
-        raise VectoriseError("Received empty content for vectorise")
-    contents = [content] if isinstance(content, str) else list(content)
-
-    dev = Device.normalize(device)
-    properties = _resolve_properties(model_name, model_properties)
-    cache_key = _create_model_cache_key(model_name, dev.value, properties)
-    model = _update_available_models(cache_key, model_name, properties, dev,
-                                     model_auth)
-
-    cache = _get_inference_cache()
-    results: List[Optional[List[float]]] = [None] * len(contents)
-    misses: List[int] = []
-    use_cache = enable_cache and cache.enabled and normalize_embeddings
-    if use_cache:
-        for i, item in enumerate(contents):
-            hit = cache.get(cache_key, item)
-            if hit is not None:
-                results[i] = hit
-            else:
-                misses.append(i)
-    else:
-        misses = list(range(len(contents)))
+    model, cache_key, contents, hits, misses, use_cache = _prepare(
+        model_name, content, model_properties, device, model_auth,
+        enable_cache, normalize_embeddings)
 
     if not misses:
+        results = _finish(contents, hits, misses, None, cache_key, use_cache,
+                          as_array)
         return lambda: results
 
     # same MARQO_MAX_VECTORISE_BATCH_SIZE contract as the sync path
@@ -433,23 +397,90 @@ def vectorise_async(model_name: str,
             f"Error vectorising content with model `{model_name}`: {e}",
             cause=e) from e
 
-    def resolve() -> List[List[float]]:
+    def resolve():
         try:
-            encoded = [row for r in resolvers for row in r()]
+            parts = [float_rows(r()) for r in resolvers]
         except VectoriseError:
             raise
         except Exception as e:
             raise VectoriseError(
                 f"Error vectorising content with model `{model_name}`: {e}",
                 cause=e) from e
-        encoded = _float_list(encoded)
-        for j, i in enumerate(misses):
-            results[i] = encoded[j]
-            if use_cache:
-                cache.set(cache_key, contents[i], encoded[j])
-        return results  # type: ignore[return-value]
+        encoded = parts[0] if len(parts) == 1 else np.concatenate(parts)
+        return _finish(contents, hits, misses, encoded, cache_key, use_cache,
+                       as_array)
 
     return resolve
+
+
+def _prepare(model_name, content, model_properties, device, model_auth,
+             enable_cache, normalize_embeddings):
+    """What both forms of vectorise resolve first: the model, its cache
+    key, the contents as a list, the cache's hits ({index: row}), the
+    indices left to encode, and whether the cache takes part."""
+    if content is None or (isinstance(content, list) and len(content) == 0):
+        raise VectoriseError("Received empty content for vectorise")
+    contents = [content] if isinstance(content, str) else list(content)
+
+    dev = Device.normalize(device)
+    properties = _resolve_properties(model_name, model_properties)
+    cache_key = _create_model_cache_key(model_name, dev.value, properties)
+    model = _update_available_models(cache_key, model_name, properties, dev,
+                                     model_auth)
+
+    cache = _get_inference_cache()
+    use_cache = enable_cache and cache.enabled and normalize_embeddings
+    hits: Dict[int, List[float]] = {}
+    misses: List[int] = []
+    if use_cache:
+        for i, item in enumerate(contents):
+            hit = cache.get(cache_key, item)
+            if hit is not None:
+                hits[i] = hit
+            else:
+                misses.append(i)
+    else:
+        misses = list(range(len(contents)))
+    return model, cache_key, contents, hits, misses, use_cache
+
+
+def _finish(contents, hits, misses, encoded, cache_key, use_cache,
+            as_array):
+    """The rows of ``contents``: ``encoded`` (the misses' rows, in order)
+    beside the cache's hits, as one ``(n, dim)`` float32 array where
+    ``as_array``, else as lists (reference _convert_vectorized_output,
+    s2_inference.py:705-749). Rows become lists only for a caller that
+    wants lists, and for the cache, which stores them; the count goes to
+    the request's ``inference.rows_listed``."""
+    with telemetry.span("inference.to_lists"):
+        rows = float_rows(encoded) if misses else None
+        listed = None
+        if rows is not None and (use_cache or not as_array):
+            listed = rows.tolist()
+            telemetry.RequestMetricsStore.for_request().increment_counter(
+                "inference.rows_listed", len(listed))
+            if use_cache:
+                cache = _get_inference_cache()
+                for j, i in enumerate(misses):
+                    cache.set(cache_key, contents[i], listed[j])
+        if as_array:
+            if not hits:
+                return rows
+            out = np.empty((len(contents), len(next(iter(hits.values())))),
+                           dtype=np.float32)
+            for i, hit in hits.items():
+                out[i] = hit
+            if misses:
+                out[misses] = rows
+            return out
+        if not hits:
+            return listed
+        results: List[Optional[List[float]]] = [None] * len(contents)
+        for i, hit in hits.items():
+            results[i] = hit
+        for j, i in enumerate(misses):
+            results[i] = listed[j]
+        return results
 
 
 def _encode(model: EmbeddingModel, cache_key: str, contents: List[Any],
@@ -480,14 +511,11 @@ def _encode(model: EmbeddingModel, cache_key: str, contents: List[Any],
     return model.encode(contents, normalize=normalize, modality=modality)
 
 
-def _float_list(arr) -> List[List[float]]:
-    """Normalize encoder output (reference _convert_vectorized_output,
-    s2_inference.py:705-749)."""
-    with telemetry.span("inference.to_lists"):
-        arr = np.asarray(arr, dtype=np.float32)
-        if arr.ndim == 1:
-            arr = arr[None, :]
-        return arr.tolist()
+def float_rows(arr) -> np.ndarray:
+    """Encoder output as an ``(n, dim)`` float32 array: a 1-D vector is one
+    row."""
+    arr = np.asarray(arr, dtype=np.float32)
+    return arr[None, :] if arr.ndim == 1 else arr
 
 
 def get_model_dimensions(model_name: str,

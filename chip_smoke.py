@@ -167,6 +167,19 @@ and the card's memory. The detectors' replays, with cuDNN's TF32 on in
 the process, within 1e-3 of the fp32 CPU run; a graph captured from the
 forward's body outside ``fp32_convolutions`` (TF32 on) must miss it.
 
+B1's causal instances, after the graphs and before timing: dsv2_attention,
+a two-layer deepseek_v2 checkpoint at DeepSeek-V2-Lite's latent attention
+widths (16 heads, q/k 192, v 128) loaded through the hf type; one request
+of the bulk-ingest cell's chunks (64 titles, 128 body chunks) through the
+packed, graphed path and one query through the padded path, the launch
+counters set to 0 just before each and read just after, with the shapes
+launched (segment-causal on the packed path alone, padding-causal on the
+query's); every launched shape against the twin, fp32 and bf16, at YaRN's
+softmax scale, to phase 3's bounds with the scale control; the packed
+path's most launched shape (segment) and the query's (padding) timed
+queued beside the twin, SDPA with the same mask as a bias, and the bound
+of their own mask; both rows join the kernels line.
+
 The serving mesh (marqo_tpu_torch/parallel/) on the one card, as a virtual
 mesh (the card repeated), forced with MARQO_TPU_SERVING_MESH=TRUE and
 MARQO_TPU_MESH_SHAPE; every phase above serves without one:
@@ -259,6 +272,7 @@ exits non-zero before printing anything. JAX is never imported.
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -613,7 +627,8 @@ def bound(bytes_moved: float, operations: float, peak_ops: float) -> dict:
             "bound_by": "bytes" if memory_ms >= compute_ms else "operations"}
 
 
-def attention_bound(B, N, S, D, mode: str, ids=None) -> dict:
+def attention_bound(B, N, S, D, mode: str, ids=None, dv=None,
+                    causal=False) -> dict:
     """What this run's mask needs, in bf16: q read and the output written in
     full; K and V of the keys some query may attend to, and V of every key
     of a batch row holding a query that may attend to none (its output is
@@ -621,8 +636,11 @@ def attention_bound(B, N, S, D, mode: str, ids=None) -> dict:
     allowed (query, key) pairs and P.V over those and over every key of a
     query that sees none, at 2 operations per multiply-add, on the bf16
     tensor-core peak. ``mode``: "nomask", "padding" and "segment" (B1's
-    modes), or "fused_segment" (B2's, where id 0 is a segment too)."""
+    modes), or "fused_segment" (B2's, where id 0 is a segment too);
+    ``causal``: keys after the query disallowed too; ``dv``: v's and the
+    output's head dim where it is not q's and k's ``D``."""
     import torch
+    dv = D if dv is None else dv
     if ids is None:
         k_keys = v_keys = B * S
         qk_pairs, blind_queries = B * S * S, 0
@@ -635,14 +653,16 @@ def attention_bound(B, N, S, D, mode: str, ids=None) -> dict:
                        (ids[:, None, :] > 0))
         else:
             allowed = ids[:, :, None] == ids[:, None, :]
+        if causal:
+            allowed = allowed & torch.ones(S, S, dtype=torch.bool).tril()
         seen = allowed.any(1)     # (B, S) keys some query attends to
         blind = ~allowed.any(2)   # (B, S) queries that attend to none
         k_keys = int(seen.sum())
         v_keys = int(torch.where(blind.any(1), S, seen.sum(1)).sum())
         qk_pairs, blind_queries = int(allowed.sum()), int(blind.sum())
-    bytes_moved = (2 * B * S + k_keys + v_keys) * N * D * 2 + (
+    bytes_moved = (B * S * (D + dv) + k_keys * D + v_keys * dv) * N * 2 + (
         0 if ids is None else 4 * B * S)
-    operations = 2 * N * D * (2 * qk_pairs + blind_queries * S)
+    operations = 2 * N * (D * qk_pairs + dv * (qk_pairs + blind_queries * S))
     return bound(bytes_moved, operations, PEAK_BF16_FLOPS)
 
 
@@ -746,6 +766,23 @@ def attention_inputs(B, N, S, D, dtype, seed):
             pos, sid = pos + n, sid + 1
     return (q, k, v, torch.from_numpy(pad).to(DEVICE),
             torch.from_numpy(seg).to(DEVICE))
+
+
+def mla_inputs(B, N, S, dtype, seed):
+    """Inputs for B1's causal modes at DeepSeek-V2's latent attention
+    widths, as the model hands them to the kernel: q, k (B, N, S, 192)
+    views of (B, S, N, 192) tensors and v (B, N, S, 128) the value half of
+    a (B, S, N, 256) kv_b output; q, k ~ N(0, 1), v ~ 0.3 N(0, 1); and
+    attention_inputs' padding mask and segment ids."""
+    import torch
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    q = torch.randn(B, S, N, 192, generator=g, device=DEVICE).to(dtype)
+    k = torch.randn(B, S, N, 192, generator=g, device=DEVICE).to(dtype)
+    kv = (0.3 * torch.randn(B, S, N, 256, generator=g, device=DEVICE)
+          ).to(dtype)
+    _, _, _, pad, seg = attention_inputs(B, N, S, 8, dtype, seed)
+    return (q.transpose(1, 2), k.transpose(1, 2),
+            kv[..., 128:].transpose(1, 2), pad, seg)
 
 
 PROJECTION_LAYOUTS = ("projection", "fused_qkv")
@@ -3783,6 +3820,162 @@ def phase_last_family_graphs(torch, smi):
     return results
 
 
+# DeepSeek-V2-Lite's latent attention (16 heads, q/k 192 = 128 + 64 RoPE, v
+# 128, YaRN's softmax scale) in a two-layer model narrow elsewhere, for
+# the causal instances of B1 at the shapes the model's own path gives them
+DSV2_SMALL = {"hidden_size": 512, "num_attention_heads": 16,
+              "num_key_value_heads": 16, "qk_nope_head_dim": 128,
+              "qk_rope_head_dim": 64, "v_head_dim": 128, "kv_lora_rank": 128,
+              "intermediate_size": 1024, "moe_intermediate_size": 128,
+              "vocab_size": 300, "num_hidden_layers": 2}
+DSV2_SCALE = 192 ** -0.5 * (0.1 * 0.707 * math.log(40) + 1) ** 2
+# one dsv2_lite.bulk_ingest request's chunks at the checkpoint's one token
+# a byte: 64 titles of 4-12 words (5-14 tokens with BOS) and 128 body
+# chunks of 6 sentences of 6-30 words (40-190 tokens)
+DSV2_TITLES, DSV2_CHUNKS = 64, 128
+
+
+def dsv2_texts(seed: int) -> list:
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lengths = list(rng.integers(4, 14, DSV2_TITLES)) + \
+        list(rng.integers(39, 190, DSV2_CHUNKS))
+    return ["".join(chr(97 + int(c)) for c in rng.integers(0, 26, n))
+            for n in lengths]
+
+
+def dsv2_causal_checks(fa, torch, shape, mode) -> list:
+    """B1's causal ``mode`` at (B, 16, S, 192/128) against its twin, fp32
+    and bf16, each bf16 case with the scale control."""
+    B, N, S, _ = shape
+    kernel, plain = {
+        "padding": (fa.attention_padding, fa.attention_padding_reference),
+        "segment": (fa.attention_segment, fa.attention_segment_reference)
+    }[mode]
+    results = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        q, k, v, pad, seg = mla_inputs(B, N, S, dtype, seed=B * S)
+        mask = pad if mode == "padding" else seg
+        out = kernel(q, k, v, mask, causal=True, scale=DSV2_SCALE)
+        torch.cuda.synchronize()
+        check(out.dtype == dtype and tuple(out.shape) == (B, N, S, 128) and
+              is_projection_layout(out),
+              f"causal output {out.dtype} {tuple(out.shape)} strides "
+              f"{out.stride()}")
+        label = f"causal kernel vs twin ({mode}, {dname}, {list(shape)})"
+        check(bool(torch.isfinite(out).all()), f"non-finite output: {label}")
+        ref = plain(q, k, v, mask, causal=True, scale=DSV2_SCALE)
+        control = plain(q * SCALE_CONTROL, k, v, mask, causal=True,
+                        scale=DSV2_SCALE)
+        results.append({"mode": mode, "dtype": dname, "shape": list(shape),
+                        **check_attention(out, ref, control, label)})
+    return results
+
+
+def dsv2_causal_timing(fa, torch, shape, mode) -> dict:
+    """B1's causal ``mode`` at ``shape`` in bf16, queued, beside its twin
+    and SDPA with the same mask as an additive bias; the bound of its own
+    mask at q/k 192 and v 128."""
+    B, N, S, _ = shape
+    q, k, v, pad, seg = mla_inputs(B, N, S, torch.bfloat16, seed=B * S)
+    mask = pad if mode == "padding" else seg
+    kernel, plain = {
+        "padding": (fa.attention_padding, fa.attention_padding_reference),
+        "segment": (fa.attention_segment, fa.attention_segment_reference)
+    }[mode]
+    if mode == "padding":
+        allowed = (mask > 0)[:, None, :].expand(B, S, S)
+    else:
+        allowed = (mask[:, :, None] == mask[:, None, :]) & \
+            (mask[:, None, :] > 0)
+    allowed = (allowed & torch.ones(S, S, dtype=torch.bool,
+                                    device=mask.device).tril())[:, None]
+    import torch.nn.functional as F
+    bias = torch.zeros(allowed.shape, dtype=q.dtype, device=q.device
+                       ).masked_fill(~allowed, -1e9)
+    times = paired_queued_ms(
+        lambda: kernel(q, k, v, mask, causal=True, scale=DSV2_SCALE),
+        lambda: plain(q, k, v, mask, causal=True, scale=DSV2_SCALE),
+        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
+                                               scale=DSV2_SCALE), 20)
+    return {"mode": mode, "shape": list(shape), "loop": "mma_sync",
+            **times, **attention_bound(B, N, S, 192, mode, mask, dv=128,
+                                       causal=True)}
+
+
+def phase_dsv2_attention(fa, torch, smi) -> dict:
+    """B1's causal instances on DeepSeek-V2's path: a two-layer model at the
+    latent attention's widths (DSV2_SMALL) loaded as the hf type loads a
+    deepseek_v2 checkpoint, one request's chunks of the bulk-ingest cell
+    encoded through the packed, graphed path and one query through the
+    padded one, every launch counter set to 0 just before each and read
+    just after, with the shapes launched. Each launched shape, and the
+    padding mode at the packed shapes, held against the twin
+    (``dsv2_causal_checks``); the packed path's most launched shape and
+    the query's timed (``dsv2_causal_timing``). Returns the kernels
+    line's two rows."""
+    from tests.deepseek_v2_checkpoint import TINY, write_checkpoint
+
+    from marqo_tpu_torch.inference import loaders
+    from marqo_tpu_torch.inference.types import Device
+    config = dict(TINY, **DSV2_SMALL)
+    with tempfile.TemporaryDirectory() as tmp:
+        directory = write_checkpoint(os.path.join(tmp, "dsv2"), c=config)
+        model = loaders.load_model("dsv2-smoke", {
+            "type": "hf", "name": "dsv2-smoke", "localpath": directory,
+            "dimensions": DSV2_SMALL["hidden_size"], "tokens": 512,
+            "pooling_method": "mean"}, Device.CUDA)
+    texts = dsv2_texts(91)
+    model.encode(texts)  # captures the keys
+    paths = {}
+    for path, batch in (("packed", texts), ("query", texts[-1:])):
+        reset_counts()
+        with LaunchShapes() as shapes:
+            vectors = model.encode(batch)
+            torch.cuda.synchronize()
+        check(np_finite(vectors), f"dsv2_attention: non-finite {path} "
+              f"vectors")
+        counts = read_counts()
+        launched = [row for row in shapes.listed()
+                    if row["counter"].endswith("_causal")]
+        paths[path] = {"launches": {name: n for name, n in counts.items()
+                                    if n}, "shapes": launched}
+    packed = paths["packed"]["launches"]
+    check(packed.get("masked_attention_segment_causal", 0) > 0 and
+          not packed.get("masked_attention_padding_causal"),
+          f"dsv2_attention: the packed path launched {packed}")
+    query = paths["query"]["launches"]
+    check(query.get("masked_attention_padding_causal", 0) > 0,
+          f"dsv2_attention: the query path launched {query}")
+    results = []
+    for path in ("packed", "query"):
+        for row in paths[path]["shapes"]:
+            modes = ("segment", "padding") if path == "packed" else \
+                ("padding",)
+            for mode in modes:
+                results += dsv2_causal_checks(fa, torch, row["shape"], mode)
+    errors = {mode: max(r["max_abs_err"] for r in results
+                        if r["mode"] == mode)
+              for mode in ("padding", "segment")}
+    kernels = []
+    for mode, path in (("segment", "packed"), ("padding", "query")):
+        top = max(paths[path]["shapes"], key=lambda row: row["launches"])
+        row = dsv2_causal_timing(fa, torch, top["shape"], mode)
+        name = f"masked_attention_{mode}_causal"
+        kernels.append({
+            "name": name, "route": "cuda", "source": B1_SOURCE,
+            "replaces": B1_REPLACES, "launches": paths[path]["launches"][name],
+            "max_abs_err": errors[mode], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "loop": row["loop"], "shape": row["shape"]})
+    emit("dsv2_attention", ok=True, device=torch.cuda.get_device_name(0),
+         nvidia_smi=smi, scale=DSV2_SCALE, atol=ATOL, rtol=RTOL,
+         paths=paths, checks=len(results), results=results, kernels=kernels)
+    return {"kernels": kernels}
+
+
 # --- the multi-device mesh (parallel/) on the one card -----------------------
 
 class LaunchShapes:
@@ -5432,6 +5625,7 @@ def main() -> int:
     phase_encoder_graphs(torch, smi)
     phase_family_graphs(torch, smi)
     phase_last_family_graphs(torch, smi)
+    dsv2 = phase_dsv2_attention(fa, torch, smi)
     timing, vit, encoder_times = phase_timing(
         fa, fused, qm, torch, clip_model, pixels, int8_encoder, bf16_encoder)
     emit("detector_timing", device=torch.cuda.get_device_name(0),
@@ -5515,6 +5709,8 @@ def main() -> int:
         {"wgmma": int8["launches"]["w8a8_matmul"]}))
     kernels[-1]["shape"] = row["shape"]
     kernels[-1]["launches_by_layer"] = int8["w8a8_by_layer"]
+    # B1's causal instances at DeepSeek-V2's path's own shapes
+    kernels += dsv2["kernels"]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,10 @@ A request with ``?telemetry=true`` is traced, and then:
   per-document timers;
 - while any traced request is in flight a ``gc.callbacks`` hook times each
   collection on a traced request's thread as ``gc.pause`` (logged with its
-  generation) and counts the full ones as ``gc.collections.gen2``.
+  generation) and counts the full ones as ``gc.collections.gen2``;
+- a counter kept per part (the tokens each (layer, expert) of a mixture of
+  experts took) goes to the process's count log (``record_counts``,
+  ``counts()``) with its request's id and its time on ``time.time_ns()``.
 
 Outside a traced request each stage site costs one check of ``tracing``.
 """
@@ -87,6 +90,25 @@ def spans() -> List[Span]:
 def dropped_spans() -> int:
     """How many spans the log has dropped, oldest first, to stay bounded."""
     return _log.dropped
+
+
+# One entry of the count log: a traced request's counter kept per part
+# (an array), stamped on time.time_ns()
+Counts = namedtuple("Counts", "request name time_ns values")
+
+_counts = SpanLog(4096)
+
+
+def record_counts(metrics: "RequestMetrics", name: str, values) -> None:
+    """Logs the per-part counter ``name`` (an array) of the traced request
+    ``metrics``."""
+    _counts.append(Counts(metrics.request_id, name, time.time_ns(), values))
+
+
+def counts(name: str) -> list:
+    """The logged entries of the per-part counter ``name``, oldest first
+    (the newest 4,096 of every counter)."""
+    return [entry for entry in _counts.entries() if entry.name == name]
 
 
 class RequestMetrics:

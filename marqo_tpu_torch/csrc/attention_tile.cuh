@@ -30,7 +30,18 @@
 // Head dims. Instances are templated on the head dim padded to a multiple of
 // 16 (DP = 16, 32, ..., 128); the real D (a multiple of 8) comes at run
 // time. Columns D..DP-1 are zero-filled in shared memory, which changes no
-// score, and only the D real output columns are stored.
+// score, and only the D real output columns are stored. A second template
+// width DV <= DP is V's (and the output's) padded head dim, with its real
+// Dv at run time: DV = DP everywhere but B1's causal instance for latent
+// attention (DeepSeek-V2's MLA: q/k 192 = 128 + 64 RoPE dims, v 128), so
+// V's tiles, the P.V accumulators and the stores cover 128 columns, not
+// 192, and its work counts the published 128.
+//
+// Causal policies (B1's causal modes, decoder embedders): a policy with
+// `kCausal` also disallows every key after the query's own index in the
+// row (key > query gets the finite -1e9, as any disallowed key), so the
+// segment policy is causal inside each packed segment and the padding
+// policy causal over a right-padded row.
 //
 // bf16 instances: tensor cores (the served dtype). A block is 4 warps of 16
 // query rows. Q is copied once to shared memory, then held in registers as
@@ -82,7 +93,12 @@
 //   kSegment (B2): skip a tile none of whose key ids lies in [min, max] of
 //     the block's query ids (id 0 is a segment; every query sees its own
 //     key, so no row is ever fully masked);
-//   kNone (B2 no mask): only the ragged edge.
+//   kNone (B2 no mask): only the ragged edge;
+//   and a causal policy (B1) also skips every tile after the block's last
+//     query, unless the rule above has the block visit every tile. Every
+//     real query attends to itself, whose tile it visits; causal padding
+//     rows are right-padded (key 0 real), so a pad query also has a real
+//     score, from key 0.
 // One warp reads the (B, S) id row once and sets a visit bit per key tile
 // in shared memory while the block's first copies are in flight; key tile
 // 0 is fetched before the bits are known (a block that skips it loads it
@@ -136,7 +152,16 @@ enum class Skip { kNone, kPadding, kSegmentPositive, kSegment };
 //   static constexpr bool kUsesIds;  // whether the (B, S) int32 row is read
 //   static constexpr Skip kSkip;
 //   static __device__ bool allowed(int query_id, int key_id);
+// and may have
+//   static constexpr bool kCausal;   // keys after the query are disallowed
 // When kUsesIds is false the ids pointer is never read and may be null.
+template <typename Mask, typename = void>
+struct CausalOf : std::false_type {};
+template <typename Mask>
+struct CausalOf<Mask, std::void_t<decltype(Mask::kCausal)>>
+    : std::integral_constant<bool, Mask::kCausal> {};
+template <typename Mask>
+constexpr bool kCausal = CausalOf<Mask>::value;
 
 // The block's visit bits: one per key tile, for the first kFlagWords * 32
 // tiles (131,072 keys); tiles past them are always visited.
@@ -171,6 +196,8 @@ __device__ void mark_tiles(const int* ids, int q0, int rows, int seq_len,
     lo = __reduce_min_sync(kFullMask, l);
     hi = __reduce_max_sync(kFullMask, h);
   }
+  // a causal block needs no key after its last query
+  const int key_end = kCausal<Mask> ? min(q0 + rows, seq_len) : seq_len;
   unsigned any_tile = 0;
   for (int w = 0; w < words; ++w) {
     unsigned word = ~0u;
@@ -180,6 +207,7 @@ __device__ void mark_tiles(const int* ids, int q0, int rows, int seq_len,
 #pragma unroll 4
       for (int i = 0; i < tiles; ++i) {
         const int k0 = (32 * w + i) * kBlockK;
+        if (kCausal<Mask> && k0 >= key_end) break;
         bool hit = false;
 #pragma unroll
         for (int j = 0; j < kBlockK; j += 32) {
@@ -283,20 +311,22 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // --- bf16: tensor cores ------------------------------------------------------
 
-template <int DP>
+template <int DP, int DV = DP>
 struct MmaLayout {
   static constexpr int kRow = DP + 8;           // bf16 per shared row
   static constexpr int kTile = kBlockK * kRow;  // bf16 per 64-row tile
+  static constexpr int kRowV = DV + 8;          // V's rows
+  static constexpr int kTileV = kBlockK * kRowV;
   // Q (then the output), two K stages, two V stages; two stages of key
   // ids; the visit bits
-  static constexpr size_t kBytes = 5 * kTile * sizeof(__nv_bfloat16) +
-                                   2 * kBlockK * sizeof(int) +
-                                   kFlagWords * sizeof(unsigned);
+  static constexpr size_t kBytes =
+      (3 * kTile + 2 * kTileV) * sizeof(__nv_bfloat16) +
+      2 * kBlockK * sizeof(int) + kFlagWords * sizeof(unsigned);
 };
 
-// Copy 64 rows (row0...) of one strided operand into a shared tile: rows
-// past S and columns past D are zero-filled.
-template <int DP>
+// Copy 64 rows (row0...) of one strided operand into a shared tile of rows
+// of `kRow` bf16: rows past S and columns past D are zero-filled.
+template <int DP, int kRow = DP + 8>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src,
                                           long long token_stride, int row0,
@@ -307,24 +337,25 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   for (int c = tid; c < kBlockK * kChunks; c += kThreads<__nv_bfloat16>) {
     const int r = c / kChunks, col = (c % kChunks) * 8, row = row0 + r;
     const bool valid = row < seq_len && col < head_dim;
-    cp_async16(dst + r * MmaLayout<DP>::kRow + col,
+    cp_async16(dst + r * kRow + col,
                valid ? src + row * token_stride + col : src, valid);
   }
 }
 
-template <int DP, typename Mask>
+template <int DP, int DV, typename Mask>
 __device__ __forceinline__ void mma_tile_loop(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ ids,
     __nv_bfloat16* __restrict__ out, const Operands& st, int seq_len,
-    int head_dim, float scale, unsigned char* smem) {
-  using L = MmaLayout<DP>;
+    int head_dim, int v_head_dim, float scale, unsigned char* smem) {
+  using L = MmaLayout<DP, DV>;
   using bf16 = __nv_bfloat16;
-  constexpr int kSteps = DP / 16;  // k-steps of Q.K^T, d-pairs of P.V
+  constexpr int kSteps = DP / 16;   // k-steps of Q.K^T
+  constexpr int kVSteps = DV / 16;  // d-pairs of P.V
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* ks = qs + L::kTile;
   bf16* vs = ks + 2 * L::kTile;
-  int* key_ids = reinterpret_cast<int*>(vs + 2 * L::kTile);
+  int* key_ids = reinterpret_cast<int*>(vs + 2 * L::kTileV);
   unsigned* bits = reinterpret_cast<unsigned*>(key_ids + 2 * kBlockK);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -342,8 +373,8 @@ __device__ __forceinline__ void mma_tile_loop(
     const int k0 = t * kBlockK;
     load_tile<DP>(ks + stage * L::kTile, kh, st.k.token, k0, seq_len,
                   head_dim, tid);
-    load_tile<DP>(vs + stage * L::kTile, vh, st.v.token, k0, seq_len,
-                  head_dim, tid);
+    load_tile<DV, L::kRowV>(vs + stage * L::kTileV, vh, st.v.token, k0,
+                            seq_len, v_head_dim, tid);
     if (Mask::kUsesIds && tid < kBlockK) {
       const bool valid = k0 + tid < seq_len;
       cp_async4(key_ids + stage * kBlockK + tid,
@@ -369,18 +400,19 @@ __device__ __forceinline__ void mma_tile_loop(
 
   // a warp whose 16 rows all lie past S does no math
   const bool active = q0 + warp * 16 < seq_len;
-  int row_id[2];
+  int row_id[2], row_at[2];
   float row_max[2], row_sum[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + warp * 16 + group + 8 * r;
+    row_at[r] = row;
     row_id[r] = (Mask::kUsesIds && row < seq_len) ? id_row[row] : 0;
     row_max[r] = -INFINITY;
     row_sum[r] = 0.f;
   }
-  float o[DP / 8][4];
+  float o[DV / 8][4];
 #pragma unroll
-  for (int d = 0; d < DP / 8; ++d)
+  for (int d = 0; d < DV / 8; ++d)
 #pragma unroll
     for (int j = 0; j < 4; ++j) o[d][j] = 0.f;
 
@@ -400,7 +432,7 @@ __device__ __forceinline__ void mma_tile_loop(
       constexpr bool kFull = decltype(full)::value;
       const int k0 = t * kBlockK;
       const bf16* kt = ks + stage * L::kTile;
-      const bf16* vt = vs + stage * L::kTile;
+      const bf16* vt = vs + stage * L::kTileV;
       const int* kid = key_ids + stage * kBlockK;
       // the 8-key fragments that reach into S: all of them in a full tile,
       // whose code has no run-time guards
@@ -445,9 +477,11 @@ __device__ __forceinline__ void mma_tile_loop(
                                   : make_int2(0, 0);
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            s[f][j] = !kFull && k0 + col + (j & 1) >= seq_len ? -INFINITY
+            const int key = k0 + col + (j & 1);
+            s[f][j] = !kFull && key >= seq_len ? -INFINITY
                       : Mask::allowed(row_id[j >> 1],
-                                      j & 1 ? key_id.y : key_id.x)
+                                      j & 1 ? key_id.y : key_id.x) &&
+                              (!kCausal<Mask> || key <= row_at[j >> 1])
                           ? s[f][j] * scale
                           : kMaskedScore;
           }
@@ -479,7 +513,7 @@ __device__ __forceinline__ void mma_tile_loop(
         row_sum[r] = row_sum[r] * alpha + tile_sum;
         row_max[r] = new_max;
 #pragma unroll
-        for (int d = 0; d < DP / 8; ++d) {
+        for (int d = 0; d < DV / 8; ++d) {
           o[d][2 * r] *= alpha;
           o[d][2 * r + 1] *= alpha;
         }
@@ -496,9 +530,9 @@ __device__ __forceinline__ void mma_tile_loop(
               pack_bf16(s[2 * pair + 1][0], s[2 * pair + 1][1]),
               pack_bf16(s[2 * pair + 1][2], s[2 * pair + 1][3])};
 #pragma unroll
-          for (int dp = 0; dp < kSteps; ++dp) {
+          for (int dp = 0; dp < kVSteps; ++dp) {
             uint32_t vf[4];
-            ldmatrix_x4_trans(vf, vt + (pair * 16 + lane % 16) * L::kRow +
+            ldmatrix_x4_trans(vf, vt + (pair * 16 + lane % 16) * L::kRowV +
                                       dp * 16 + (lane / 16) * 8);
             mma_bf16(o[2 * dp], pf, vf[0], vf[1]);
             mma_bf16(o[2 * dp + 1], pf, vf[2], vf[3]);
@@ -525,18 +559,18 @@ __device__ __forceinline__ void mma_tile_loop(
   for (int r = 0; r < 2; ++r) {
     const float inv = 1.f / row_sum[r];
 #pragma unroll
-    for (int d = 0; d < DP / 8; ++d)
+    for (int d = 0; d < DV / 8; ++d)
       *reinterpret_cast<__nv_bfloat162*>(
           staged + (group + 8 * r) * L::kRow + d * 8 + quad * 2) =
           __floats2bfloat162_rn(o[d][2 * r] * inv, o[d][2 * r + 1] * inv);
   }
   __syncwarp();
-  constexpr int kChunks = DP / 8;
+  constexpr int kChunks = DV / 8;
 #pragma unroll
   for (int c = lane; c < 16 * kChunks; c += 32) {
     const int r = c / kChunks, col = (c % kChunks) * 8;
     const int row = q0 + warp * 16 + r;
-    if (row < seq_len && col < head_dim)
+    if (row < seq_len && col < v_head_dim)
       *reinterpret_cast<uint4*>(oh + row * st.out.token + col) =
           *reinterpret_cast<const uint4*>(staged + r * L::kRow + col);
   }
@@ -544,13 +578,13 @@ __device__ __forceinline__ void mma_tile_loop(
 
 // --- fp32: the exact FMA loop ------------------------------------------------
 
-template <int DP>
+template <int DP, int DV = DP>
 struct FmaLayout {
   // +1 pads break shared-memory bank conflicts on column-wise reads (DP is a
   // multiple of 16, so DP + 1 is odd)
   static constexpr int kQStride = DP + 1;
   static constexpr int kKStride = DP + 1;
-  static constexpr int kVStride = DP;
+  static constexpr int kVStride = DV;
   static constexpr int kPStride = kBlockK + 1;
   static constexpr int kFloats = kBlockQ * kQStride + kBlockK * kKStride +
                                  kBlockK * kVStride + kBlockQ * kPStride;
@@ -559,14 +593,14 @@ struct FmaLayout {
                                    kFlagWords * sizeof(unsigned);
 };
 
-template <int DP, typename Mask>
+template <int DP, int DV, typename Mask>
 __device__ __forceinline__ void fma_tile_loop(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const int* __restrict__ ids,
     float* __restrict__ out, const Operands& st, int seq_len, int head_dim,
-    float scale, unsigned char* smem_raw) {
-  using L = FmaLayout<DP>;
-  constexpr int kCols = DP / 16;  // output columns per thread
+    int v_head_dim, float scale, unsigned char* smem_raw) {
+  using L = FmaLayout<DP, DV>;
+  constexpr int kCols = DV / 16;  // output columns per thread
   constexpr int kThreadsF = kThreads<float>;
   float* qs = reinterpret_cast<float*>(smem_raw);
   float* ks = qs + kBlockQ * L::kQStride;
@@ -612,11 +646,24 @@ __device__ __forceinline__ void fma_tile_loop(
   for (int t = next_tile<Mask>(bits, 0, n_tiles); t < n_tiles;
        t = next_tile<Mask>(bits, t + 1, n_tiles)) {
     const int k0 = t * kBlockK;
-    for (int e = tid; e < kBlockK * DP; e += kThreadsF) {
-      const int r = e / DP, c = e % DP, row = k0 + r;
-      const bool in = row < seq_len && c < head_dim;
-      ks[r * L::kKStride + c] = in ? kh[row * st.k.token + c] : 0.f;
-      vs[r * L::kVStride + c] = in ? vh[row * st.v.token + c] : 0.f;
+    if constexpr (DV == DP) {
+      for (int e = tid; e < kBlockK * DP; e += kThreadsF) {
+        const int r = e / DP, c = e % DP, row = k0 + r;
+        const bool in = row < seq_len && c < head_dim;
+        ks[r * L::kKStride + c] = in ? kh[row * st.k.token + c] : 0.f;
+        vs[r * L::kVStride + c] = in ? vh[row * st.v.token + c] : 0.f;
+      }
+    } else {
+      for (int e = tid; e < kBlockK * DP; e += kThreadsF) {
+        const int r = e / DP, c = e % DP, row = k0 + r;
+        ks[r * L::kKStride + c] =
+            row < seq_len && c < head_dim ? kh[row * st.k.token + c] : 0.f;
+      }
+      for (int e = tid; e < kBlockK * DV; e += kThreadsF) {
+        const int r = e / DV, c = e % DV, row = k0 + r;
+        vs[r * L::kVStride + c] =
+            row < seq_len && c < v_head_dim ? vh[row * st.v.token + c] : 0.f;
+      }
     }
     if (Mask::kUsesIds && tid < kBlockK)
       key_ids[tid] = k0 + tid < seq_len ? id_row[k0 + tid] : 0;
@@ -647,9 +694,11 @@ __device__ __forceinline__ void fma_tile_loop(
       const int key_id = Mask::kUsesIds ? key_ids[col] : 0;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        s[i][j] = key >= seq_len                      ? -INFINITY
-                  : Mask::allowed(row_id[i], key_id) ? s[i][j] * scale
-                                                     : kMaskedScore;
+        s[i][j] = key >= seq_len ? -INFINITY
+                  : Mask::allowed(row_id[i], key_id) &&
+                          (!kCausal<Mask> || key <= q0 + ty + 16 * i)
+                      ? s[i][j] * scale
+                      : kMaskedScore;
       }
     }
 
@@ -704,40 +753,43 @@ __device__ __forceinline__ void fma_tile_loop(
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
       const int c = tx + 16 * j;
-      if (c < head_dim) oh[row * st.out.token + c] = acc[i][j] * inv;
+      if (c < v_head_dim) oh[row * st.out.token + c] = acc[i][j] * inv;
     }
   }
 }
 
 // --- the kernel and its launch ------------------------------------------------
 
-template <typename T, int DP, typename Mask>
+template <typename T, int DP, int DV, typename Mask>
 __global__ void __launch_bounds__(kThreads<T>, kMinBlocks<T, DP>)
 attention_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const int* __restrict__ ids,
                       T* __restrict__ out, Operands strides, int seq_len,
-                      int head_dim, float scale) {
-  static_assert(DP % 16 == 0 && DP >= 16 && DP <= 128, "padded head dim");
+                      int head_dim, int v_head_dim, float scale) {
+  static_assert(DP % 16 == 0 && DP >= 16 && DP <= 192, "padded head dim");
+  static_assert(DV % 16 == 0 && DV >= 16 && DV <= DP, "padded v head dim");
   extern __shared__ __align__(16) unsigned char smem[];
   if constexpr (std::is_same<T, float>::value)
-    fma_tile_loop<DP, Mask>(q, k, v, ids, out, strides, seq_len, head_dim,
-                            scale, smem);
+    fma_tile_loop<DP, DV, Mask>(q, k, v, ids, out, strides, seq_len,
+                                head_dim, v_head_dim, scale, smem);
   else
-    mma_tile_loop<DP, Mask>(q, k, v, ids, out, strides, seq_len, head_dim,
-                            scale, smem);
+    mma_tile_loop<DP, DV, Mask>(q, k, v, ids, out, strides, seq_len,
+                                head_dim, v_head_dim, scale, smem);
 }
 
-// Launch one (dtype, padded head dim, mask) instance on `stream`; returns the
-// cudaError_t of the launch (the kernel runs asynchronously).
-template <typename T, int DP, typename Mask>
+// Launch one (dtype, padded head dims, mask) instance on `stream`; returns
+// the cudaError_t of the launch (the kernel runs asynchronously). V's head
+// dim is q's and k's unless `v_head_dim` is given (and DV with it).
+template <typename T, int DP, typename Mask, int DV = DP>
 cudaError_t launch_attention(const void* q, const void* k, const void* v,
                              const void* ids, void* out,
                              const Operands& strides, int batch, int heads,
                              int seq_len, int head_dim, float scale,
-                             cudaStream_t stream) {
-  auto kernel = attention_tile_kernel<T, DP, Mask>;
-  const size_t smem = std::is_same<T, float>::value ? FmaLayout<DP>::kBytes
-                                                    : MmaLayout<DP>::kBytes;
+                             cudaStream_t stream, int v_head_dim = -1) {
+  auto kernel = attention_tile_kernel<T, DP, DV, Mask>;
+  const size_t smem = std::is_same<T, float>::value
+                          ? FmaLayout<DP, DV>::kBytes
+                          : MmaLayout<DP, DV>::kBytes;
   // the shared-memory opt-in holds per device: set it on a device's first
   // launch of this instance only, not on every launch
   static std::atomic<unsigned long long> opted_in{0};
@@ -755,7 +807,8 @@ cudaError_t launch_attention(const void* q, const void* k, const void* v,
   kernel<<<grid, kThreads<T>, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(ids),
-      static_cast<T*>(out), strides, seq_len, head_dim, scale);
+      static_cast<T*>(out), strides, seq_len, head_dim,
+      v_head_dim < 0 ? head_dim : v_head_dim, scale);
   return cudaGetLastError();
 }
 

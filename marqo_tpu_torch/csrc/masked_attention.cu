@@ -39,6 +39,16 @@
 // multiple of 8 up to 128 (64 for e5 and NLLB, 32 for MiniLM, 48 for a
 // 384-wide 8-head encoder), on eight instances of the head dim padded to a
 // multiple of 16 per loop. The fp32 instances keep the exact FMA loop.
+//
+// Causal modes (`marqo_masked_attention_causal`, decoder embedders): the
+// padding and segment policies with keys after the query disallowed, at
+// DeepSeek-V2's latent attention widths alone: q/k head dim 192 (128 +
+// 64 RoPE dims), v head dim 128. bf16 runs them on the mma.sync loop
+// (the wgmma loop's boxes and warpgroup tiles assume one head dim of at
+// most 128), fp32 on the FMA loop. At the embedder's packed rows ((rows,
+// 16, 256, 192/128) bf16) the tensor-core operations bound the work
+// (causal: about half the S x S pairs), the bytes about as much: each
+// block skips the key tiles after its last query.
 
 #include "attention_tile_sm90.cuh"
 
@@ -63,6 +73,18 @@ struct SegmentMask {
     return key > 0 && key == query;
   }
 };
+
+struct CausalPaddingMask : PaddingMask {
+  static constexpr bool kCausal = true;
+};
+
+struct CausalSegmentMask : SegmentMask {
+  static constexpr bool kCausal = true;
+};
+
+// the causal instances' padded head dims: q/k 192, v 128
+constexpr int kCausalHeadDim = 192;
+constexpr int kCausalVHeadDim = 128;
 
 constexpr int kMaxHeadDim = 128;
 
@@ -127,5 +149,42 @@ extern "C" int marqo_masked_attention(const void* q, const void* k,
                                          scale, s)
            : launch_dtype<float>(loop, q, k, v, mask, out, st, batch, heads,
                                  seq_len, head_dim, segment, scale, s);
+  return static_cast<int>(err);
+}
+
+// The causal modes: as marqo_masked_attention, with keys after the query
+// disallowed and V's head dim `v_head_dim` apart from q's and k's
+// (`head_dim`); out is (batch, heads, seq_len, v_head_dim). Only head_dim
+// 192 with v_head_dim 128, on the FMA loop (fp32) or the mma.sync loop
+// (bf16); any other pairing is cudaErrorInvalidValue.
+extern "C" int marqo_masked_attention_causal(
+    const void* q, const void* k, const void* v, const void* mask, void* out,
+    int batch, int heads, int seq_len, int head_dim, int v_head_dim,
+    int segment, int bf16, float scale, const long long* strides, int loop,
+    void* stream) {
+  if (head_dim != kCausalHeadDim || v_head_dim != kCausalVHeadDim)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (loop != (bf16 ? marqo_attention::kLoopMmaSync
+                    : marqo_attention::kLoopFma))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Operands st = marqo_attention::make_operands(strides);
+  using marqo_attention::launch_attention;
+  constexpr int DP = kCausalHeadDim, DV = kCausalVHeadDim;
+  cudaError_t err;
+  if (bf16)
+    err = segment ? launch_attention<__nv_bfloat16, DP, CausalSegmentMask, DV>(
+                        q, k, v, mask, out, st, batch, heads, seq_len,
+                        head_dim, scale, s, v_head_dim)
+                  : launch_attention<__nv_bfloat16, DP, CausalPaddingMask, DV>(
+                        q, k, v, mask, out, st, batch, heads, seq_len,
+                        head_dim, scale, s, v_head_dim);
+  else
+    err = segment ? launch_attention<float, DP, CausalSegmentMask, DV>(
+                        q, k, v, mask, out, st, batch, heads, seq_len,
+                        head_dim, scale, s, v_head_dim)
+                  : launch_attention<float, DP, CausalPaddingMask, DV>(
+                        q, k, v, mask, out, st, batch, heads, seq_len,
+                        head_dim, scale, s, v_head_dim);
   return static_cast<int>(err);
 }

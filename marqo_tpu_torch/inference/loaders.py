@@ -14,10 +14,11 @@ devices), and every encode batch splits across the groups; without a mesh
 a model runs on its one device, where on CUDA the BERT-family text
 encoder and the towers of the CLIP family (ViT, HF-text, ResNet,
 ConvNeXt, SigLIP, NLLB-SigLIP, CoCa, EVA02) replay one CUDA graph per
-bucket (inference/graphs.py), and so does Stella; LanguageBind replays
-its towers' graphs on its one device under a mesh too. Served: the
-BERT-family text encoder (bf16, or int8 W8A8 with
-``quantize``), Stella (``hf_stella``), the ViT CLIP towers
+bucket (inference/graphs.py), and so do Stella and the DeepSeek-V2
+decoder embedder; LanguageBind replays its towers' graphs on its one
+device under a mesh too. Served: the BERT-family text encoder (bf16, or
+int8 W8A8 with ``quantize``), DeepSeek-V2 (type ``hf`` on a
+``deepseek_v2`` checkpoint), Stella (``hf_stella``), the ViT CLIP towers
 (models/clip.py), the HF-text CLIP composites (models/hf_clip.py), SigLIP,
 ResNet-CLIP, ConvNeXt-CLIP, NLLB-SigLIP, CoCa, EVA02-CLIP and LanguageBind:
 every registry entry.
@@ -46,6 +47,7 @@ from marqo_tpu_torch.models.bert import (TextEncoder, TextEncoderConfig,
                                          init_encoder, packed_segment_sums,
                                          params_from_torch_state_dict,
                                          pool_segment_sums)
+from marqo_tpu_torch.models import deepseek_v2
 from marqo_tpu_torch.models.stella import \
     encode_tokens as stella_encode_tokens
 from marqo_tpu_torch.models.tokenizer import TextTokenizer
@@ -129,6 +131,27 @@ class TorchHFTextModel(EmbeddingModel):
         return self.properties.get("name", self.model_name)
 
     def load(self) -> None:
+        self._validate_properties()
+        max_len = int(self.properties.get("tokens", 128))
+        localpath = self._checkpoint_dir()
+        if localpath:
+            self._load_from_dir(localpath, max_len)
+        elif self.properties.get("random_init"):
+            self._load_random_init(max_len)
+        else:
+            try:
+                self._load_from_hub(self._hf_repo(), max_len)
+            except Exception as e:
+                raise ModelLoadError(
+                    f"Could not load model `{self.model_name}` from "
+                    f"`{self._hf_repo()}`: {e}. If running offline, provide "
+                    f"model_properties.localpath or a model_location.",
+                    cause=e)
+        self.encoder = put_params(self, self.encoder)
+        self.loaded = True
+        self._param_bytes = module_bytes(self.encoder)
+
+    def _validate_properties(self) -> None:
         # validate custom model_properties through the reference-shaped
         # schema (hf_model_properties.py); resolves pooling inference and
         # camelCase aliases, and rejects url+model_location conflicts
@@ -148,7 +171,11 @@ class TorchHFTextModel(EmbeddingModel):
                     "poolingMethod" not in self.properties:
                 self.properties["pooling_method"] = \
                     validated.pooling_method.value
-        max_len = int(self.properties.get("tokens", 128))
+
+    def _checkpoint_dir(self) -> Optional[str]:
+        """The checkpoint's local directory: ``localpath``, or where a
+        ``model_location`` or ``url`` was downloaded to; None where there
+        is none."""
         localpath = self.properties.get("localpath")
         location = self.properties.get("model_location")
         if location and not localpath:
@@ -164,22 +191,7 @@ class TorchHFTextModel(EmbeddingModel):
             from marqo_tpu_torch.inference.model_download import \
                 download_pretrained_from_url
             localpath = download_pretrained_from_url(self.properties["url"])
-        if localpath:
-            self._load_from_dir(localpath, max_len)
-        elif self.properties.get("random_init"):
-            self._load_random_init(max_len)
-        else:
-            try:
-                self._load_from_hub(self._hf_repo(), max_len)
-            except Exception as e:
-                raise ModelLoadError(
-                    f"Could not load model `{self.model_name}` from "
-                    f"`{self._hf_repo()}`: {e}. If running offline, provide "
-                    f"model_properties.localpath or a model_location.",
-                    cause=e)
-        self.encoder = put_params(self, self.encoder)
-        self.loaded = True
-        self._param_bytes = module_bytes(self.encoder)
+        return localpath
 
     def _pooling(self) -> str:
         return str(self.properties.get("pooling_method", "mean")).lower()
@@ -514,6 +526,122 @@ class TorchStellaModel(TorchHFTextModel):
         self._param_bytes = module_bytes(self.encoder)
 
 
+class TorchDeepseekV2Model(TorchHFTextModel):
+    """DeepSeek-V2 (``deepseek_v2``) as a mean-pooled text embedder: a
+    decoder LLM served as Marqo serves any HF checkpoint, type ``hf`` with
+    ``localpath``, which ``resolve_model_class`` sends here by the
+    checkpoint's ``model_type`` (models/deepseek_v2.py). The checkpoint may
+    be sharded (``model.safetensors.index.json``); each tensor is read and
+    copied to the model's device on its own. Batches take the BERT family's
+    path (tokenize, pack below ``PACKING_THRESHOLD``, one CUDA graph per
+    key) with the decoder's forwards: B1's causal modes and the expert
+    layer of ops/moe.py.
+
+    Counters of a traced request (api/telemetry.py): ``moe.forwards``, the
+    forwards it ran, each of which reads every expert's weights; and
+    ``moe.expert_tokens``, the tokens routed to routed experts, read from
+    the model's device buffer at the request's device wait (after its one
+    copy to the host, so an untraced request never waits for it), each
+    (layer, expert)'s share logged with ``telemetry.record_counts``."""
+
+    compute_dtype = torch.bfloat16
+    encode_tokens = staticmethod(deepseek_v2.encode_tokens)
+
+    def __init__(self, model_name, properties, device, model_auth=None):
+        super().__init__(model_name, properties, device, model_auth)
+        self._read_tokens = None  # the expert-token buffer at its last read
+
+    def load(self) -> None:
+        self._validate_properties()
+        max_len = int(self.properties.get("tokens", 512))
+        path = self._checkpoint_dir()
+        if not path:
+            raise ModelLoadError(
+                f"Model `{self.model_name}`: a deepseek_v2 checkpoint loads "
+                f"from a local directory (model_properties.localpath)")
+        try:
+            self.config = deepseek_v2.config_from_hf(read_hf_config(path))
+        except ValueError as e:
+            raise ModelLoadError(str(e), cause=e)
+        check_decoder_shapes(self.config, max_len, self._device)
+        if model_mesh(self) is not None:
+            raise ModelLoadError(
+                f"Model `{self.model_name}`: a deepseek_v2 model serves on "
+                f"one device, not over a serving mesh")
+        model = deepseek_v2.empty_model(self.config, self.compute_dtype,
+                                        self._device)
+        self.encoder = deepseek_v2.load_tensors(model,
+                                                checkpoint_tensors(path))
+        self.tokenizer = TextTokenizer.from_pretrained(path,
+                                                       max_length=max_len)
+        self.loaded = True
+        self._param_bytes = module_bytes(self.encoder)
+
+    def encode_async(self, contents: List[Any], normalize: bool = True,
+                     modality: Modality = Modality.TEXT):
+        resolve = super().encode_async(contents, normalize, modality)
+        traced = telemetry.traced()
+        if traced is None:
+            return resolve
+
+        def resolve_and_count() -> np.ndarray:
+            result = resolve()
+            tokens = self.encoder.expert_tokens.to("cpu", copy=True).numpy()
+            read, self._read_tokens = self._read_tokens, tokens
+            if read is not None:
+                tokens = tokens - read
+            traced.increment_counter("moe.expert_tokens", int(tokens.sum()))
+            telemetry.record_counts(traced, "moe.expert_tokens", tokens)
+            return result
+
+        return resolve_and_count
+
+    def _count_forward(self) -> None:
+        traced = telemetry.traced()
+        if traced is not None:
+            traced.increment_counter("moe.forwards")
+
+    def _forward(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
+        self._count_forward()
+        return super()._forward(ids, mask)
+
+    def _packed(self, rows, n_bucket: int) -> torch.Tensor:
+        """One packed chunk's rows through the decoder: on CUDA the replay
+        of this model's graph of (row bucket, seq bucket, n_bucket), else
+        the eager forward."""
+        encode_tokens_packed = deepseek_v2.encode_tokens_packed
+        self._count_forward()
+        with torch.inference_mode():
+            graphs = graphs_for(self)
+            if graphs is None:
+                return encode_tokens_packed(
+                    self.encoder, *(torch.from_numpy(r).to(self._device)
+                                    for r in rows), n_bucket)
+            return graphs.run(
+                "packed", self.compute_dtype,
+                lambda *rows: encode_tokens_packed(self.encoder, *rows,
+                                                   n_bucket),
+                *rows, static=(self.encoder.config, n_bucket))
+
+
+def check_decoder_shapes(config, max_len: int, device) -> None:
+    """Raise ModelLoadError where B1's causal modes do not take the model's
+    latent attention on a CUDA device: (q/k, v) head dims outside
+    ``CAUSAL_HEAD_DIMS`` or more tokens than ``MAX_SEQ_LEN``. The CPU runs
+    every shape on the twins."""
+    from marqo_tpu_torch.ops import flash_attention
+    if torch.device(device).type != "cuda":
+        return
+    dims = (config.qk_head_dim, config.v_head_dim)
+    if dims not in flash_attention.CAUSAL_HEAD_DIMS or \
+            max_len > flash_attention.MAX_SEQ_LEN:
+        raise ModelLoadError(
+            f"deepseek_v2: (q/k, v) head dims {dims} and {max_len} tokens: "
+            f"the causal attention kernel takes "
+            f"{flash_attention.CAUSAL_HEAD_DIMS} and at most "
+            f"{flash_attention.MAX_SEQ_LEN} tokens")
+
+
 class TestModel(TorchHFTextModel):
     """Tiny real encoder for orchestration tests (reference ships
     `test`/sbert-test, model_registry.py:976): full device compute path,
@@ -575,6 +703,40 @@ def module_bytes(module: torch.nn.Module) -> int:
                for t in (*module.parameters(), *module.buffers()))
 
 
+def read_hf_config(path: str) -> dict:
+    """A checkpoint directory's config.json, or {} where it has none."""
+    import json
+    config = os.path.join(path, "config.json")
+    if not os.path.isfile(config):
+        return {}
+    with open(config) as f:
+        return json.load(f)
+
+
+def checkpoint_tensors(path: str):
+    """(name, read) for every tensor of an HF checkpoint directory's
+    safetensors, in file order: the shards that
+    ``model.safetensors.index.json`` names, else ``model.safetensors``.
+    ``read()`` gives the one tensor on the host; nothing else of the file
+    is held. A traced request's span ``inference.checkpoint_load`` covers
+    each file."""
+    from safetensors import safe_open
+    index = os.path.join(path, "model.safetensors.index.json")
+    if os.path.isfile(index):
+        import json
+        with open(index) as f:
+            files = sorted(set(json.load(f)["weight_map"].values()))
+    elif os.path.isfile(os.path.join(path, "model.safetensors")):
+        files = ["model.safetensors"]
+    else:
+        raise ModelLoadError(f"No safetensors weights found under `{path}`")
+    for file in files:
+        with telemetry.span("inference.checkpoint_load"), \
+                safe_open(os.path.join(path, file), "pt") as f:
+            for name in f.keys():
+                yield name, (lambda f=f, name=name: f.get_tensor(name))
+
+
 def _load_state_dict(path: str) -> dict:
     """Load torch weights from an HF-format directory (.safetensors or .bin)."""
     st_path = os.path.join(path, "model.safetensors")
@@ -596,6 +758,11 @@ def resolve_model_class(model_name: str, properties: dict):
     types."""
     model_type = str(properties.get("type", "hf")).lower()
     if model_type in ("hf", "sbert"):
+        # a decoder checkpoint on disk goes by its own model_type
+        localpath = properties.get("localpath")
+        if localpath and read_hf_config(localpath).get("model_type") == \
+                "deepseek_v2":
+            return TorchDeepseekV2Model
         return TorchHFTextModel
     if model_type == "random":
         return RandomModel

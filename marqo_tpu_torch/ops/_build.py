@@ -103,6 +103,10 @@ def load_library() -> ctypes.CDLL:
             masked.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
                 ctypes.c_float, strides, ctypes.c_int, ctypes.c_void_p]
             masked.restype = ctypes.c_int
+            causal = lib.marqo_masked_attention_causal
+            causal.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+                ctypes.c_float, strides, ctypes.c_int, ctypes.c_void_p]
+            causal.restype = ctypes.c_int
             fused = lib.marqo_fused_attention
             fused.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
                 ctypes.c_float, strides, ctypes.c_int, ctypes.c_void_p]

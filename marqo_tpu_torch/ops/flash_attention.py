@@ -8,6 +8,13 @@ from compact inputs:
   - padding mask (B, S): ragged batches; key j is allowed iff mask[j] > 0
   - segment ids (B, S): packed batches (ops/packing.py); block-diagonal,
     key j is allowed iff seg[i] == seg[j] and seg[j] > 0
+  - either with ``causal=True`` (decoder embedders): key j is also
+    disallowed where j > i, so a packed segment is causal inside itself and
+    a right-padded row causal over its tokens. The causal instances take
+    DeepSeek-V2's latent attention widths alone (``CAUSAL_HEAD_DIMS``: q and
+    k 192, v 128, so the output is (B, N, S, 128)), on the mma.sync loop in
+    bf16 and the FMA loop in fp32; the caller may give the softmax
+    ``scale`` (YaRN scales it).
 
 Scores are q.k^T / sqrt(D) in fp32, disallowed scores are the finite
 -1e9 (a fully masked row averages V uniformly, never NaN), softmax runs in
@@ -47,11 +54,14 @@ _MASKED_SCORE = -1e9  # finite: fully masked rows softmax to uniform
 MAX_SEQ_LEN = 512
 # every multiple of 8 up to 128, as ops/fused_attention.py's kernel
 HEAD_DIMS = tuple(range(8, 129, 8))
+# the causal modes' (q/k, v) head dims (csrc/masked_attention.cu)
+CAUSAL_HEAD_DIMS = ((192, 128),)
 DTYPES = (torch.float32, torch.bfloat16)
 
 # kernel launches per mask mode, and per tile loop (plain ints; the twin
 # never counts; ops/launches.py adds to them, replays of a CUDA graph too)
-LAUNCHES = {"padding": 0, "segment": 0}
+LAUNCHES = {"padding": 0, "segment": 0, "padding_causal": 0,
+            "segment_causal": 0}
 LOOP_LAUNCHES = {"wgmma": 0, "mma_sync": 0, "fma": 0}
 
 # the C entry points' codes of the tile loops (csrc/attention_tile_sm90.cuh
@@ -85,18 +95,27 @@ def check_loop(name: str, loop: str, dtype: torch.dtype) -> None:
 
 
 def attention_padding(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      pad_mask: torch.Tensor) -> torch.Tensor:
-    """q, k, v: (B, N, S, D); pad_mask: (B, S), 1 = real token."""
+                      pad_mask: torch.Tensor, causal: bool = False,
+                      scale: float = None) -> torch.Tensor:
+    """q, k, v: (B, N, S, D); pad_mask: (B, S), 1 = real token; causal:
+    keys after the query disallowed too (rows right-padded)."""
     if q.device.type == "cpu":
-        return attention_padding_reference(q, k, v, pad_mask)
+        return attention_padding_reference(q, k, v, pad_mask, causal, scale)
+    if causal:
+        return _launch_causal(q, k, v, pad_mask, "padding", scale)
     return _launch(q, k, v, pad_mask, "padding")
 
 
 def attention_segment(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      segment_ids: torch.Tensor) -> torch.Tensor:
-    """q, k, v: (B, N, S, D); segment_ids: (B, S), 0 = padding."""
+                      segment_ids: torch.Tensor, causal: bool = False,
+                      scale: float = None) -> torch.Tensor:
+    """q, k, v: (B, N, S, D); segment_ids: (B, S), 0 = padding; causal:
+    causal inside each segment."""
     if q.device.type == "cpu":
-        return attention_segment_reference(q, k, v, segment_ids)
+        return attention_segment_reference(q, k, v, segment_ids, causal,
+                                           scale)
+    if causal:
+        return _launch_causal(q, k, v, segment_ids, "segment", scale)
     return _launch(q, k, v, segment_ids, "segment")
 
 
@@ -117,10 +136,12 @@ def check_layout(name: str, q, k, v) -> None:
             raise ValueError(f"{name}: {label} must be 16-byte aligned")
 
 
-def kernel_output(q) -> torch.Tensor:
-    """The kernels' output for q's (B, N, S, D) shape: a (B, N, S, D) view
-    of a new (B, S, N, D) tensor, the layout the next projection reads."""
+def kernel_output(q, v_head_dim: int = None) -> torch.Tensor:
+    """The kernels' output for q's (B, N, S, D) shape (D the v head dim
+    where given): a (B, N, S, D) view of a new (B, S, N, D) tensor, the
+    layout the next projection reads."""
     B, N, S, D = q.shape
+    D = D if v_head_dim is None else v_head_dim
     return torch.empty(B, S, N, D, dtype=q.dtype,
                        device=q.device).transpose(1, 2)
 
@@ -188,13 +209,61 @@ def _launch(q, k, v, mask, mode: str, loop=None) -> torch.Tensor:
     return out
 
 
+def _launch_causal(q, k, v, mask, mode: str, scale=None) -> torch.Tensor:
+    """Launch a causal instance: (B, N, S, 192) q and k, (B, N, S, 128) v,
+    bf16 on the mma.sync loop, fp32 on the FMA loop."""
+    if any(t.device != q.device for t in (k, v, mask)):
+        raise ValueError("masked attention: q, k, v and mask must share a "
+                         "device")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"masked attention: q, k, v must all be fp32 or "
+                         f"bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.shape != q.shape or v.shape[:3] != q.shape[:3]:
+        raise ValueError(f"masked attention: q and k must share one "
+                         f"(B, N, S, D) shape and v its (B, N, S), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, N, S, D = q.shape
+    Dv = v.shape[-1]
+    if (D, Dv) not in CAUSAL_HEAD_DIMS or S > MAX_SEQ_LEN:
+        raise ValueError(f"masked attention: causal modes take (q/k, v) "
+                         f"head dims {CAUSAL_HEAD_DIMS} and S <= "
+                         f"{MAX_SEQ_LEN}, got ({D}, {Dv}), S={S}")
+    if tuple(mask.shape) != (B, S):
+        raise ValueError(f"masked attention: mask must be {(B, S)}, got "
+                         f"{tuple(mask.shape)}")
+    check_layout("masked attention", q, k, v)
+    loop = "mma_sync" if q.dtype == torch.bfloat16 else "fma"
+    mask = mask.to(torch.int32).contiguous()
+    out = kernel_output(q, Dv)
+    if out.numel() == 0:
+        return out
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    lib = _build.load_library()
+    with torch.cuda.device(q.device):
+        err = lib.marqo_masked_attention_causal(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), B, N, S, D, Dv, int(mode == "segment"),
+            int(q.dtype == torch.bfloat16), scale,
+            kernel_strides(q, k, v, out), LOOP_CODES[loop],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"masked attention kernel launch failed: CUDA "
+                           f"error {err}")
+    launches.count(launches.Launch(LAUNCHES, f"{mode}_causal", LOOP_LAUNCHES,
+                                   loop, f"masked_attention_{mode}_causal",
+                                   tuple(q.shape)))
+    return out
+
+
 # --- plain twin ---------------------------------------------------------------
 
-def softmax_attention(q, k, v, allowed=None) -> torch.Tensor:
-    """softmax(q.k^T / sqrt(D)) v with fp32 scores and softmax; keys where
-    the boolean ``allowed`` (broadcast to the scores) is False get -1e9.
-    The plain twin of this module's kernel and of ops/fused_attention.py's."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+def softmax_attention(q, k, v, allowed=None, scale=None) -> torch.Tensor:
+    """softmax(q.k^T * scale) v, the scale 1/sqrt(D) unless given, with
+    fp32 scores and softmax; keys where the boolean ``allowed`` (broadcast
+    to the scores) is False get -1e9. The plain twin of this module's
+    kernel and of ops/fused_attention.py's."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if allowed is not None:
         scores = scores.masked_fill(~allowed, _MASKED_SCORE)
@@ -202,14 +271,26 @@ def softmax_attention(q, k, v, allowed=None) -> torch.Tensor:
     return torch.matmul(probs, v)
 
 
-def attention_padding_reference(q, k, v, pad_mask) -> torch.Tensor:
+def _causal(allowed: torch.Tensor, S: int) -> torch.Tensor:
+    """``allowed`` (B, 1 or S, S) with keys after the query disallowed."""
+    return allowed & torch.ones(S, S, dtype=torch.bool,
+                                device=allowed.device).tril()
+
+
+def attention_padding_reference(q, k, v, pad_mask, causal=False,
+                                scale=None) -> torch.Tensor:
     """Plain PyTorch twin of the padding-mode kernel."""
-    allowed = (pad_mask > 0)[:, None, None, :]
-    return softmax_attention(q, k, v, allowed)
+    allowed = (pad_mask > 0)[:, None, :]
+    if causal:
+        allowed = _causal(allowed, q.shape[2])
+    return softmax_attention(q, k, v, allowed[:, None], scale)
 
 
-def attention_segment_reference(q, k, v, segment_ids) -> torch.Tensor:
+def attention_segment_reference(q, k, v, segment_ids, causal=False,
+                                scale=None) -> torch.Tensor:
     """Plain PyTorch twin of the segment-mode kernel."""
     seg = segment_ids
     allowed = (seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] > 0)
-    return softmax_attention(q, k, v, allowed[:, None])
+    if causal:
+        allowed = _causal(allowed, q.shape[2])
+    return softmax_attention(q, k, v, allowed[:, None], scale)

@@ -30,7 +30,7 @@ PORTED = {
     "models/nllb_siglip.py", "models/eva02.py", "models/coca.py",
     "models/languagebind.py", "ops/audio_ops.py", "inference/types.py",
     "inference/batching.py", "inference/loaders.py", "inference/graphs.py",
-    "ops/launches.py",
+    "ops/launches.py", "models/deepseek_v2.py", "ops/moe.py",
     "engine/torch_scorer.py", "models/dino_vit.py", "models/yolox.py",
     "models/frcnn.py", "models/owl_vit.py", "parallel/__init__.py",
     "parallel/mesh.py", "parallel/serving.py", "parallel/encode.py",
@@ -54,7 +54,9 @@ DELIBERATE_EDITS = {
     "api/telemetry.py": "a span recorder: request ids, per-thread stacks "
                         "of open spans, a bounded span log on time.time_ns's "
                         "clock, stage sites and a collector hook for traced "
-                        "requests; Timer, TimerError and merge, which the "
+                        "requests, and a count log of per-part counters "
+                        "(the tokens each expert of a mixture of experts "
+                        "took); Timer, TimerError and merge, which the "
                         "port never used, went",
     "api/http_framework.py": "a request with ?telemetry=true is traced",
     "inference/vectorise.py": "one core for vectorise and vectorise_async "

@@ -686,10 +686,10 @@ W8A8_KERNELS = ("w8a8_quantize_rows", "w8a8_gemm")
 # --- launch counters ---------------------------------------------------------
 
 def _counter_modules():
-    from marqo_tpu_torch.ops import (flash_attention, fused_attention,
+    from marqo_tpu_torch.ops import (flash_attention, fused_attention, moe,
                                      quant_matmul)
     return {"masked_attention": flash_attention, "fused_attention":
-            fused_attention, "w8a8_matmul": quant_matmul}
+            fused_attention, "w8a8_matmul": quant_matmul, "moe": moe}
 
 
 def reset_counts() -> None:
@@ -699,7 +699,8 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    """{kernel}_{mode} for the attention kernels, w8a8_matmul for B3."""
+    """{kernel}_{mode} for the attention kernels, w8a8_matmul for B3,
+    moe_{grouped_mm, swiglu, combine} for the expert layer."""
     return {name if len(module.LAUNCHES) == 1 else f"{name}_{mode}": count
             for name, module in _counter_modules().items()
             for mode, count in module.LAUNCHES.items()}
@@ -3910,11 +3911,13 @@ def phase_dsv2_attention(fa, torch, smi) -> dict:
     deepseek_v2 checkpoint, one request's chunks of the bulk-ingest cell
     encoded through the packed, graphed path and one query through the
     padded one, every launch counter set to 0 just before each and read
-    just after, with the shapes launched. Each launched shape, and the
-    padding mode at the packed shapes, held against the twin
-    (``dsv2_causal_checks``); the packed path's most launched shape and
-    the query's timed (``dsv2_causal_timing``). Returns the kernels
-    line's two rows."""
+    just after, with the shapes launched, and the tokens the router sent
+    (the model's ``expert_tokens``) read before and after. Each launched
+    shape, and the padding mode at the packed shapes, held against the
+    twin (``dsv2_causal_checks``); the packed path's most launched shape
+    and the query's timed (``dsv2_causal_timing``); the expert layer's
+    passes counted on each path (``dsv2_expert_launches``). Returns the
+    kernels line's two rows and the expert layer's launches by path."""
     from tests.deepseek_v2_checkpoint import TINY, write_checkpoint
 
     from marqo_tpu_torch.inference import loaders
@@ -3930,17 +3933,23 @@ def phase_dsv2_attention(fa, torch, smi) -> dict:
     model.encode(texts)  # captures the keys
     paths = {}
     for path, batch in (("packed", texts), ("query", texts[-1:])):
+        torch.cuda.synchronize()
+        routed = -int(model.encoder.expert_tokens.sum())
         reset_counts()
         with LaunchShapes() as shapes:
             vectors = model.encode(batch)
             torch.cuda.synchronize()
+        routed += int(model.encoder.expert_tokens.sum())
         check(np_finite(vectors), f"dsv2_attention: non-finite {path} "
               f"vectors")
         counts = read_counts()
         launched = [row for row in shapes.listed()
                     if row["counter"].endswith("_causal")]
         paths[path] = {"launches": {name: n for name, n in counts.items()
-                                    if n}, "shapes": launched}
+                                    if n}, "shapes": launched,
+                       "moe": dsv2_expert_launches(
+                           path, model.encoder.config, shapes.listed(),
+                           counts, routed)}
     packed = paths["packed"]["launches"]
     check(packed.get("masked_attention_segment_causal", 0) > 0 and
           not packed.get("masked_attention_padding_causal"),
@@ -3973,6 +3982,199 @@ def phase_dsv2_attention(fa, torch, smi) -> dict:
     emit("dsv2_attention", ok=True, device=torch.cuda.get_device_name(0),
          nvidia_smi=smi, scale=DSV2_SCALE, atol=ATOL, rtol=RTOL,
          paths=paths, checks=len(results), results=results, kernels=kernels)
+    return {"kernels": kernels,
+            "moe": {path: paths[path]["moe"] for path in paths}}
+
+
+# --- DeepSeek-V2's expert-layer passes (csrc/moe_glue.cu) -------------------
+
+MOE_GLUE_SOURCE = "marqo_tpu_torch/csrc/moe_glue.cu"
+# dsv2_lite.bulk_ingest's widths: k 6 of 64 routed experts of width 1,408,
+# the shared experts' 2,816, layer 0's 10,944; hidden 2,048. A forward's
+# token slots come from dsv2_attention's packed forward of one request's
+# chunks (``dsv2_expert_launches``). The real share of them is the cell's:
+# its traced window's moe.expert_tokens over moe.static_rows, 290,916,132 of
+# 362,938,368 on an H100 (PERF.md section 6); one request of the smoke's
+# chunks packs tighter (~0.98), as the cell's requests fill their row
+# buckets less
+MOE_TOP_K, MOE_HIDDEN = 6, 2048
+MOE_WIDTHS = {"routed": 1408, "shared": 2816, "dense": 10944}
+MOE_REAL_SHARE = 290916132 / 362938368
+MOE_ITERS = 20
+
+
+def dsv2_expert_launches(path, c, listed, counts, routed) -> dict:
+    """The expert layer on one encode of dsv2_attention, read from its
+    launch counters and shapes (``listed``: LaunchShapes rows) and the
+    tokens its router sent (``routed``, summed over MoE layers): each
+    SwiGLU told by its width (routed: moe_intermediate_size over T k rows;
+    shared: n_shared_experts times that over T; dense: intermediate_size
+    over T), the combine by its (T, k, H); launches per layer of a forward
+    (checked at 1: one of each a MoE layer, one dense SwiGLU a dense
+    layer, two grouped GEMMs a MoE layer); the routed rows the forwards
+    hold (T k a combine) and the real share of them."""
+    widths = {c.moe_intermediate_size: "routed",
+              c.n_shared_experts * c.moe_intermediate_size: "shared",
+              c.intermediate_size: "dense"}
+    check(len(widths) == 3, f"dsv2_attention: SwiGLU widths collide {widths}")
+    cases = {case: {"launches": 0, "shapes": []}
+             for case in ("routed", "shared", "dense", "combine")}
+    for row in listed:
+        if row["counter"] == "moe_swiglu":
+            case = widths[row["shape"][1]]
+        elif row["counter"] == "moe_combine":
+            case = "combine"
+        else:
+            continue
+        cases[case]["launches"] += row["launches"]
+        cases[case]["shapes"].append(row)
+    combine = cases["combine"]["launches"]
+    forwards = combine // c.moe_layers
+    layers = {"routed": c.moe_layers, "shared": c.moe_layers,
+              "dense": c.first_k_dense_replace, "combine": c.moe_layers}
+    per_layer = {case: cases[case]["launches"] / (forwards * layers[case])
+                 if forwards else 0.0 for case in cases}
+    check(forwards > 0 and combine == forwards * c.moe_layers and
+          set(per_layer.values()) == {1.0} and
+          counts["moe_grouped_mm"] == 2 * combine and
+          counts["moe_swiglu"] == sum(cases[case]["launches"] for case in
+                                      ("routed", "shared", "dense")) and
+          counts["moe_combine"] == combine,
+          f"dsv2_attention: the {path} path's expert layer launched "
+          f"{cases} ({counts})")
+    static = sum(row["shape"][0] * row["shape"][1] * row["launches"]
+                 for row in cases["combine"]["shapes"])
+    top = max(cases["combine"]["shapes"], key=lambda row: row["launches"])
+    return {"forwards": forwards, "launches": {
+                case: cases[case]["launches"] for case in cases},
+            "per_layer": per_layer, "shapes": {
+                case: cases[case]["shapes"] for case in cases},
+            "slots": top["shape"][0], "routed_rows": routed,
+            "static_rows": static, "real_share": routed / static}
+
+
+def swiglu_bytes(rows: int, width: int) -> int:
+    """Least bytes of the SwiGLU pass in bf16: gate and up read, act
+    written, each once."""
+    return 3 * rows * width * 2
+
+
+def combine_bytes(real: int, tokens: int, k: int, hidden: int) -> int:
+    """Least bytes of the combine in bf16: a real token's k rows, its int32
+    rows and fp32 weights read and its output written; a pad token's zeros
+    written; every token's valid byte read."""
+    return real * ((k + 1) * hidden * 2 + 8 * k) + \
+        (tokens - real) * hidden * 2 + tokens
+
+
+def ulp_excess(out, expected, ulps: int) -> float:
+    """The largest |out - expected| beyond ``ulps`` bf16 ulps of
+    |expected| (an ulp at most 2^-7 of a value; <= 0 inside)."""
+    out, expected = out.float(), expected.float()
+    return float(((out - expected).abs() - ulps * 2 ** -7 *
+                  expected.abs()).max())
+
+
+def combine_excess(out, y, back, weights, valid) -> float:
+    """|out - sum_j w y| beyond one rounding of the value and 1e-5 of the
+    terms' magnitudes (fp32 sums in another order), over the valid tokens
+    (<= 0 inside)."""
+    T, k = back.shape
+    terms = weights[..., None] * y[back.reshape(-1).long()].view(
+        T, k, -1).float()
+    exact = terms.sum(1)
+    err = (out.float() - exact).abs() - 2 ** -8 * exact.abs() - \
+        1e-5 * terms.abs().sum(1)
+    return float(err[valid].max())
+
+
+def phase_moe_glue(torch, smi, packed) -> dict:
+    """The expert layer's SwiGLU and combine passes at the bulk-ingest
+    cell's widths, in bf16, over the token slots that dsv2_attention's
+    packed forward read (``packed``: its ``dsv2_expert_launches``), of
+    which the cell's share (MOE_REAL_SHARE) real. Each held against its twin per element: the
+    SwiGLU within two bf16 ulps of the twin (SiLU and product, each
+    rounded) on the real rows, with the gate and up halves swapped as the
+    control that must fail; the combine within one rounding of the
+    fp32-weighted sum, with each token's weights rotated by one expert as
+    its control, and pad tokens 0. Then each timed against that twin on
+    the card (``paired_ms``: twin, pass, pass, twin), with the bytes bound
+    of the real rows. Returns the kernels line's rows, their launches
+    those of the packed path."""
+    from marqo_tpu_torch.ops import moe
+    g = torch.Generator(device=DEVICE).manual_seed(21)
+    T, k, H = packed["slots"], MOE_TOP_K, MOE_HIDDEN
+    real = round(MOE_REAL_SHARE * T)
+    rows = []
+    for case, n, count in (("routed", T * k, real * k),
+                           ("shared", T, None), ("dense", T, None)):
+        width = MOE_WIDTHS[case]
+        h = (3 * torch.randn(n, 2 * width, generator=g, device=DEVICE)).to(
+            torch.bfloat16)
+        live = n if count is None else count
+        counter = None if count is None else torch.tensor(
+            [count], dtype=torch.int32, device=DEVICE)
+        out = moe.swiglu(h, counter)
+        torch.cuda.synchronize()
+        twin = moe.swiglu_reference(h[:live])
+        gate, up = h[:live].chunk(2, dim=-1)
+        swapped = moe.swiglu_reference(torch.cat([up, gate], -1))
+        err = ulp_excess(out[:live], twin, 2)
+        control = ulp_excess(out[:live], swapped, 2)
+        check(bool(torch.isfinite(out[:live]).all()) and err <= 0 < control,
+              f"moe_glue: swiglu {case} off its twin by {err} past two "
+              f"ulps (swapped halves {control})")
+        del gate, up, swapped
+        times = paired_ms(lambda h=h, c=counter: moe.swiglu(h, c),
+                          lambda h=h: moe.swiglu_reference(h), MOE_ITERS)
+        rows.append({"kernel": "moe_swiglu", "case": case,
+                     "shape": [n, width], "real_rows": live,
+                     "max_abs_err": float((out[:live].float() -
+                                           twin.float()).abs().max()),
+                     "ulp_excess": err, "control_excess": control, **times,
+                     **bound(swiglu_bytes(live, width), 0, 1.0)})
+        del h, out, twin
+    valid = torch.zeros(T, dtype=torch.bool, device=DEVICE)
+    valid[torch.randperm(T, generator=g, device=DEVICE)[:real]] = True
+    key = torch.rand(T, k, generator=g, device=DEVICE) + (~valid)[:, None]
+    back = moe.back_rows(torch.argsort(key.reshape(-1), stable=True)).view(
+        T, k)
+    y = torch.randn(T * k, H, generator=g, device=DEVICE).to(torch.bfloat16)
+    weights = torch.rand(T, k, generator=g, device=DEVICE) / k
+    out = moe.combine(y, back, weights, valid)
+    twin = moe.combine_reference(y, back, weights, valid)
+    torch.cuda.synchronize()
+    err = combine_excess(out, y, back, weights, valid)
+    control = combine_excess(out, y, back, weights.roll(1, 1), valid)
+    check(not out[~valid].any() and err <= 0 < control,
+          f"moe_glue: combine off the fp32-weighted sum by {err} past one "
+          f"rounding (rotated weights {control})")
+    times = paired_ms(lambda: moe.combine(y, back, weights, valid),
+                      lambda: moe.combine_reference(y, back, weights, valid),
+                      MOE_ITERS)
+    rows.append({"kernel": "moe_combine", "case": "combine",
+                 "shape": [T, k, H], "real_rows": real * k,
+                 "max_abs_err": float((out.float() -
+                                       twin.float()).abs().max()),
+                 "ulp_excess": err, "control_excess": control, **times,
+                 **bound(combine_bytes(real, T, k, H), 0, 1.0)})
+    for row in rows:
+        row["bandwidth_share"] = row["bound_ms"] / row["ms"]
+    kernels = [{
+        "name": row["kernel"] if row["case"] == "combine" else
+        f"{row['kernel']}_{row['case']}", "route": "cuda",
+        "source": MOE_GLUE_SOURCE, "replaces": None,
+        "launches": packed["launches"][row["case"]],
+        "launches_per_layer": packed["per_layer"][row["case"]],
+        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["plain_ms"],
+        "loop": None, "shape": row["shape"]}
+        for row in rows]
+    emit("moe_glue", ok=True, device=torch.cuda.get_device_name(0),
+         nvidia_smi=smi, slots=T, real_tokens=real,
+         real_share=MOE_REAL_SHARE, path_real_share=packed["real_share"],
+         rows=rows, kernels=kernels)
     return {"kernels": kernels}
 
 
@@ -5626,6 +5828,7 @@ def main() -> int:
     phase_family_graphs(torch, smi)
     phase_last_family_graphs(torch, smi)
     dsv2 = phase_dsv2_attention(fa, torch, smi)
+    moe_glue = phase_moe_glue(torch, smi, dsv2["moe"]["packed"])
     timing, vit, encoder_times = phase_timing(
         fa, fused, qm, torch, clip_model, pixels, int8_encoder, bf16_encoder)
     emit("detector_timing", device=torch.cuda.get_device_name(0),
@@ -5711,6 +5914,8 @@ def main() -> int:
     kernels[-1]["launches_by_layer"] = int8["w8a8_by_layer"]
     # B1's causal instances at DeepSeek-V2's path's own shapes
     kernels += dsv2["kernels"]
+    # DeepSeek-V2's expert-layer passes, which replace no TPU kernel
+    kernels += moe_glue["kernels"]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -538,7 +538,9 @@ class TorchDeepseekV2Model(TorchHFTextModel):
     layer of ops/moe.py.
 
     Counters of a traced request (api/telemetry.py): ``moe.forwards``, the
-    forwards it ran, each of which reads every expert's weights; and
+    forwards it ran, each of which reads every expert's weights;
+    ``moe.static_rows``, the routed rows those forwards' static buffers
+    hold (token slots x top k x MoE layers); and
     ``moe.expert_tokens``, the tokens routed to routed experts, read from
     the model's device buffer at the request's device wait (after its one
     copy to the host, so an untraced request never waits for it), each
@@ -596,13 +598,20 @@ class TorchDeepseekV2Model(TorchHFTextModel):
 
         return resolve_and_count
 
-    def _count_forward(self) -> None:
+    def _count_forward(self, slots: int) -> None:
+        """A traced forward over ``slots`` static token slots: one
+        ``moe.forwards``, and the routed rows its expert layers hold
+        (``moe.static_rows``: slots x top k x MoE layers)."""
         traced = telemetry.traced()
         if traced is not None:
+            c = self.encoder.config
             traced.increment_counter("moe.forwards")
+            traced.increment_counter(
+                "moe.static_rows",
+                slots * c.num_experts_per_tok * c.moe_layers)
 
     def _forward(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
-        self._count_forward()
+        self._count_forward(ids.size)
         return super()._forward(ids, mask)
 
     def _packed(self, rows, n_bucket: int) -> torch.Tensor:
@@ -610,7 +619,7 @@ class TorchDeepseekV2Model(TorchHFTextModel):
         of this model's graph of (row bucket, seq bucket, n_bucket), else
         the eager forward."""
         encode_tokens_packed = deepseek_v2.encode_tokens_packed
-        self._count_forward()
+        self._count_forward(rows[0].size)
         with torch.inference_mode():
             graphs = graphs_for(self)
             if graphs is None:

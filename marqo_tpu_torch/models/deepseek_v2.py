@@ -214,7 +214,8 @@ class Attention(nn.Module):
 
 
 class DenseMLP(nn.Module):
-    """A SwiGLU; ``gate_up`` holds [gate; up] rows."""
+    """A SwiGLU; ``gate_up`` holds [gate; up] rows, and ops/moe.py
+    ``swiglu`` joins its halves (every row: pad tokens are computed)."""
 
     def __init__(self, hidden: int, width: int):
         super().__init__()
@@ -222,8 +223,7 @@ class DenseMLP(nn.Module):
         self.down = nn.Linear(width, hidden, bias=False)
 
     def forward(self, x, valid=None, counts=None) -> torch.Tensor:
-        gate, up = self.gate_up(x).chunk(2, dim=-1)
-        return self.down(nn.functional.silu(gate) * up)
+        return self.down(moe.swiglu(self.gate_up(x)))
 
 
 class MoE(nn.Module):

@@ -115,5 +115,14 @@ def load_library() -> ctypes.CDLL:
             w8a8.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
                 ctypes.c_void_p]
             w8a8.restype = ctypes.c_int
+            swiglu = lib.marqo_moe_swiglu
+            swiglu.argtypes = [ctypes.c_void_p] * 2 + [
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_void_p]
+            swiglu.restype = ctypes.c_int
+            combine = lib.marqo_moe_combine
+            combine.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+                ctypes.c_void_p]
+            combine.restype = ctypes.c_int
             _lib = lib
         return _lib

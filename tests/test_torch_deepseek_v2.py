@@ -250,6 +250,196 @@ def test_expert_layer_matches_a_per_token_loop():
     assert not got[~valid].any()
 
 
+def todays_expert_layer(x, valid, router, gate_up, down, top_k):
+    """The expert layer as it was composed before the SwiGLU and combine
+    passes: SiLU and multiply on the gate/up halves, the rows gathered back
+    into token order, a batched GEMV with bf16-rounded weights, pad tokens
+    zeroed afterwards."""
+    T, H = x.shape
+    E = router.shape[0]
+    weights, experts = moe.route(x, router, top_k)
+    groups = torch.where(valid[:, None], experts, E).reshape(-1)
+    sizes = torch.zeros(E + 1, dtype=torch.int32)
+    sizes.index_add_(0, groups, torch.ones_like(groups, dtype=torch.int32))
+    offsets = torch.cumsum(sizes[:E], 0, dtype=torch.int32)
+    order = torch.argsort(groups, stable=True)
+    h = moe.grouped_mm(x[order // top_k], gate_up, offsets)
+    gate, up = h.chunk(2, dim=-1)
+    act = torch.nn.functional.silu(gate).mul_(up)
+    y = moe.grouped_mm(act, down, offsets)
+    back = torch.empty_like(order)
+    back[order] = torch.arange(order.numel())
+    y = y[back].view(T, top_k, H)
+    out = torch.bmm(weights.to(y.dtype)[:, None, :], y).view(T, H)
+    return torch.where(valid[:, None], out, out.new_zeros(()))
+
+
+def expert_inputs(T, k, pad, dtype, seed=13, H=16, F=8, E=6):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(T, H, generator=g).to(dtype)
+    router = torch.randn(E, H, generator=g).to(dtype)
+    gate_up = (torch.randn(E, 2 * F, H, generator=g) * 0.3).to(dtype)
+    down = (torch.randn(E, H, F, generator=g) * 0.3).to(dtype)
+    valid = torch.ones(T, dtype=torch.bool)
+    if pad:
+        valid[torch.randperm(T, generator=g)[:max(1, T // 4)]] = False
+    return x, valid, router, gate_up, down
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,k,pad", [(37, 2, True), (37, 2, False),
+                                     (37, 6, True), (37, 6, False),
+                                     (1, 2, False), (1, 6, False),
+                                     (1, 6, True)])
+def test_expert_layer_twins_match_todays_composition(T, k, pad, dtype):
+    """The CPU path (the SwiGLU and combine twins) computes exactly what
+    the layer computed before them, pad tokens 0."""
+    x, valid, router, gate_up, down = expert_inputs(T, k, pad, dtype)
+    counts = torch.zeros(router.shape[0], dtype=torch.int64)
+    before = dict(moe.LAUNCHES)
+    got = moe.expert_layer(x, valid, router, gate_up, down, k, counts=counts)
+    assert torch.equal(got, todays_expert_layer(x, valid, router, gate_up,
+                                                down, k))
+    assert got.dtype == dtype and got.shape == x.shape
+    assert not got[~valid].any()
+    assert int(counts.sum()) == int(valid.sum()) * k
+    assert moe.LAUNCHES == before  # the twins launch nothing
+
+
+def fused_swiglu(h):
+    """What the card's pass computes: silu(gate) * up in fp32, rounded
+    once."""
+    gate, up = h.float().chunk(2, dim=-1)
+    return (torch.nn.functional.silu(gate) * up).to(h.dtype)
+
+
+@pytest.mark.parametrize("rows", [1, 5])
+@pytest.mark.parametrize("W", [1408, 2816, 10944])
+def test_swiglu_twin_matches_todays_composition(W, rows):
+    """The routed width (1,408) and the dense ones (the shared experts'
+    2,816, layer 0's 10,944): the twin is today's SiLU-then-multiply, and
+    within one bf16 rounding of the pass's single rounding."""
+    g = torch.Generator().manual_seed(W + rows)
+    h = (torch.randn(rows, 2 * W, generator=g) * 3).to(torch.bfloat16)
+    gate, up = h.chunk(2, dim=-1)
+    got = moe.swiglu(h)
+    assert got.shape == (rows, W) and got.dtype == torch.bfloat16
+    assert torch.equal(got, torch.nn.functional.silu(gate) * up)
+    once = fused_swiglu(h).float()
+    assert float(((got.float() - once).abs() - 2 ** -7 * once.abs()).max()) \
+        <= 1e-30
+    # the count changes nothing on the CPU: the twin computes every row
+    assert torch.equal(moe.swiglu(h, torch.tensor([0], dtype=torch.int32)),
+                       got)
+
+
+@pytest.mark.parametrize("width", [2816, 10944])
+@pytest.mark.parametrize("T", [1, 9])
+def test_dense_mlp_matches_todays_composition(width, T):
+    g = torch.Generator().manual_seed(width + T)
+    mlp = dsv2.DenseMLP(16, width).to(torch.bfloat16)
+    with torch.no_grad():
+        for p in mlp.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+        x = torch.randn(1, T, 16, generator=g).to(torch.bfloat16)
+        gate, up = mlp.gate_up(x).chunk(2, dim=-1)
+        expected = mlp.down(torch.nn.functional.silu(gate) * up)
+        assert torch.equal(mlp(x), expected)
+
+
+@pytest.mark.parametrize("k", [2, 6])
+@pytest.mark.parametrize("pad", [True, False])
+def test_combine_twin_reads_back_a_permutation_and_zeroes_pad_tokens(k, pad):
+    """``back_rows`` inverts the sort into expert order; the combine twin
+    is today's gather and weighted sum; a pad token comes out 0 even where
+    its rows hold NaN (rows past the last group are undefined)."""
+    T, H, E = 23, 16, 5
+    g = torch.Generator().manual_seed(k)
+    valid = torch.ones(T, dtype=torch.bool)
+    if pad:
+        valid[[0, 7, 22]] = False
+    experts = torch.randint(0, E, (T, k), generator=g)
+    groups = torch.where(valid[:, None], experts, E).reshape(-1)
+    order = torch.argsort(groups, stable=True)
+    back = moe.back_rows(order)
+    assert back.dtype == torch.int32
+    assert torch.equal(back.sort().values, torch.arange(T * k,
+                                                        dtype=torch.int32))
+    assert torch.equal(order[back.long()], torch.arange(T * k))
+    # a token's rows come before every pad token's
+    real = int(valid.sum()) * k
+    assert int(back.view(T, k)[valid].max()) < real
+    y = torch.randn(T * k, H, generator=g).to(torch.bfloat16)
+    y[real:] = float("nan")
+    weights = torch.rand(T, k, generator=g)
+    got = moe.combine(y, back.view(T, k), weights, valid)
+    assert got.shape == (T, H) and got.dtype == torch.bfloat16
+    assert not got[~valid].any() and bool(torch.isfinite(got).all())
+    rows = y[back.long()].view(T, k, H)
+    expected = torch.bmm(weights.to(torch.bfloat16)[:, None, :],
+                         rows).view(T, H)
+    assert torch.equal(got[valid], expected[valid])
+    # within bf16 roundings (the weights', the CPU's bf16 sums', the
+    # output's) of the exact fp32-weighted sum: 2^-6 of the terms'
+    # magnitudes
+    terms = weights[..., None] * rows.float()
+    err = (got.float() - terms.sum(1))[valid].abs()
+    assert float((err - 2 ** -6 * terms.abs().sum(1)[valid]).max()) <= 0
+
+
+def _swiglu_h(dtype=torch.bfloat16):
+    return torch.zeros(4, 32, dtype=dtype)
+
+
+@pytest.mark.parametrize("case,match", [
+    (lambda: (_swiglu_h(dtype=torch.float16), None), "must be bf16"),
+    (lambda: (_swiglu_h(dtype=torch.float32), None), "must be bf16"),
+    (lambda: (_swiglu_h().T.contiguous().T, None), "contiguous"),
+    (lambda: (torch.zeros(4, 24, dtype=torch.bfloat16), None), "multiple"),
+    (lambda: (_swiglu_h()[:0], None), "rows"),
+    (lambda: (_swiglu_h(), torch.zeros(1, dtype=torch.int64)), "int32"),
+    (lambda: (_swiglu_h(), torch.zeros(2, dtype=torch.int32)), "one int32"),
+])
+def test_swiglu_refuses_what_the_kernel_does_not_take(case, match):
+    h, count = case()
+    with pytest.raises(ValueError, match=match):
+        moe.check_swiglu_inputs(h, count)
+
+
+def _combine_args(T=3, k=2, H=16, **change):
+    args = {"y": torch.zeros(T * k, H, dtype=torch.bfloat16),
+            "back": torch.zeros(T, k, dtype=torch.int32),
+            "weights": torch.zeros(T, k),
+            "valid": torch.ones(T, dtype=torch.bool)}
+    args.update(change)
+    return args
+
+
+@pytest.mark.parametrize("change,match", [
+    ({"y": torch.zeros(6, 16, dtype=torch.float16)}, "must be bf16"),
+    ({"y": torch.zeros(6, 16)}, "must be bf16"),
+    # k past the rows a token keeps in flight (csrc/moe_glue.cu kMaxTopK)
+    ({"back": torch.zeros(3, 9, dtype=torch.int32)}, "k <= 8"),
+    ({"y": torch.zeros(16, 6, dtype=torch.bfloat16).T}, "contiguous"),
+    ({"y": torch.zeros(6, 12, dtype=torch.bfloat16)}, "multiple"),
+    ({"back": torch.zeros(3, 2, dtype=torch.int64)}, "back must be"),
+    ({"weights": torch.zeros(3, 2, dtype=torch.bfloat16)}, "weights must"),
+    ({"valid": torch.ones(3, dtype=torch.int32)}, "valid must"),
+    ({"weights": torch.zeros(2, 3).T}, "contiguous"),
+])
+def test_combine_refuses_what_the_kernel_does_not_take(change, match):
+    with pytest.raises(ValueError, match=match):
+        moe.check_combine_inputs(**_combine_args(**change))
+
+
+def test_kernel_inputs_pass_the_checks():
+    moe.check_swiglu_inputs(torch.zeros(3, 4, 32, dtype=torch.bfloat16),
+                            torch.zeros(1, dtype=torch.int32))
+    moe.check_swiglu_inputs(torch.zeros(1, 16, dtype=torch.bfloat16))
+    moe.check_combine_inputs(**_combine_args())
+    moe.check_combine_inputs(**_combine_args(T=1, k=moe.MAX_TOP_K, H=8))
+
+
 def test_grouped_mm_twin_skips_rows_past_the_last_group():
     rows_ = torch.arange(12.0).view(6, 2)
     weight = torch.stack([torch.eye(2), 2 * torch.eye(2), 3 * torch.eye(2)])
@@ -346,6 +536,15 @@ def test_graphed_key_replays_bit_for_bit_and_counts_expert_tokens(
     # a traced request reads the buffer at its device wait (keys captured
     # before: a capture's warm run counts its tokens too)
     model.encode(texts[:1])
+    slots = []
+    run = model.graphs.run
+
+    def counted_run(tower, dtype, forward, *inputs, **kwargs):
+        slots.append(inputs[0].size)
+        return run(tower, dtype, forward, *inputs, **kwargs)
+
+    monkeypatch.setattr(model.graphs, "run", counted_run)
+    launched = dict(moe.LAUNCHES)
     metrics = telemetry.RequestMetricsStore.set_in_request(traced=True)
     try:
         model.encode(texts)
@@ -353,6 +552,16 @@ def test_graphed_key_replays_bit_for_bit_and_counts_expert_tokens(
     finally:
         telemetry.RequestMetricsStore.clear()
     assert metrics.counters["moe.forwards"] == 2
+    # the static routed rows: every token slot of both forwards, top k
+    # each, in both MoE layers; the real ones are the expert tokens
+    assert len(slots) == 2
+    assert metrics.counters["moe.static_rows"] == \
+        sum(slots) * TINY["num_experts_per_tok"] * 2
+    assert metrics.counters["moe.static_rows"] > \
+        (tokens + len(texts[0].encode()) + 1) * TINY["num_experts_per_tok"] * 2
+    # the passes' counters exist; on the CPU the twins launch nothing
+    assert set(moe.LAUNCHES) == {"grouped_mm", "swiglu", "combine"}
+    assert moe.LAUNCHES == launched
     logged = [e for e in telemetry.counts("moe.expert_tokens")
               if e.request == metrics.request_id]
     assert len(logged) == 2 and logged[1].values.shape == (2, 8)

@@ -2,8 +2,10 @@
 latent attention's widths (q/k 192, v 128) against their twin, the
 grouped expert GEMM against its twin at the bulk-ingest cell's token
 counts, a small model at the kernels' widths through the graphed path
-against the float32 reference, and B1's existing padding and segment
-times at the encoders' shape against PERF.md's kernel table. Skips
+against the float32 reference, the expert layer's SwiGLU and combine
+passes (csrc/moe_glue.cu) against their twins at the cell's shapes, and
+B1's existing padding and segment times at the encoders' shape against
+PERF.md's kernel table. Skips
 without an sm_90 CUDA device and nvcc; on a Hopper host run
 
     python -m pytest --noconftest -p no:cacheprovider \\
@@ -14,7 +16,13 @@ Tolerances: attention as chip_smoke.py's ``check_attention`` (fp32 |err|
 scale off by 10% must fail); the grouped GEMM's bf16 output against the
 twin's (cuBLAS per group, another summation order): 1e-2 of the output's
 largest magnitude, which a group's rows through another group's weight
-must fail.
+must fail. The SwiGLU pass against silu(gate) * up in fp32 rounded once:
+one bf16 ulp (at most 2^-7 of the value: the card's expf and the CPU's
+exp may round a value to either side), and against the twin, which rounds
+twice, two; the gate and up halves swapped must fail. The combine pass against
+the fp32-weighted sum: its one rounding (2^-8 of the value) plus 1e-5 of
+the terms' magnitudes (fp32 sums in another order); each token's weights
+rotated by one expert must fail.
 """
 
 import os
@@ -127,15 +135,195 @@ def test_expert_layer_matches_its_cpu_twin(card):
     valid = torch.ones(T, dtype=torch.bool)
     valid[-100:] = False
     counts = torch.zeros(E, dtype=torch.int64, device="cuda")
+    before = dict(moe.LAUNCHES)
     out = moe.expert_layer(*(t.cuda() for t in (x, valid, router, gate_up,
                                                 down)), 6, counts=counts)
     twin = moe.expert_layer(x, valid, router, gate_up, down, 6)
     torch.cuda.synchronize()
+    assert {name: moe.LAUNCHES[name] - before[name] for name in before} == \
+        {"grouped_mm": 2, "swiglu": 1, "combine": 1}
     assert int(counts.sum()) == 6 * (T - 100)
     scale = float(twin.float().abs().max())
     err = float((out.cpu().float() - twin.float()).abs().max())
     assert err <= 2e-2 * scale, (err, scale)
     assert not out[-100:].any()
+
+
+# --- the expert layer's SwiGLU and combine passes ---------------------------------
+
+# the cell's shapes: a packed forward's 16,384 token slots, ~9% pad, k 6 of
+# 64 routed experts of 1,408, the shared experts' 2,816, layer 0's 10,944,
+# hidden 2,048
+SLOTS, TOP_K, HIDDEN = 16384, 6, 2048
+REAL_TOKENS = 15000
+
+
+def ulp_excess(out, expected, ulps):
+    """The largest |out - expected| beyond ``ulps`` bf16 ulps of
+    |expected| (an ulp at most 2^-7 of a value; <= 0 inside)."""
+    out, expected = out.float(), expected.float()
+    return float(((out - expected).abs() - ulps * 2 ** -7 *
+                  expected.abs()).max())
+
+
+def swiglu_rows(rows, W, seed, dtype=torch.bfloat16):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (3 * torch.randn(rows, 2 * W, generator=g, device="cuda")).to(dtype)
+
+
+def fused_swiglu(h):
+    gate, up = h.float().chunk(2, dim=-1)
+    return (torch.nn.functional.silu(gate) * up).to(h.dtype)
+
+
+@pytest.mark.parametrize("rows,W,count", [
+    (SLOTS * TOP_K, 1408, REAL_TOKENS * TOP_K),   # routed, real rows only
+    (SLOTS * TOP_K, 1408, None),
+    (SLOTS, 2816, None),                          # the shared experts
+    (SLOTS, 10944, None),                         # layer 0
+    (1, 1408, 1),
+    (7, 1408, 0)])
+def test_swiglu_kernel_matches_twin(card, rows, W, count):
+    h = swiglu_rows(rows, W, seed=W + rows)
+    live = rows if count is None else count
+    # rows past the count hold NaN: read, they would show
+    h[live:] = float("nan")
+    before = moe.LAUNCHES["swiglu"]
+    out = moe.swiglu(h, None if count is None else
+                     torch.tensor([count], dtype=torch.int32, device="cuda"))
+    torch.cuda.synchronize()
+    assert moe.LAUNCHES["swiglu"] == before + 1
+    assert out.shape == (rows, W) and out.dtype == torch.bfloat16
+    got, real = out[:live], h[:live]
+    assert bool(torch.isfinite(got).all())
+    if not live:
+        return
+    assert ulp_excess(got, fused_swiglu(real), 1) <= 0
+    assert ulp_excess(got, moe.swiglu_reference(real), 2) <= 0
+    gate, up = real.chunk(2, dim=-1)
+    assert ulp_excess(got, fused_swiglu(torch.cat([up, gate], -1)), 2) > 0
+
+
+def combine_inputs(T, k, H, real, seed, dtype=torch.bfloat16):
+    """y in expert order with NaN past the real rows, back (a random
+    permutation with each valid token's rows before every pad token's),
+    fp32 weights, valid with the tokens past ``real`` pad."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    valid = torch.zeros(T, dtype=torch.bool, device="cuda")
+    valid[torch.randperm(T, generator=g, device="cuda")[:real]] = True
+    key = torch.rand(T, k, generator=g, device="cuda") + (~valid)[:, None]
+    order = torch.argsort(key.reshape(-1), stable=True)
+    back = moe.back_rows(order).view(T, k)
+    y = torch.randn(T * k, H, generator=g, device="cuda").to(dtype)
+    y[real * k:] = float("nan")
+    weights = torch.rand(T, k, generator=g, device="cuda") / k
+    return y, back, weights, valid
+
+
+def combine_excess(out, y, back, weights, valid):
+    """|out - sum_j w y| beyond one rounding of the value and 1e-5 of the
+    terms' magnitudes, over the valid tokens (<= 0 inside)."""
+    T, k = back.shape
+    terms = weights[..., None] * y[back.reshape(-1).long()].view(
+        T, k, -1).float()
+    exact = terms.sum(1)
+    err = (out.float() - exact).abs() - 2 ** -8 * exact.abs() - \
+        1e-5 * terms.abs().sum(1)
+    return float(err[valid].max())
+
+
+@pytest.mark.parametrize("T,k,H,real", [
+    (SLOTS, TOP_K, HIDDEN, REAL_TOKENS),
+    (SLOTS, TOP_K, HIDDEN, SLOTS),
+    (4096, 2, HIDDEN, 3000),
+    (1, TOP_K, HIDDEN, 1),
+    (3, moe.MAX_TOP_K, 64, 2)])
+def test_combine_kernel_matches_twin(card, T, k, H, real):
+    y, back, weights, valid = combine_inputs(T, k, H, real, seed=T + k)
+    before = moe.LAUNCHES["combine"]
+    out = moe.combine(y, back, weights, valid)
+    torch.cuda.synchronize()
+    assert moe.LAUNCHES["combine"] == before + 1
+    assert out.shape == (T, H) and out.dtype == torch.bfloat16
+    # pad tokens zero, their (NaN) rows never read
+    assert bool(torch.isfinite(out).all()) and not out[~valid].any()
+    assert combine_excess(out, y, back, weights, valid) <= 0
+    twin = moe.combine_reference(y, back, weights, valid)
+    assert float((out.float() - twin.float()).abs().max()) <= \
+        2 ** -6 * float(twin.float().abs().max())
+    assert combine_excess(out, y, back, weights.roll(1, 1), valid) > 0
+
+
+def _captured(fn):
+    """A CUDA graph of ``fn()`` (warmed on a side stream) and its output."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def test_graphed_swiglu_reads_the_count_at_each_replay(card):
+    """The stale-input control: one capture, the count changed in place
+    between replays; each replay writes exactly the rows below the count it
+    finds, the rest keep what they held."""
+    rows, W = 6000, 1408
+    h = swiglu_rows(rows, W, seed=11)
+    count = torch.tensor([1000], dtype=torch.int32, device="cuda")
+    graph, out = _captured(lambda: moe.swiglu(h, count))
+    expected = fused_swiglu(h)
+    for live in (1000, 4500, 0, rows, 17):
+        count.fill_(live)
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        if live:
+            assert ulp_excess(out[:live], expected[:live], 1) <= 0
+        assert bool(out[live:].isnan().all()), live
+
+
+def test_graphed_combine_reads_new_inputs_at_each_replay(card):
+    T, k, H = 2048, TOP_K, HIDDEN
+    y, back, weights, valid = combine_inputs(T, k, H, 1500, seed=1)
+    graph, out = _captured(lambda: moe.combine(y, back, weights, valid))
+    for seed, real in ((2, 1500), (3, 700), (4, T)):
+        new = combine_inputs(T, k, H, real, seed=seed)
+        for static, fresh in zip((y, back, weights, valid), new):
+            static.copy_(fresh)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert not out[~valid].any() and bool(torch.isfinite(out).all())
+        assert combine_excess(out, y, back, weights, valid) <= 0
+
+
+def test_passes_refuse_what_the_kernels_do_not_take(card):
+    h = swiglu_rows(64, 1408, seed=0)
+    for dtype in (torch.float16, torch.float32):
+        with pytest.raises(ValueError, match="must be bf16"):
+            moe.swiglu(h.to(dtype))
+    with pytest.raises(ValueError, match="contiguous"):
+        moe.swiglu(h.T.contiguous().T)
+    with pytest.raises(ValueError, match="int32"):
+        moe.swiglu(h, torch.tensor([3], device="cuda"))
+    y, back, weights, valid = combine_inputs(64, TOP_K, HIDDEN, 60, seed=0)
+    for dtype in (torch.float16, torch.float32):
+        with pytest.raises(ValueError, match="must be bf16"):
+            moe.combine(y.to(dtype), back, weights, valid)
+    wide = combine_inputs(4, moe.MAX_TOP_K + 1, 64, 4, seed=0)
+    with pytest.raises(ValueError, match="k <= 8"):
+        moe.combine(*wide)
+    with pytest.raises(ValueError, match="contiguous"):
+        moe.combine(y.T.contiguous().T, back, weights, valid)
+    with pytest.raises(ValueError, match="back must be"):
+        moe.combine(y, back.long(), weights, valid)
+    with pytest.raises(ValueError, match="weights must"):
+        moe.combine(y, back, weights.to(torch.bfloat16), valid)
+    with pytest.raises(ValueError, match="share a device"):
+        moe.combine(y, back.cpu(), weights, valid)
 
 
 SMALL = {"hidden_size": 256, "num_attention_heads": 4,

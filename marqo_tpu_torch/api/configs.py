@@ -106,9 +106,6 @@ def default_env_vars() -> Dict[str, Any]:
         "MARQO_TPU_DEFAULT_DTYPE": "bfloat16",
         "MARQO_TELEMETRY_ENABLED": "TRUE",
         "MARQO_DYNAMIC_BATCHING": "FALSE",  # coalesce concurrent embeds
-        # 1-deep ingest vectorise/feed pipeline sub-batch (docs); equals the
-        # top encode batch bucket so device batches are unchanged. 0 disables.
-        "MARQO_TPU_INGEST_PIPELINE_SUB_BATCH": 256,
     }
 
 

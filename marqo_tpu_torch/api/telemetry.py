@@ -6,9 +6,7 @@ RequestMetricsStore with time()/start()/stop()/increment_counter (:48-117),
 per-request registration keyed by request object (:119-152), and the
 middleware that injects a ``telemetry`` block into the response JSON when
 the request has ``?telemetry=true`` (:154-218). Thread-local here instead
-of a Request-keyed dict: our framework dispatches one request per thread,
-and a worker thread that runs a stage of a request runs under
-``RequestMetricsStore.bind``.
+of a Request-keyed dict: our framework dispatches one request per thread.
 
 A request with ``?telemetry=true`` is traced, and then:
 
@@ -198,12 +196,6 @@ class RequestMetricsStore:
         if traced:
             cls._trace_begins()
         return cls._local.metrics
-
-    @classmethod
-    def bind(cls, metrics: RequestMetrics) -> None:
-        """Runs this thread's timers into ``metrics``: for a worker thread
-        that serves a stage of one request (its executor's initializer)."""
-        cls._local.metrics = metrics
 
     @classmethod
     def clear(cls) -> None:

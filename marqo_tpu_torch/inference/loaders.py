@@ -83,19 +83,6 @@ class EmbeddingModel(ABC):
                modality: Modality = Modality.TEXT) -> np.ndarray:
         ...
 
-    def encode_async(self, contents: List[Any], normalize: bool = True,
-                     modality: Modality = Modality.TEXT):
-        """Dispatch the encode now; return ``resolve() -> np.ndarray``.
-
-        Callers that interleave host work (the next sub-batch's
-        tokenization, the engine feed) between dispatch and resolve hide
-        device compute behind it (the ingest pipeline,
-        core/add_documents.py). Default: synchronous — model families
-        without a deferred path compute eagerly and resolve returns the
-        stored result."""
-        result = self.encode(contents, normalize=normalize, modality=modality)
-        return lambda: result
-
     def memory_bytes(self) -> int:
         return 0
 
@@ -266,11 +253,10 @@ class TorchHFTextModel(EmbeddingModel):
 
     def encode_async(self, contents: List[Any], normalize: bool = True,
                      modality: Modality = Modality.TEXT):
-        """Tokenize + launch NOW; the returned ``resolve()`` performs the
-        one device-to-host copy (+ normalize). Launches are asynchronous,
-        so host work done between dispatch and resolve — the next
-        sub-batch's tokenization, the engine feed — overlaps device
-        compute."""
+        """Tokenize + launch every chunk NOW; the returned ``resolve()``
+        performs the one device-to-host copy (+ normalize) for all of
+        them. Launches are asynchronous, so the tokenization of chunk i+1
+        overlaps the device's work on chunk i."""
         if modality != Modality.TEXT:
             raise VectoriseError(
                 f"Model `{self.model_name}` only supports text content")

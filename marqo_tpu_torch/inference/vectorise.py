@@ -4,8 +4,9 @@ Parity: reference src/marqo/s2_inference/s2_inference.py —
   vectorise() (:48), model cache `_available_models` keyed `name||device`
   (:260-283), thread-locked load with busy rejection (:293-298),
   memory-threshold eviction (:463-500), eject_model (:774),
-  get_loaded_models (:161), output normalization to List[List[float]]
-  (:705-749).
+  get_loaded_models (:161). Where the reference converts the output to
+  List[List[float]] (:705-749), vectorise answers the same values as one
+  float32 array, and the cache stores float32 rows.
 
 TPU specifics: the "memory threshold" budgets HBM for live param pytrees;
 encoding runs through bucketed static shapes (loaders.py) so the steady
@@ -298,23 +299,41 @@ def vectorise(model_name: str,
               model_auth=None,
               enable_cache: bool = False,
               modality: Modality = Modality.TEXT,
-              as_array: bool = False,
-              **kwargs) -> Union[List[List[float]], np.ndarray]:
-    """Embed content → List[List[float]] (reference s2_inference.py:48).
+              **kwargs) -> np.ndarray:
+    """Embed content → one C-contiguous ``(n, dim)`` float32 array, a row
+    per item (reference s2_inference.py:48 answers the same values as
+    List[List[float]]).
 
     ``content`` may be a single string or a list of strings / preprocessed
     media tensors. ``enable_cache`` consults the embedding-result cache
-    (search-query path passes True, as in the reference). ``as_array``
-    returns the rows as one ``(n, dim)`` float32 array instead of lists:
-    the add path feeds the store arrays, so it skips the lists.
+    (search-query path passes True, as in the reference).
     """
-    model, cache_key, contents, hits, misses, use_cache = _prepare(
-        model_name, content, model_properties, device, model_auth,
-        enable_cache, normalize_embeddings)
+    if content is None or (isinstance(content, list) and len(content) == 0):
+        raise VectoriseError("Received empty content for vectorise")
+    contents = [content] if isinstance(content, str) else list(content)
+
+    dev = Device.normalize(device)
+    properties = _resolve_properties(model_name, model_properties)
+    cache_key = _create_model_cache_key(model_name, dev.value, properties)
+    model = _update_available_models(cache_key, model_name, properties, dev,
+                                     model_auth)
+
+    cache = _get_inference_cache()
+    use_cache = enable_cache and cache.enabled and normalize_embeddings
+    hits: Dict[int, np.ndarray] = {}
+    misses: List[int] = []
     if use_cache:
+        for i, item in enumerate(contents):
+            hit = cache.get(cache_key, item)
+            if hit is not None:
+                hits[i] = hit
+            else:
+                misses.append(i)
         metrics = telemetry.RequestMetricsStore.for_request()
         metrics.increment_counter("inference_cache.hits", len(hits))
         metrics.increment_counter("inference_cache.misses", len(misses))
+    else:
+        misses = list(range(len(contents)))
 
     encoded = None
     if misses:
@@ -344,143 +363,29 @@ def vectorise(model_name: str,
             raise VectoriseError(
                 f"Error vectorising content with model `{model_name}`: {e}",
                 cause=e) from e
-    return _finish(contents, hits, misses, encoded, cache_key, use_cache,
-                   as_array)
+    return _finish(contents, hits, misses, encoded, cache_key, use_cache)
 
 
-def vectorise_async(model_name: str,
-                    content: Union[str, List[Any]],
-                    model_properties: Optional[dict] = None,
-                    device: Optional[str] = None,
-                    normalize_embeddings: bool = True,
-                    model_auth=None,
-                    enable_cache: bool = False,
-                    modality: Modality = Modality.TEXT,
-                    as_array: bool = False,
-                    **kwargs):
-    """Pipelined variant of :func:`vectorise`: tokenizes and dispatches the
-    device work NOW, returns ``resolve() -> List[List[float]]`` (or, with
-    ``as_array``, the ``(n, dim)`` float32 array) that
-    performs the batched host fetch. The add_documents ingest pipeline
-    (core/add_documents.py) dispatches sub-batch N+1 and feeds sub-batch
-    N-1 between a sub-batch's dispatch and resolve, hiding device compute
-    and the host-device fetch behind host work (reference comparison:
-    add_documents_handler.py:123-181 runs vectorise/feed strictly
-    serially). Cache lookups happen at dispatch; cache writes at resolve.
-    The dynamic micro-batching scheduler is bypassed — this path exists
-    for large offline batches, not concurrent small requests."""
-    model, cache_key, contents, hits, misses, use_cache = _prepare(
-        model_name, content, model_properties, device, model_auth,
-        enable_cache, normalize_embeddings)
-
-    if not misses:
-        results = _finish(contents, hits, misses, None, cache_key, use_cache,
-                          as_array)
-        return lambda: results
-
-    # same MARQO_MAX_VECTORISE_BATCH_SIZE contract as the sync path
-    # (validated either way — an invalid value must be rejected on this
-    # path too, and a configured cap must chunk the dispatch, not
-    # silently encode the whole sub-batch in one call)
-    max_batch = _get_max_vectorise_batch_size()
-    miss_contents = [contents[i] for i in misses]
-    resolvers = []
-    try:
-        for start in range(0, len(miss_contents), max_batch):
-            resolvers.append(model.encode_async(
-                miss_contents[start:start + max_batch],
-                normalize=normalize_embeddings, modality=modality))
-    except VectoriseError:
-        raise
-    except Exception as e:
-        raise VectoriseError(
-            f"Error vectorising content with model `{model_name}`: {e}",
-            cause=e) from e
-
-    def resolve():
-        try:
-            parts = [float_rows(r()) for r in resolvers]
-        except VectoriseError:
-            raise
-        except Exception as e:
-            raise VectoriseError(
-                f"Error vectorising content with model `{model_name}`: {e}",
-                cause=e) from e
-        encoded = parts[0] if len(parts) == 1 else np.concatenate(parts)
-        return _finish(contents, hits, misses, encoded, cache_key, use_cache,
-                       as_array)
-
-    return resolve
-
-
-def _prepare(model_name, content, model_properties, device, model_auth,
-             enable_cache, normalize_embeddings):
-    """What both forms of vectorise resolve first: the model, its cache
-    key, the contents as a list, the cache's hits ({index: row}), the
-    indices left to encode, and whether the cache takes part."""
-    if content is None or (isinstance(content, list) and len(content) == 0):
-        raise VectoriseError("Received empty content for vectorise")
-    contents = [content] if isinstance(content, str) else list(content)
-
-    dev = Device.normalize(device)
-    properties = _resolve_properties(model_name, model_properties)
-    cache_key = _create_model_cache_key(model_name, dev.value, properties)
-    model = _update_available_models(cache_key, model_name, properties, dev,
-                                     model_auth)
-
-    cache = _get_inference_cache()
-    use_cache = enable_cache and cache.enabled and normalize_embeddings
-    hits: Dict[int, List[float]] = {}
-    misses: List[int] = []
-    if use_cache:
-        for i, item in enumerate(contents):
-            hit = cache.get(cache_key, item)
-            if hit is not None:
-                hits[i] = hit
-            else:
-                misses.append(i)
-    else:
-        misses = list(range(len(contents)))
-    return model, cache_key, contents, hits, misses, use_cache
-
-
-def _finish(contents, hits, misses, encoded, cache_key, use_cache,
-            as_array):
-    """The rows of ``contents``: ``encoded`` (the misses' rows, in order)
-    beside the cache's hits, as one ``(n, dim)`` float32 array where
-    ``as_array``, else as lists (reference _convert_vectorized_output,
-    s2_inference.py:705-749). Rows become lists only for a caller that
-    wants lists, and for the cache, which stores them; the count goes to
-    the request's ``inference.rows_listed``."""
+def _finish(contents, hits, misses, encoded, cache_key, use_cache):
+    """The rows of ``contents`` as one ``(n, dim)`` float32 array:
+    ``encoded`` (the misses' rows, in order) with the cache's hits placed
+    by index. The cache keeps a copy of each miss's row, so that an entry
+    holds no whole batch alive."""
     with telemetry.span("inference.to_lists"):
         rows = float_rows(encoded) if misses else None
-        listed = None
-        if rows is not None and (use_cache or not as_array):
-            listed = rows.tolist()
-            telemetry.RequestMetricsStore.for_request().increment_counter(
-                "inference.rows_listed", len(listed))
-            if use_cache:
-                cache = _get_inference_cache()
-                for j, i in enumerate(misses):
-                    cache.set(cache_key, contents[i], listed[j])
-        if as_array:
-            if not hits:
-                return rows
-            out = np.empty((len(contents), len(next(iter(hits.values())))),
-                           dtype=np.float32)
-            for i, hit in hits.items():
-                out[i] = hit
-            if misses:
-                out[misses] = rows
-            return out
+        if use_cache and rows is not None:
+            cache = _get_inference_cache()
+            for j, i in enumerate(misses):
+                cache.set(cache_key, contents[i], rows[j].copy())
         if not hits:
-            return listed
-        results: List[Optional[List[float]]] = [None] * len(contents)
+            return rows
+        out = np.empty((len(contents), len(next(iter(hits.values())))),
+                       dtype=np.float32)
         for i, hit in hits.items():
-            results[i] = hit
-        for j, i in enumerate(misses):
-            results[i] = listed[j]
-        return results
+            out[i] = hit
+        if misses:
+            out[misses] = rows
+        return out
 
 
 def _encode(model: EmbeddingModel, cache_key: str, contents: List[Any],
@@ -512,9 +417,9 @@ def _encode(model: EmbeddingModel, cache_key: str, contents: List[Any],
 
 
 def float_rows(arr) -> np.ndarray:
-    """Encoder output as an ``(n, dim)`` float32 array: a 1-D vector is one
-    row."""
-    arr = np.asarray(arr, dtype=np.float32)
+    """Encoder output as a C-contiguous ``(n, dim)`` float32 array: a 1-D
+    vector is one row."""
+    arr = np.ascontiguousarray(arr, dtype=np.float32)
     return arr[None, :] if arr.ndim == 1 else arr
 
 

@@ -1,21 +1,23 @@
 """The port's add path hands embeddings from the encoder to the store as
-float32 arrays (marqo_tpu_torch/core/add_documents.py,
+float32 arrays on one synchronous path, plan, vectorise, feed
+(marqo_tpu_torch/core/add_documents.py,
 marqo_tpu_torch/inference/vectorise.py), on the CPU with the tiny `test`
-encoder:
+encoder, at a small request and at 264 documents (above the encoder's top
+batch bucket, with MARQO_MAX_ADD_DOCS_COUNT raised to take it):
 
 (a) ``_vectorise_plans`` returns each field's rows as one C-contiguous
     float32 ``(chunks, dim)`` array, and the store holds the very bits that
-    ``vectorise`` returns for the same texts: on the synchronous path and
-    on the pipeline's;
-(b) ``vectorise`` keeps its list contract without ``as_array``; with it,
-    the same rows as one float32 array, bit for bit; the inference cache
-    stores and serves lists; a 1-D encoder output is one row in both forms;
-(c) a poisoned document under PER_DOCUMENT and PER_FIELD, synchronous and
-    pipelined: the healthy documents' stored rows equal a clean add's, the
-    poisoned one's are absent; a multimodal field's combined vector equals
-    the list path's arithmetic;
-(d) ``inference.rows_listed`` counts the rows turned into lists: none in a
-    traced add, one a search query.
+    the one ``vectorise`` call of the add answered;
+(b) ``vectorise`` answers one C-contiguous float32 ``(n, dim)`` array; the
+    inference cache stores a float32 row a text and its hits equal the
+    misses' rows bit for bit; a 1-D encoder output is one row;
+(c) a poisoned document under PER_DOCUMENT and PER_FIELD: the healthy
+    documents' stored rows equal a clean add's, the poisoned one's are
+    absent; a multimodal field's combined vector equals the arithmetic on
+    ``vectorise``'s rows;
+(d) over HTTP, ``/embed``'s vector and the vector ``/search`` hands the
+    engine are the query arithmetic on the rows ``vectorise`` answers for
+    the same text, bit for bit, served from the cache or not.
 """
 
 import json
@@ -28,6 +30,7 @@ from marqo_tpu_torch.config import Config
 from marqo_tpu_torch.core.add_documents import AddDocumentsHandler
 from marqo_tpu_torch.core.models.add_docs_params import (
     AddDocsParams, BatchVectorisationMode)
+from marqo_tpu_torch.engine.store import StoreEngine
 from marqo_tpu_torch.inference import vectorise as inference
 from marqo_tpu_torch.tensor_search import tensor_search
 
@@ -94,59 +97,47 @@ def _bits(rows):
 
 
 def _record_vectorise(monkeypatch):
-    """Spies on both of the add path's entry points: each call's contents
-    and the rows it answered, and whether it asked for an array."""
+    """Spies on ``vectorise``: each call's contents and the rows it
+    answered."""
     calls = []
-    sync, dispatch = inference.vectorise, inference.vectorise_async
+    real = inference.vectorise
 
-    def spy_sync(*args, **kwargs):
-        out = sync(*args, **kwargs)
-        calls.append((list(kwargs["content"]), kwargs.get("as_array"), out))
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append((list(kwargs["content"]), out))
         return out
 
-    def spy_async(*args, **kwargs):
-        resolve = dispatch(*args, **kwargs)
-
-        def resolved():
-            out = resolve()
-            calls.append((list(kwargs["content"]), kwargs.get("as_array"),
-                          out))
-            return out
-        return resolved
-
-    monkeypatch.setattr(inference, "vectorise", spy_sync)
-    monkeypatch.setattr(inference, "vectorise_async", spy_async)
+    monkeypatch.setattr(inference, "vectorise", spy)
     return calls
 
 
 def _record_scatter(monkeypatch):
-    """What each ``_vectorise_plans_async`` resolve hands the feed."""
+    """What each ``_vectorise_plans`` hands the feed."""
     scattered = []
-    original = AddDocumentsHandler._vectorise_plans_async
+    real = AddDocumentsHandler._vectorise_plans
 
     def recording(self, *args, **kwargs):
-        resolve = original(self, *args, **kwargs)
+        out = real(self, *args, **kwargs)
+        scattered.append(out)
+        return out
 
-        def resolved():
-            out = resolve()
-            scattered.append(out)
-            return out
-        return resolved
-
-    monkeypatch.setattr(AddDocumentsHandler, "_vectorise_plans_async",
-                        recording)
+    monkeypatch.setattr(AddDocumentsHandler, "_vectorise_plans", recording)
     return scattered
 
 
-# --- (a) the array path, synchronous and pipelined ---------------------------
+def _request_of(monkeypatch, n):
+    """Lets a request carry ``n`` documents."""
+    if n > 128:
+        monkeypatch.setenv("MARQO_MAX_ADD_DOCS_COUNT", str(n))
 
-@pytest.mark.parametrize("sub_batch", [None, 3])
+
+# --- (a) the array path ------------------------------------------------------
+
+@pytest.mark.parametrize("docs", [8, 264])
 def test_the_store_holds_the_encoders_rows_bit_for_bit(config, monkeypatch,
-                                                       sub_batch):
-    if sub_batch is not None:
-        monkeypatch.setenv("MARQO_TPU_INGEST_PIPELINE_SUB_BATCH",
-                           str(sub_batch))
-    docs = _docs(8)
+                                                       docs):
+    _request_of(monkeypatch, docs)
+    docs = _docs(docs)
     calls = _record_vectorise(monkeypatch)
     scattered = _record_scatter(monkeypatch)
     res = _add(config, docs)
@@ -154,58 +145,47 @@ def test_the_store_holds_the_encoders_rows_bit_for_bit(config, monkeypatch,
     monkeypatch.undo()
     monkeypatch.setenv("MARQO_BEST_AVAILABLE_DEVICE", "cpu")
 
-    # the synchronous path makes one call; the pipeline one per sub-batch
-    assert len(calls) == (1 if sub_batch is None else 3)
-    assert len(scattered) == len(calls)
-    for _contents, as_array, out in calls:
-        assert as_array is True
-        assert isinstance(out, np.ndarray) and out.dtype == np.float32
+    # one vectorise call, one scatter, whatever the request's size
+    assert len(calls) == len(scattered) == 1
+    (contents, out), = calls
+    assert isinstance(out, np.ndarray) and out.dtype == np.float32
+    assert out.shape == (len(contents), 16)
     chunk_counts = set()
-    for fields in scattered:
-        for (doc_id, field), rows in fields.items():
-            assert isinstance(rows, np.ndarray), (doc_id, field)
-            assert rows.dtype == np.float32 and rows.flags.c_contiguous
-            chunks, stored = _stored(config, doc_id)[field]
-            assert rows.shape == (len(chunks), 16)
-            assert np.array_equal(_bits(rows), _bits(stored))
-            chunk_counts.add(len(chunks))
+    for (doc_id, field), rows in scattered[0].items():
+        assert isinstance(rows, np.ndarray), (doc_id, field)
+        assert rows.dtype == np.float32 and rows.flags.c_contiguous
+        chunks, stored = _stored(config, doc_id)[field]
+        assert rows.shape == (len(chunks), 16)
+        assert np.array_equal(_bits(rows), _bits(stored))
+        chunk_counts.add(len(chunks))
     assert chunk_counts == {1, 2, 3, 4}
 
-    # each call's texts, vectorised again in the list form
-    for contents, _as_array, _out in calls:
-        reference = np.asarray(inference.vectorise(
-            "test", contents, device="cpu"), dtype=np.float32)
-        row_of = {text: reference[i] for i, text in enumerate(contents)}
-        for doc in docs:
-            for field in ("title", "body"):
-                chunks, stored = _stored(config, doc["_id"])[field]
-                for chunk, row in zip(chunks, stored):
-                    if chunk in row_of:
-                        assert np.array_equal(_bits(row),
-                                              _bits(row_of.pop(chunk)))
-        assert not row_of  # every text of the call was stored
+    # each text's row as the call answered it, in the store
+    row_of = {text: out[i] for i, text in enumerate(contents)}
+    assert len(row_of) == len(contents)  # every text distinct
+    for doc in docs:
+        for field in ("title", "body"):
+            chunks, stored = _stored(config, doc["_id"])[field]
+            for chunk, row in zip(chunks, stored):
+                assert np.array_equal(_bits(row), _bits(row_of.pop(chunk)))
+    assert not row_of  # every text of the call was stored
 
 
 # --- (b) the contract of vectorise -------------------------------------------
 
-def test_vectorise_answers_lists_and_with_as_array_the_same_rows(config):
+def test_vectorise_answers_one_float32_array(config):
     texts = ["one short text", "a second, somewhat longer text to embed",
              "three"]
-    listed = inference.vectorise("test", texts, device="cpu")
-    assert isinstance(listed, list) and len(listed) == 3
-    assert all(isinstance(row, list) and len(row) == 16 and
-               all(type(x) is float for x in row) for row in listed)
-    rows = inference.vectorise("test", texts, device="cpu", as_array=True)
+    rows = inference.vectorise("test", texts, device="cpu")
     assert isinstance(rows, np.ndarray)
     assert rows.dtype == np.float32 and rows.shape == (3, 16)
-    assert np.array_equal(_bits(rows), _bits(listed))
-    resolve = inference.vectorise_async("test", texts, device="cpu",
-                                        as_array=True)
-    assert np.array_equal(_bits(resolve()), _bits(listed))
-    assert inference.vectorise_async("test", texts, device="cpu")() == listed
+    assert rows.flags.c_contiguous
+    one = inference.vectorise("test", "three", device="cpu")
+    assert one.dtype == np.float32 and one.shape == (1, 16)
+    assert one.flags.c_contiguous
 
 
-def test_the_cache_stores_and_serves_lists(config, monkeypatch):
+def test_the_cache_stores_float32_rows_and_serves_them(config, monkeypatch):
     monkeypatch.setenv("MARQO_INFERENCE_CACHE_SIZE", "10")
     inference.clear_inference_cache()
     texts = ["cached text", "another cached text"]
@@ -216,97 +196,59 @@ def test_the_cache_stores_and_serves_lists(config, monkeypatch):
     (key,) = {k for k in inference._available_models}
     for text, row in zip(texts, first):
         hit = cache.get(key, text)
-        assert isinstance(hit, list) and hit == row
-    # hits, a miss between them, in both forms
+        assert isinstance(hit, np.ndarray)
+        assert hit.dtype == np.float32 and hit.shape == (16,)
+        assert np.array_equal(_bits(hit), _bits(row))
+        # a copy of its row: an entry holds no whole batch alive
+        assert hit.base is None and not np.shares_memory(hit, first)
+    # hits with a miss between them
     mixed = [texts[0], "not cached yet", texts[1]]
-    listed = inference.vectorise("test", mixed, device="cpu",
-                                 enable_cache=True)
-    assert listed[0] == first[0] and listed[2] == first[1]
-    assert all(isinstance(row, list) for row in listed)
     rows = inference.vectorise("test", mixed, device="cpu",
-                               enable_cache=True, as_array=True)
+                               enable_cache=True)
     assert rows.dtype == np.float32 and rows.shape == (3, 16)
-    assert np.array_equal(_bits(rows), _bits(listed))
-    every_hit = inference.vectorise_async("test", texts, device="cpu",
-                                          enable_cache=True, as_array=True)
-    assert np.array_equal(_bits(every_hit()), _bits(first))
+    assert rows.flags.c_contiguous
+    assert np.array_equal(_bits(rows[[0, 2]]), _bits(first))
+    uncached = inference.vectorise("test", ["not cached yet"], device="cpu")
+    assert np.array_equal(_bits(rows[1]), _bits(uncached[0]))
+    every_hit = inference.vectorise("test", texts, device="cpu",
+                                    enable_cache=True)
+    assert np.array_equal(_bits(every_hit), _bits(first))
 
 
-def test_a_1d_encoder_output_is_one_row_in_both_forms(config):
+def test_a_1d_encoder_output_is_one_row(config):
     inference.vectorise("test", ["load"], device="cpu")
     (entry,) = inference._available_models.values()
     model = entry["model"]
     vector = np.arange(16, dtype=np.float32) / 16
     model.encode = lambda contents, **kwargs: vector
-    model.encode_async = lambda contents, **kwargs: (lambda: vector)
     try:
-        listed = inference.vectorise("test", ["x"], device="cpu")
-        assert listed == [vector.tolist()]
-        rows = inference.vectorise("test", ["x"], device="cpu",
-                                   as_array=True)
-        assert rows.shape == (1, 16) and np.array_equal(rows[0], vector)
-        assert inference.vectorise_async("test", ["x"], device="cpu")() == \
-            [vector.tolist()]
-        rows = inference.vectorise_async("test", ["x"], device="cpu",
-                                         as_array=True)()
-        assert rows.shape == (1, 16) and np.array_equal(rows[0], vector)
+        rows = inference.vectorise("test", ["x"], device="cpu")
+        assert rows.shape == (1, 16) and rows.dtype == np.float32
+        assert np.array_equal(rows[0], vector)
     finally:
-        del model.encode, model.encode_async
-
-
-def test_a_patched_vectorise_that_answers_lists_still_feeds(config,
-                                                            monkeypatch):
-    real = inference.vectorise
-
-    def as_lists(*args, **kwargs):
-        kwargs.pop("as_array", None)
-        return real(*args, **kwargs)
-
-    monkeypatch.setattr(inference, "vectorise", as_lists)
-    docs = _docs(3)
-    assert _add(config, docs)["errors"] is False
-    monkeypatch.setattr(inference, "vectorise", real)
-    assert _add(config, docs, index=INDEX + "-clean")["errors"] is False
-    for doc in docs:
-        listed, clean = _stored(config, doc["_id"]), \
-            _stored(config, doc["_id"], INDEX + "-clean")
-        for field in ("title", "body"):
-            assert listed[field][0] == clean[field][0]
-            assert np.array_equal(_bits(listed[field][1]),
-                                  _bits(clean[field][1]))
+        del model.encode
 
 
 # --- (c) isolation on the array path -----------------------------------------
 
 def _poison(monkeypatch):
-    """vectorise and vectorise_async fail on any batch holding POISON."""
-    sync, dispatch = inference.vectorise, inference.vectorise_async
+    """vectorise fails on any batch holding POISON."""
+    real = inference.vectorise
 
-    def check(kwargs):
+    def poisoned(*args, **kwargs):
         if any("POISON" in str(c) for c in kwargs["content"]):
             raise RuntimeError("poisoned content")
+        return real(*args, **kwargs)
 
-    def poisoned_sync(*args, **kwargs):
-        check(kwargs)
-        return sync(*args, **kwargs)
-
-    def poisoned_async(*args, **kwargs):
-        check(kwargs)
-        return dispatch(*args, **kwargs)
-
-    monkeypatch.setattr(inference, "vectorise", poisoned_sync)
-    monkeypatch.setattr(inference, "vectorise_async", poisoned_async)
+    monkeypatch.setattr(inference, "vectorise", poisoned)
 
 
-@pytest.mark.parametrize("sub_batch", [None, 2])
+@pytest.mark.parametrize("docs", [6, 130])
 @pytest.mark.parametrize("mode", [BatchVectorisationMode.PER_DOCUMENT,
                                   BatchVectorisationMode.PER_FIELD])
-def test_a_poisoned_document_fails_alone(config, monkeypatch, mode,
-                                         sub_batch):
-    if sub_batch is not None:
-        monkeypatch.setenv("MARQO_TPU_INGEST_PIPELINE_SUB_BATCH",
-                           str(sub_batch))
-    healthy = _docs(5)
+def test_a_poisoned_document_fails_alone(config, monkeypatch, mode, docs):
+    _request_of(monkeypatch, docs)
+    healthy = _docs(docs - 1)
     poisoned = {"_id": "bad", "title": "a fine title",
                 "body": "A fine sentence. Then POISON in the second."}
     docs = healthy[:2] + [poisoned] + healthy[2:]
@@ -316,10 +258,11 @@ def test_a_poisoned_document_fails_alone(config, monkeypatch, mode,
     assert res["errors"] is True
     assert statuses.pop("bad") != 200
     assert set(statuses.values()) == {200}
+    assert len(statuses) == len(healthy)
     assert config.engine.get_tensors(INDEX, "bad") == {}
 
-    # a clean add of the healthy documents, through the same isolation
-    # path's groups: one document (or field) a call
+    # a clean add of the healthy documents: one batched call, against the
+    # poisoned add's one document (or field) a call
     clean = _add(config, healthy, index=INDEX + "-clean",
                  batch_vectorisation_mode=mode)
     assert clean["errors"] is False
@@ -332,18 +275,16 @@ def test_a_poisoned_document_fails_alone(config, monkeypatch, mode,
             assert np.array_equal(_bits(got[field][1]), _bits(want[field][1]))
 
 
-@pytest.mark.parametrize("sub_batch", [None, 2])
+@pytest.mark.parametrize("docs", [3, 264])
 def test_a_request_of_poisoned_documents_alone_fails_each(config,
                                                           monkeypatch,
-                                                          sub_batch):
-    if sub_batch is not None:
-        monkeypatch.setenv("MARQO_TPU_INGEST_PIPELINE_SUB_BATCH",
-                           str(sub_batch))
+                                                          docs):
+    _request_of(monkeypatch, docs)
     _poison(monkeypatch)
-    docs = [{"_id": f"bad{i}", "title": f"POISON {i}"} for i in range(3)]
+    docs = [{"_id": f"bad{i}", "title": f"POISON {i}"} for i in range(docs)]
     res = _add(config, docs)
     assert res["errors"] is True
-    assert [item["status"] for item in res["items"]] == [500] * 3
+    assert [item["status"] for item in res["items"]] == [500] * len(docs)
     assert config.engine.doc_count(INDEX) == 0
 
 
@@ -359,12 +300,12 @@ def test_a_multimodal_field_combines_as_the_list_path_did(config):
     chunks, stored = _stored(config, "mm")["combo"]
     assert stored.shape == (1, 16)
 
-    # the list path's arithmetic: each child's row from the list form, a
+    # the combine's arithmetic on vectorise's rows: each child's row, a
     # float32 mean of its rows, the weighted mean, then the norm
     acc, n = None, 0
     for child, content in (("title", "red apple"), ("body", "green pear")):
         row = inference.vectorise("test", [content], device="cpu")[0]
-        vec = np.mean(np.asarray([row], dtype=np.float32), axis=0)
+        vec = np.mean(row[None, :], axis=0)
         acc = vec * weights[child] if acc is None \
             else acc + vec * weights[child]
         n += 1
@@ -373,7 +314,7 @@ def test_a_multimodal_field_combines_as_the_list_path_did(config):
     assert np.array_equal(_bits(stored[0]), _bits(acc))
 
 
-# --- (d) inference.rows_listed ----------------------------------------------
+# --- (d) the rows over HTTP --------------------------------------------------
 
 @pytest.fixture
 def app(monkeypatch):
@@ -396,23 +337,55 @@ def _call(app, method, path, body=None):
     return response.body
 
 
-@pytest.mark.parametrize("sub_batch", [None, 2])
-def test_rows_listed_is_zero_in_an_add_and_one_a_query(app, monkeypatch,
-                                                       sub_batch):
-    if sub_batch is not None:
-        monkeypatch.setenv("MARQO_TPU_INGEST_PIPELINE_SUB_BATCH",
-                           str(sub_batch))
+@pytest.mark.parametrize("query", [
+    "topic three", {"first query": 1.0, "second query": 0.5}],
+    ids=["text", "weighted"])
+def test_search_and_embed_answer_the_rows_vectorise_answers(app, monkeypatch,
+                                                            query):
+    monkeypatch.setenv("MARQO_INFERENCE_CACHE_SIZE", "10")
+    inference.clear_inference_cache()
     body = _call(app, "POST", f"/indexes/{INDEX}/documents?telemetry=true",
                  {"documents": _docs(6), "tensorFields": ["title", "body"]})
     assert body["errors"] is False
     assert "inference.to_lists" in body["telemetry"]["timesMs"]
-    assert body["telemetry"].get("counter", {}).get(
-        "inference.rows_listed", 0) == 0
-    for query in ("topic three", "document five"):
+    weighted = {query: 1.0} if isinstance(query, str) else query
+    vectorise = inference.vectorise
+    calls = _record_vectorise(monkeypatch)
+    handed = []  # the vector each search hands the engine
+    query_tensor = StoreEngine.query_tensor
+
+    def watched(self, index_name, vector, *args, **kwargs):
+        handed.append(list(vector))
+        return query_tensor(self, index_name, vector, *args, **kwargs)
+
+    monkeypatch.setattr(StoreEngine, "query_tensor", watched)
+
+    # a miss of the inference cache, then a hit
+    hits = []
+    for counter in ("inference_cache.misses", "inference_cache.hits"):
         body = _call(app, "POST", f"/indexes/{INDEX}/search?telemetry=true",
                      {"q": query})
+        assert body["telemetry"]["counter"][counter] == len(weighted)
         assert body["hits"]
-        assert body["telemetry"]["counter"]["inference.rows_listed"] == 1
-    body = _call(app, "POST", f"/indexes/{INDEX}/search?telemetry=true",
-                 {"q": {"first query": 1.0, "second query": 0.5}})
-    assert body["telemetry"]["counter"]["inference.rows_listed"] == 2
+        hits.append([(h["_id"], h["_score"]) for h in body["hits"]])
+    embedded = _call(app, "POST", f"/indexes/{INDEX}/embed",
+                     {"content": query})["embeddings"]
+
+    assert len(calls) == 3
+    contents, rows = calls[0]
+    assert contents == list(weighted)
+    for again, answered in calls[1:]:
+        assert again == contents
+        assert np.array_equal(_bits(answered), _bits(rows))
+    fresh = vectorise("test", contents, device="cpu")
+    assert np.array_equal(_bits(fresh), _bits(rows))
+    # the query arithmetic of compute_query_vector on those rows
+    acc = np.zeros(16, dtype=np.float32)
+    for row, weight in zip(rows, weighted.values()):
+        acc += row * weight
+    if len(weighted) > 1:
+        acc = acc / len(weighted)
+    want = (acc / float(np.linalg.norm(acc))).tolist()
+    assert handed == [want, want]
+    assert hits[0] == hits[1]
+    assert embedded == [want]

@@ -614,6 +614,9 @@ def test_http_api_end_to_end(tmp_path, monkeypatch):
     finally:
         server.shutdown()
         server.server_close()
+        # a later test in this process counts the models it loaded
+        from marqo_tpu_torch.inference import vectorise
+        vectorise.clear_loaded_models()
     tok = loaders.TextTokenizer.from_pretrained(directory, max_length=64)
     batch = tok.encode_batch([docs[0]["title"]])
     expected = reference_vectors(

@@ -32,6 +32,10 @@ def _torch_models():
 
 @pytest.fixture(scope="module")
 def servers(checkpoint):  # noqa: F811
+    from marqo_tpu_torch.inference import vectorise as torch_vectorise
+    # the tests count the models these servers load: none left by an
+    # earlier test in this process
+    torch_vectorise.clear_loaded_models()
     servers = {}
     with pytest.MonkeyPatch.context() as env:
         env.setenv("MARQO_MODELS_TO_PRELOAD", "[]")
@@ -54,7 +58,6 @@ def servers(checkpoint):  # noqa: F811
             for server in servers.values():
                 server.close()
             from marqo_tpu.inference import vectorise as jax_vectorise
-            from marqo_tpu_torch.inference import vectorise as torch_vectorise
             jax_vectorise.clear_loaded_models()
             torch_vectorise.clear_loaded_models()
 

@@ -57,22 +57,23 @@ DELIBERATE_EDITS = {
                         "requests, and a count log of per-part counters "
                         "(the tokens each expert of a mixture of experts "
                         "took); Timer, TimerError and merge, which the "
-                        "port never used, went",
+                        "port never used, went, and so did the method that "
+                        "bound a worker thread to a request's timers",
     "api/http_framework.py": "a request with ?telemetry=true is traced",
-    "inference/vectorise.py": "one core for vectorise and vectorise_async "
-                              "that holds the rows as a float32 array; "
-                              "as_array hands it over, lists are made only "
-                              "for callers that take lists and for the "
-                              "cache, counted as inference.rows_listed, "
-                              "inside the span inference.to_lists of a "
-                              "traced request",
+    "inference/vectorise.py": "vectorise answers one (n, dim) float32 "
+                              "array and has no async form; the cache "
+                              "stores a float32 row a text; the rows are "
+                              "made inside the span inference.to_lists of "
+                              "a traced request",
+    "api/configs.py": "no default for the add path's sub-batch pipeline, "
+                      "which the port does not have",
     "api/app.py": "startup picks the device first and keeps a "
                   "MARQO_BEST_AVAILABLE_DEVICE already set; without one and "
                   "without CUDA it raises instead of serving on the CPU",
-    "core/add_documents.py": "one comment named jax.device_get; the add "
-                             "path asks vectorise for arrays and feeds each "
-                             "field a slice of its modality's rows, under "
-                             "the span inference.to_lists",
+    "core/add_documents.py": "one synchronous add path, plan, vectorise, "
+                             "feed, with no sub-batch pipeline; it feeds "
+                             "each field a slice of its modality's float32 "
+                             "rows, under the span inference.to_lists",
     "core/monitoring.py": "get_accelerator_info reads torch.cuda and fills "
                           "the memory fields",
     "engine/store.py": "the exact-scan hook points at engine/torch_scorer.py; "

@@ -7,12 +7,10 @@
     and its parent, and its stages' timers come back in ``timesMs``;
 (b) spans share torch.profiler's clock: a span around an aten op brackets
     the op's kineto interval;
-(c) an add larger than the pipeline's sub-batch has its ``inference.*``
-    spans, those of the pipeline's worker thread included;
-(d) ``graphs.captured`` and ``inference.graph_capture`` count one capture
+(c) ``graphs.captured`` and ``inference.graph_capture`` count one capture
     and nothing on replay, which is an ``inference.dispatch``;
-(e) collections on a traced request's thread are ``gc.pause`` spans;
-(f) the span log is a ring that drops its oldest entries and counts them.
+(d) collections on a traced request's thread are ``gc.pause`` spans;
+(e) the span log is a ring that drops its oldest entries and counts them.
 """
 
 import gc
@@ -28,7 +26,7 @@ from marqo_tpu_torch.api.telemetry import (RequestMetricsStore, Span,
 from marqo_tpu_torch.engine.store import StoreEngine
 from marqo_tpu_torch.inference import graphs
 from marqo_tpu_torch.inference import vectorise as inference
-from tests.test_torch_encoder_graphs import StandIn, _forward, _graphed, _x
+from tests.test_torch_encoder_graphs import StandIn, _forward, _x
 
 STAGES = {"add_documents.plan", "inference.tokenize", "inference.pack",
           "inference.device_wait", "inference.to_lists"}
@@ -160,28 +158,6 @@ def test_requests_take_ids_of_their_own():
     assert not telemetry.tracing and telemetry.traced() is None
 
 
-def test_a_bound_worker_thread_times_into_the_request():
-    metrics = RequestMetricsStore.set_in_request(traced=True)
-    before = telemetry.spans()
-    try:
-        with metrics.time("outer"):
-            def work():
-                RequestMetricsStore.bind(metrics)
-                with telemetry.span("worker.stage"):
-                    pass
-            worker = threading.Thread(target=work)
-            worker.start()
-            worker.join(timeout=30)
-            assert not worker.is_alive()
-    finally:
-        RequestMetricsStore.clear()
-    logged = {s.name: s for s in new_spans(before)}
-    assert "worker.stage" in metrics.times
-    # on its own thread the worker's span has no parent
-    assert logged["worker.stage"].parent is None
-    assert logged["worker.stage"].thread != logged["outer"].thread
-
-
 # --- (b) the profiler's clock ------------------------------------------------
 
 def test_a_span_brackets_the_profilers_interval_of_its_op():
@@ -206,38 +182,7 @@ def test_a_span_brackets_the_profilers_interval_of_its_op():
                                                               end)
 
 
-# --- (c) the pipeline's sub-batches ------------------------------------------
-
-def test_a_pipelined_add_has_its_inference_spans(app, monkeypatch):
-    add(app, 0, 4, traced=False)
-    (entry,) = [e for e in inference._available_models.values()
-                if e["model"].model_name == "test"]
-    capture = _graphed(monkeypatch, entry["model"])
-    monkeypatch.setenv("MARQO_TPU_INGEST_PIPELINE_SUB_BATCH", "4")
-    before = telemetry.spans()
-    body = add(app, 300, 10, traced=True)
-    assert body["errors"] is False
-    times = body["telemetry"]["timesMs"]
-    assert {"add_documents.vectorise.resolve", "inference.dispatch"} | \
-        STAGES | PER_DOCUMENT <= set(times)
-    assert capture.captures >= 1
-    assert body["telemetry"]["counter"]["graphs.captured"] == \
-        capture.captures
-    logged = new_spans(before)
-    threads = {name: {s.thread for s in logged if s.name == name}
-               for name in ("inference.tokenize", "inference.device_wait",
-                            "add_documents.vectorise.resolve")}
-    # tokenize on the request's thread, the wait on the pipeline's worker
-    assert threads["inference.device_wait"] == \
-        threads["add_documents.vectorise.resolve"]
-    assert not threads["inference.tokenize"] & \
-        threads["inference.device_wait"]
-    waits = [s for s in logged if s.name == "inference.device_wait"]
-    assert len(waits) == 3  # 10 documents in sub-batches of 4
-    assert {s.parent for s in waits} == {"add_documents.vectorise.resolve"}
-
-
-# --- (d) graph captures ------------------------------------------------------
+# --- (c) graph captures ------------------------------------------------------
 
 @pytest.mark.parametrize("traced", [False, True])
 def test_a_capture_counts_once_and_a_replay_is_a_dispatch(traced):
@@ -260,7 +205,7 @@ def test_a_capture_counts_once_and_a_replay_is_a_dispatch(traced):
                                   "inference.dispatch"}
 
 
-# --- (e) the collector -------------------------------------------------------
+# --- (d) the collector -------------------------------------------------------
 
 def test_collections_on_a_traced_thread_are_gc_pauses():
     metrics = RequestMetricsStore.set_in_request(traced=True)
@@ -287,7 +232,7 @@ def test_collections_on_a_traced_thread_are_gc_pauses():
         sum(s.end_ns - s.start_ns for s in pauses) / 1e6, abs=1e-3)
 
 
-# --- (f) the ring ------------------------------------------------------------
+# --- (e) the ring ------------------------------------------------------------
 
 def test_the_ring_drops_its_oldest_entries_and_counts_them():
     log = SpanLog(size=4)

@@ -178,7 +178,14 @@ query's); every launched shape against the twin, fp32 and bf16, at YaRN's
 softmax scale, to phase 3's bounds with the scale control; the packed
 path's most launched shape (segment) and the query's (padding) timed
 queued beside the twin, SDPA with the same mask as a bias, and the bound
-of their own mask; both rows join the kernels line.
+of their own mask; both rows join the kernels line. Then DeepSeek-V2's
+hand-written passes at the cell's widths over that packed forward's token
+slots: moe_glue (the SwiGLU and the combine, csrc/moe_glue.cu) and
+decoder_glue (the norm with the residual add before it, in four cases, and
+RoPE with the assembly of k, csrc/decoder_glue.cu; their launches a
+forward checked on both paths), each against its twin, today's
+composition, and timed beside it with its bytes bound; their rows join the
+kernels line.
 
 The serving mesh (marqo_tpu_torch/parallel/) on the one card, as a virtual
 mesh (the card repeated), forced with MARQO_TPU_SERVING_MESH=TRUE and
@@ -608,12 +615,12 @@ def kernel_times_ms(fn, iters: int, names) -> dict:
     return {name: us / 1000 / iters for name, us in totals.items()}
 
 
-def paired_ms(kernel, plain, iters: int) -> dict:
+def paired_ms(kernel, plain, iters: int, timer=cuda_ms) -> dict:
     """plain, kernel, kernel, plain: drift shows as a gap in a pair."""
-    p1 = cuda_ms(plain, iters)
-    k1 = cuda_ms(kernel, iters)
-    k2 = cuda_ms(kernel, iters)
-    p2 = cuda_ms(plain, iters)
+    p1 = timer(plain, iters)
+    k1 = timer(kernel, iters)
+    k2 = timer(kernel, iters)
+    p2 = timer(plain, iters)
     return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
             "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2]}
 
@@ -686,10 +693,11 @@ W8A8_KERNELS = ("w8a8_quantize_rows", "w8a8_gemm")
 # --- launch counters ---------------------------------------------------------
 
 def _counter_modules():
-    from marqo_tpu_torch.ops import (flash_attention, fused_attention, moe,
-                                     quant_matmul)
+    from marqo_tpu_torch.ops import (decoder_glue, flash_attention,
+                                     fused_attention, moe, quant_matmul)
     return {"masked_attention": flash_attention, "fused_attention":
-            fused_attention, "w8a8_matmul": quant_matmul, "moe": moe}
+            fused_attention, "w8a8_matmul": quant_matmul, "moe": moe,
+            "decoder_glue": decoder_glue}
 
 
 def reset_counts() -> None:
@@ -700,7 +708,9 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     """{kernel}_{mode} for the attention kernels, w8a8_matmul for B3,
-    moe_{grouped_mm, swiglu, combine} for the expert layer."""
+    moe_{grouped_mm, swiglu, combine} for the expert layer,
+    decoder_glue_{add_rms_norm, mla_rope} for DeepSeek-V2's norm and RoPE
+    passes."""
     return {name if len(module.LAUNCHES) == 1 else f"{name}_{mode}": count
             for name, module in _counter_modules().items()
             for mode, count in module.LAUNCHES.items()}
@@ -3916,8 +3926,9 @@ def phase_dsv2_attention(fa, torch, smi) -> dict:
     shape, and the padding mode at the packed shapes, held against the
     twin (``dsv2_causal_checks``); the packed path's most launched shape
     and the query's timed (``dsv2_causal_timing``); the expert layer's
-    passes counted on each path (``dsv2_expert_launches``). Returns the
-    kernels line's two rows and the expert layer's launches by path."""
+    passes counted on each path (``dsv2_expert_launches``), and the norm
+    and RoPE passes by case (``dsv2_glue_launches``). Returns the kernels
+    line's two rows and both sets of passes' launches by path."""
     from tests.deepseek_v2_checkpoint import TINY, write_checkpoint
 
     from marqo_tpu_torch.inference import loaders
@@ -3945,11 +3956,13 @@ def phase_dsv2_attention(fa, torch, smi) -> dict:
         counts = read_counts()
         launched = [row for row in shapes.listed()
                     if row["counter"].endswith("_causal")]
+        experts = dsv2_expert_launches(path, model.encoder.config,
+                                       shapes.listed(), counts, routed)
         paths[path] = {"launches": {name: n for name, n in counts.items()
                                     if n}, "shapes": launched,
-                       "moe": dsv2_expert_launches(
+                       "moe": experts, "glue": dsv2_glue_launches(
                            path, model.encoder.config, shapes.listed(),
-                           counts, routed)}
+                           counts, experts["forwards"])}
     packed = paths["packed"]["launches"]
     check(packed.get("masked_attention_segment_causal", 0) > 0 and
           not packed.get("masked_attention_padding_causal"),
@@ -3983,7 +3996,8 @@ def phase_dsv2_attention(fa, torch, smi) -> dict:
          nvidia_smi=smi, scale=DSV2_SCALE, atol=ATOL, rtol=RTOL,
          paths=paths, checks=len(results), results=results, kernels=kernels)
     return {"kernels": kernels,
-            "moe": {path: paths[path]["moe"] for path in paths}}
+            "moe": {path: paths[path]["moe"] for path in paths},
+            "glue": {path: paths[path]["glue"] for path in paths}}
 
 
 # --- DeepSeek-V2's expert-layer passes (csrc/moe_glue.cu) -------------------
@@ -4175,6 +4189,180 @@ def phase_moe_glue(torch, smi, packed) -> dict:
          nvidia_smi=smi, slots=T, real_tokens=real,
          real_share=MOE_REAL_SHARE, path_real_share=packed["real_share"],
          rows=rows, kernels=kernels)
+    return {"kernels": kernels}
+
+
+# --- DeepSeek-V2's norm and RoPE passes (csrc/decoder_glue.cu) ---------------
+
+DECODER_GLUE_SOURCE = "marqo_tpu_torch/csrc/decoder_glue.cu"
+# dsv2_lite.bulk_ingest's widths: hidden 2,048; the 512-wide latent inside
+# kv_a's 576-wide output; 16 heads of q/k 128 + 64 RoPE, v 128; packed rows
+# of 256 token slots, segments ~110 tokens long
+GLUE_HIDDEN, GLUE_LATENT, GLUE_HEADS = 2048, 512, 16
+GLUE_NOPE, GLUE_ROPE, GLUE_V, GLUE_ROW = 128, 64, 128, 256
+GLUE_EPS = 1e-6
+
+
+def dsv2_glue_launches(path, c, listed, counts, forwards) -> dict:
+    """The norm and RoPE passes on one encode of dsv2_attention, each norm
+    case counted at its launch (``listed``: LaunchShapes rows, the wrapper
+    naming the case) and its widths checked: per forward of L layers,
+    2 L - 1 residual adds with their sums kept (layer 0's post norm, later
+    layers' input and post norms) and layer 0's input norm (no add) at the
+    hidden width; L latent norms read in place (the latent's width, rows
+    kv_lora_rank + rope apart); the final norm, its sum not kept; L RoPE
+    passes. The counters' totals agree with the cases'. Returns the launches
+    by case."""
+    L, H, R = c.num_layers, c.hidden_size, c.kv_lora_rank
+    cases = {"add_rms_norm_residual": ("residual", [H, H]),
+             "add_rms_norm_plain": ("first", [H, H]),
+             "add_rms_norm_strided": ("latent", [R, R + c.qk_rope_head_dim]),
+             "add_rms_norm_nosum": ("final", [H, H]),
+             "mla_rope": ("mla_rope", None)}
+    per_forward = {"first": 1, "residual": 2 * L - 1, "latent": L,
+                   "final": 1, "mla_rope": L}
+    launched = dict.fromkeys(per_forward, 0)
+    for row in listed:
+        if row["counter"] not in cases:
+            continue
+        case, widths = cases[row["counter"]]
+        check(widths is None or row["shape"][1:] == widths,
+              f"dsv2_attention: the {path} path's {case} norm launched "
+              f"{row['shape']} (rows, W, row stride), not W, stride {widths}")
+        launched[case] += row["launches"]
+    norms = sum(launched.values()) - launched["mla_rope"]
+    check(forwards > 0 and launched == {case: n * forwards for case, n in
+                                        per_forward.items()} and
+          counts["decoder_glue_add_rms_norm"] == norms and
+          counts["decoder_glue_mla_rope"] == launched["mla_rope"],
+          f"dsv2_attention: the {path} path's norm and RoPE passes launched "
+          f"{launched} ({counts['decoder_glue_add_rms_norm']} norms, "
+          f"{counts['decoder_glue_mla_rope']} RoPE counted) in {forwards} "
+          f"forwards of {L} layers")
+    return {"forwards": forwards, "per_forward": per_forward,
+            "launches": launched}
+
+
+def rope_bytes(tokens: int, heads: int, nope: int, rope: int) -> int:
+    """Least bytes of the RoPE pass in bf16: q's RoPE part read and
+    written, the no-RoPE keys read, the shared RoPE key read, k written."""
+    return tokens * 2 * (2 * heads * rope + heads * nope + rope +
+                         heads * (nope + rope))
+
+
+def packed_positions(torch, rows: int, length: int, mean: int, g):
+    """(rows, length) positions that restart at segment starts drawn with
+    probability 1 / mean (each row's first slot a start)."""
+    idx = torch.arange(length, device=DEVICE).expand(rows, length)
+    start = torch.rand(rows, length, generator=g, device=DEVICE) < 1 / mean
+    start[:, 0] = True
+    return idx - torch.cummax(torch.where(start, idx, 0), dim=1).values
+
+
+def phase_decoder_glue(torch, smi, packed, glue) -> dict:
+    """DeepSeek-V2's norm and RoPE passes at the bulk-ingest cell's widths,
+    in bf16, over the token slots of dsv2_attention's packed forward
+    (``packed``: its ``dsv2_expert_launches``; ``glue``: its
+    ``dsv2_glue_launches``). The norm in its four cases (a residual add
+    kept; layer 0's input norm without one; the latent read in place from
+    kv_a's (T, 576) output; the final norm, its sum not kept): the sum bit
+    for bit and the normed rows within two bf16 ulps of the twin (fp32 sums
+    in another order, rsqrt's rounding), the scale shifted by one column as
+    the control that must fail. RoPE at (T / 256, 256, 16, 192) on
+    positions that restart per segment: q and k bit for bit against the
+    twin, the rotation reversed as the control. Then each timed against
+    its twin, today's composition (``paired_ms``, each run queued: the
+    wrapper's host time exceeds the smaller passes' device time, which a
+    CUDA graph hides on the path), with the bytes bound of every slot.
+    Returns the kernels line's rows, their launches those of the packed
+    path."""
+    from marqo_tpu_torch.models import deepseek_v2 as dsv2
+    from marqo_tpu_torch.ops import decoder_glue as dg
+    from tests.deepseek_v2_checkpoint import TINY
+    g = torch.Generator(device=DEVICE).manual_seed(23)
+    T, H, R = packed["slots"], GLUE_HIDDEN, GLUE_LATENT
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=g, device=DEVICE).to(
+            torch.bfloat16)
+
+    rows = []
+    for case, width, delta, keep, reads, writes in (
+            ("residual", H, True, True, 2, 2),
+            ("first", H, False, True, 1, 1),
+            ("latent", R, False, True, 1, 1),
+            ("final", H, True, False, 2, 1)):
+        x = draw(T, width + GLUE_ROPE)[:, :width] if case == "latent" else \
+            draw(T, width)
+        d = draw(T, width) if delta else None
+        scale = (1 + 0.02 * torch.randn(width, generator=g, device=DEVICE)
+                 ).to(torch.bfloat16)
+        total, normed = dg.add_rms_norm(x, d, scale, GLUE_EPS, keep)
+        twin_sum, twin = dg.add_rms_norm_reference(x, d, scale, GLUE_EPS, keep)
+        _, shifted = dg.add_rms_norm_reference(x, d, scale.roll(1), GLUE_EPS)
+        torch.cuda.synchronize()
+        err = ulp_excess(normed, twin, 2)
+        control = ulp_excess(normed, shifted, 2)
+        sums = (total is None) if not keep else torch.equal(total, twin_sum)
+        check(bool(torch.isfinite(normed).all()) and sums and
+              err <= 0 < control,
+              f"decoder_glue: add_rms_norm {case} off its twin by {err} past "
+              f"two ulps, sum kept and equal {sums} (shifted scale "
+              f"{control})")
+        times = paired_ms(
+            lambda x=x, d=d, s=scale, k=keep: dg.add_rms_norm(
+                x, d, s, GLUE_EPS, k),
+            lambda x=x, d=d, s=scale, k=keep: dg.add_rms_norm_reference(
+                x, d, s, GLUE_EPS, k), MOE_ITERS, queued_ms)
+        rows.append({"kernel": "add_rms_norm", "case": case,
+                     "shape": list(x.shape), "row_stride": x.stride(0),
+                     "max_abs_err": float((normed.float() - twin.float())
+                                          .abs().max()),
+                     "ulp_excess": err, "control_excess": control, **times,
+                     **bound(T * width * 2 * (reads + writes), 0, 1.0)})
+        del x, d, total, normed, twin_sum, twin, shifted
+    B, S = T // GLUE_ROW, GLUE_ROW
+    c = dsv2.config_from_hf(dict(TINY, **DSV2_SMALL))
+    cos, sin = dsv2.rope_tables(packed_positions(torch, B, S, 110, g), c)
+    q = draw(B, S, GLUE_HEADS, GLUE_NOPE + GLUE_ROPE)
+    kv_b = draw(B, S, GLUE_HEADS, GLUE_NOPE + GLUE_V)
+    key = draw(B, S, R + GLUE_ROPE)[..., R:]
+    q_twin, q_reversed = q.clone(), q.clone()
+    k = dg.mla_rope(q, kv_b, key, cos, sin)
+    k_twin = dg.mla_rope_reference(q_twin, kv_b, key, cos, sin)
+    k_reversed = dg.mla_rope_reference(q_reversed, kv_b, key, cos, -sin)
+    torch.cuda.synchronize()
+    exact = torch.equal(k, k_twin) and torch.equal(q, q_twin)
+    reversed_equal = torch.equal(k, k_reversed) or torch.equal(q, q_reversed)
+    check(exact and not reversed_equal,
+          f"decoder_glue: mla_rope not bit for bit its twin ({exact}) or "
+          f"equal to the reversed rotation ({reversed_equal})")
+    times = paired_ms(lambda: dg.mla_rope(q, kv_b, key, cos, sin),
+                      lambda: dg.mla_rope_reference(q_twin, kv_b, key, cos,
+                                                    sin), MOE_ITERS,
+                      queued_ms)
+    rows.append({"kernel": "mla_rope", "case": "mla_rope",
+                 "shape": list(q.shape), "max_abs_err": float(
+                     (k.float() - k_twin.float()).abs().max()),
+                 "ulp_excess": 0.0, "control_excess": float(
+                     (k.float() - k_reversed.float()).abs().max()), **times,
+                 **bound(rope_bytes(T, GLUE_HEADS, GLUE_NOPE, GLUE_ROPE), 0,
+                         1.0)})
+    for row in rows:
+        row["bandwidth_share"] = row["bound_ms"] / row["ms"]
+    kernels = [{
+        "name": row["kernel"] if row["case"] == "mla_rope" else
+        f"{row['kernel']}_{row['case']}", "route": "cuda",
+        "source": DECODER_GLUE_SOURCE, "replaces": None,
+        "launches": glue["launches"][row["case"]],
+        "launches_per_forward": glue["per_forward"][row["case"]],
+        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["plain_ms"],
+        "loop": None, "shape": row["shape"]}
+        for row in rows]
+    emit("decoder_glue", ok=True, device=torch.cuda.get_device_name(0),
+         nvidia_smi=smi, slots=T, rows=rows, kernels=kernels)
     return {"kernels": kernels}
 
 
@@ -5829,6 +6017,8 @@ def main() -> int:
     phase_last_family_graphs(torch, smi)
     dsv2 = phase_dsv2_attention(fa, torch, smi)
     moe_glue = phase_moe_glue(torch, smi, dsv2["moe"]["packed"])
+    decoder_glue = phase_decoder_glue(torch, smi, dsv2["moe"]["packed"],
+                                      dsv2["glue"]["packed"])
     timing, vit, encoder_times = phase_timing(
         fa, fused, qm, torch, clip_model, pixels, int8_encoder, bf16_encoder)
     emit("detector_timing", device=torch.cuda.get_device_name(0),
@@ -5916,6 +6106,8 @@ def main() -> int:
     kernels += dsv2["kernels"]
     # DeepSeek-V2's expert-layer passes, which replace no TPU kernel
     kernels += moe_glue["kernels"]
+    # and its norm and RoPE passes, which replace none either
+    kernels += decoder_glue["kernels"]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

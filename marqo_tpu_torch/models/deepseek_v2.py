@@ -9,12 +9,16 @@ equations are those of tests/reference/deepseek_v2.py, the plain float32
 reference it is held to:
 
 - pre-norm blocks with RMSNorm (statistics in fp32, as transformers
-  normalises in fp32 and scales in the input dtype);
+  normalises in fp32 and scales in the input dtype), each residual add
+  folded into the norm that follows it (ops/decoder_glue.py
+  ``add_rms_norm``: one pass on the card, the sum rounded as ``x + y``
+  rounds it);
 - latent attention (MLA) without a query LoRA: per head a 128-wide no-RoPE
   and a 64-wide RoPE query part; a 512-wide latent, RMSNorm'd, and one
   RoPE key shared by the heads; ``kv_b_proj`` gives each head's no-RoPE
   key and its 128-wide value. RoPE on interleaved pairs at YaRN's
-  frequencies, its tables and rotation in fp32; the softmax scale is
+  frequencies, its tables and rotation in fp32, with the assembly of k in
+  one pass on the card (ops/decoder_glue.py ``mla_rope``); the softmax scale is
   qk_head_dim^-1/2 times YaRN's mscale^2 (DeepSeek's own code). Attention
   is kernel B1's causal mode (ops/flash_attention.py) at q/k head dim 192
   and v head dim 128: causal inside each segment on the packed path,
@@ -47,7 +51,7 @@ import torch
 import torch.nn as nn
 
 from marqo_tpu_torch.models.bert import empty_module
-from marqo_tpu_torch.ops import flash_attention, moe
+from marqo_tpu_torch.ops import decoder_glue, flash_attention, moe
 from marqo_tpu_torch.ops.common import l2_normalize, masked_mean_pool
 
 
@@ -159,28 +163,12 @@ def yarn(config: DeepseekV2Config, device="cpu") -> tuple:
     return inv_freq.float(), cos_scale, softmax_scale
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm with fp32 statistics, scaled in x's dtype."""
-    x32 = x.float()
-    normed = x32 * torch.rsqrt(x32.pow(2).mean(-1, keepdim=True) + eps)
-    return scale * normed.to(x.dtype)
-
-
 def rope_tables(positions: torch.Tensor, config: DeepseekV2Config):
     """(cos, sin) fp32 of (B, S) positions: (B, S, 1, rope dim / 2)."""
     inv_freq, cos_scale, _ = yarn(config, positions.device)
     angles = positions.float()[..., None] * inv_freq
     return ((torch.cos(angles) * cos_scale)[:, :, None],
             (torch.sin(angles) * cos_scale)[:, :, None])
-
-
-def rotate(x: torch.Tensor, cos: torch.Tensor,
-           sin: torch.Tensor) -> torch.Tensor:
-    """x (..., d) rotated on interleaved pairs in fp32, in x's dtype."""
-    x32 = x.float()
-    even, odd = x32[..., 0::2], x32[..., 1::2]
-    return torch.stack([even * cos - odd * sin, even * sin + odd * cos],
-                       dim=-1).flatten(-2).to(x.dtype)
 
 
 class Attention(nn.Module):
@@ -201,13 +189,10 @@ class Attention(nn.Module):
         N, nope, rd = c.num_heads, c.qk_nope_head_dim, c.qk_rope_head_dim
         q = self.q_proj(x).view(B, S, N, nope + rd)
         kv = self.kv_a(x)
-        latent = rms_norm(kv[..., :c.kv_lora_rank], self.kv_a_norm,
-                          c.rms_norm_eps)
+        _, latent = decoder_glue.add_rms_norm(
+            kv[..., :c.kv_lora_rank], None, self.kv_a_norm, c.rms_norm_eps)
         kv_b = self.kv_b(latent).view(B, S, N, nope + c.v_head_dim)
-        k = torch.empty_like(q)
-        k[..., :nope] = kv_b[..., :nope]
-        k[..., nope:] = rotate(kv[..., None, c.kv_lora_rank:], *rope)
-        q[..., nope:] = rotate(q[..., nope:], *rope)
+        k = decoder_glue.mla_rope(q, kv_b, kv[..., c.kv_lora_rank:], *rope)
         ctx = attend(q.transpose(1, 2), k.transpose(1, 2),
                      kv_b[..., nope:].transpose(1, 2))
         return self.o_proj(ctx.transpose(1, 2).reshape(B, S, -1))
@@ -260,10 +245,16 @@ class DecoderLayer(nn.Module):
         self.mlp = DenseMLP(c.hidden_size, c.intermediate_size) \
             if index < c.first_k_dense_replace else MoE(c)
 
-    def forward(self, x, c, rope, attend, valid, counts) -> torch.Tensor:
+    def forward(self, x, delta, c, rope, attend, valid, counts):
+        """The layer on the residual stream x + delta (delta the previous
+        layer's MLP output, None before the first layer): returns (the
+        stream before this layer's MLP output is added, that output). Each
+        residual add is folded into the norm that follows it."""
         eps = c.rms_norm_eps
-        x = x + self.attn(rms_norm(x, self.input_norm, eps), c, rope, attend)
-        return x + self.mlp(rms_norm(x, self.post_norm, eps), valid, counts)
+        x, h = decoder_glue.add_rms_norm(x, delta, self.input_norm, eps)
+        x, h = decoder_glue.add_rms_norm(x, self.attn(h, c, rope, attend),
+                                         self.post_norm, eps)
+        return x, self.mlp(h, valid, counts)
 
 
 class DeepseekV2Encoder(nn.Module):
@@ -281,13 +272,14 @@ class DeepseekV2Encoder(nn.Module):
     def hidden(self, input_ids, positions, valid, attend) -> torch.Tensor:
         """Final hidden states (B, S, H) of the rows."""
         c = self.config
-        x = self.embed(input_ids.long())
+        x, delta = self.embed(input_ids.long()), None
         rope = rope_tables(positions, c)
         for i, layer in enumerate(self.layers):
             j = i - c.first_k_dense_replace
             counts = self.expert_tokens[j] if j >= 0 else None
-            x = layer(x, c, rope, attend, valid, counts)
-        return rms_norm(x, self.norm, c.rms_norm_eps)
+            x, delta = layer(x, delta, c, rope, attend, valid, counts)
+        return decoder_glue.add_rms_norm(x, delta, self.norm, c.rms_norm_eps,
+                                         keep_sum=False)[1]
 
 
 def _finish(pooled: torch.Tensor, config: DeepseekV2Config) -> torch.Tensor:

@@ -124,5 +124,15 @@ def load_library() -> ctypes.CDLL:
             combine.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
                 ctypes.c_void_p]
             combine.restype = ctypes.c_int
+            norm = lib.marqo_add_rms_norm
+            norm.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + [
+                ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
+                                        ctypes.c_float, ctypes.c_void_p]
+            norm.restype = ctypes.c_int
+            rope = lib.marqo_mla_rope
+            rope.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [
+                ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [
+                ctypes.c_int] * 4 + [ctypes.c_void_p]
+            rope.restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -8,6 +8,8 @@ config with YaRN on and seeded random weights:
 - the port's eager forward, padded and packed, against the reference;
 - B1's causal twin against a plain masked softmax at Dqk != Dv;
 - the expert layer against a per-token loop;
+- the norm and RoPE passes' twins and the reshaped layers against today's
+  composition, bit for bit, and the inputs their kernels refuse;
 - a stand-in CUDA graph of one key, replayed bit for bit, and the
   ``moe.expert_tokens`` counter;
 - the ``hf`` type's dispatch, sharded loading, and the HTTP API end to end.
@@ -25,6 +27,7 @@ import torch
 from marqo_tpu_torch.inference import batching, graphs, loaders
 from marqo_tpu_torch.inference.types import Device
 from marqo_tpu_torch.models import deepseek_v2 as dsv2
+from marqo_tpu_torch.ops import decoder_glue as glue
 from marqo_tpu_torch.ops import flash_attention as fa
 from marqo_tpu_torch.ops import moe
 from marqo_tpu_torch.ops.packing import pack_sequences
@@ -438,6 +441,20 @@ def test_kernel_inputs_pass_the_checks():
     moe.check_swiglu_inputs(torch.zeros(1, 16, dtype=torch.bfloat16))
     moe.check_combine_inputs(**_combine_args())
     moe.check_combine_inputs(**_combine_args(T=1, k=moe.MAX_TOP_K, H=8))
+    # the norm: the residual stream, the latent read in place from kv_a's
+    # (B, S, 576) output, one row, the widest row
+    x = torch.zeros(2, 5, 64, dtype=torch.bfloat16)
+    glue.check_add_rms_norm_inputs(x, torch.zeros_like(x), _scale(64))
+    kv = torch.zeros(2, 5, 72, dtype=torch.bfloat16)
+    glue.check_add_rms_norm_inputs(kv[..., :64], None, _scale(64))
+    glue.check_add_rms_norm_inputs(torch.zeros(8, dtype=torch.bfloat16), None,
+                                   _scale(8))
+    glue.check_add_rms_norm_inputs(
+        torch.zeros(1, glue.MAX_WIDTH, dtype=torch.bfloat16), None,
+        _scale(glue.MAX_WIDTH))
+    glue.check_mla_rope_inputs(**_rope_args())
+    glue.check_mla_rope_inputs(**_rope_args(nope=0))
+    glue.check_mla_rope_inputs(**_rope_args(rope=glue.MAX_ROPE))
 
 
 def test_grouped_mm_twin_skips_rows_past_the_last_group():
@@ -448,6 +465,272 @@ def test_grouped_mm_twin_skips_rows_past_the_last_group():
     torch.testing.assert_close(out[:2], rows_[:2])
     torch.testing.assert_close(out[2:5], 3 * rows_[2:5])
     assert not out[5].any()
+
+
+# --- the norm and RoPE passes ------------------------------------------------------
+
+def float64_rms_norm(x, scale, eps):
+    """RMSNorm from its definition in float64: scale x / sqrt(mean x^2 +
+    eps)."""
+    x64 = x.double()
+    return scale.double() * x64 / torch.sqrt(
+        x64.pow(2).mean(-1, keepdim=True) + eps)
+
+
+def float64_rotate(x, cos, sin):
+    """Each interleaved pair (a, b) of x as a + ib times cos + i sin, in
+    float64."""
+    pairs = torch.view_as_complex(x.double().reshape(*x.shape[:-1], -1, 2)
+                                  .contiguous())
+    turned = pairs * torch.complex(cos.double(), sin.double())
+    return torch.view_as_real(turned).flatten(-2)
+
+
+# the twins' two roundings of a bf16 value (the normalised row, then the
+# scaled one), and fp32's for float32
+ROUNDING = {torch.bfloat16: 2 ** -7, torch.float32: 2 ** -20}
+
+
+def todays_attention(attn, x, c, rope, attend):
+    """``Attention.forward`` before the passes: the latent norm, then k
+    assembled by two strided copies and q's RoPE part rotated in place."""
+    B, S, _ = x.shape
+    N, nope, rd = c.num_heads, c.qk_nope_head_dim, c.qk_rope_head_dim
+    q = attn.q_proj(x).view(B, S, N, nope + rd)
+    kv = attn.kv_a(x)
+    latent = glue.rms_norm(kv[..., :c.kv_lora_rank], attn.kv_a_norm,
+                           c.rms_norm_eps)
+    kv_b = attn.kv_b(latent).view(B, S, N, nope + c.v_head_dim)
+    k = torch.empty_like(q)
+    k[..., :nope] = kv_b[..., :nope]
+    k[..., nope:] = glue.rotate(kv[..., None, c.kv_lora_rank:], *rope)
+    q[..., nope:] = glue.rotate(q[..., nope:], *rope)
+    ctx = attend(q.transpose(1, 2), k.transpose(1, 2),
+                 kv_b[..., nope:].transpose(1, 2))
+    return attn.o_proj(ctx.transpose(1, 2).reshape(B, S, -1))
+
+
+def todays_hidden(model, input_ids, positions, valid, attend):
+    """``DeepseekV2Encoder.hidden`` before the passes: each residual add a
+    pass of its own, then the next norm."""
+    c = model.config
+    eps = c.rms_norm_eps
+    x = model.embed(input_ids.long())
+    rope = dsv2.rope_tables(positions, c)
+    for layer in model.layers:
+        x = x + todays_attention(layer.attn,
+                                 glue.rms_norm(x, layer.input_norm, eps),
+                                 c, rope, attend)
+        x = x + layer.mlp(glue.rms_norm(x, layer.post_norm, eps), valid)
+    return glue.rms_norm(x, model.norm, eps)
+
+
+def _scale(W, dtype=torch.bfloat16, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return (1 + 0.1 * torch.randn(W, generator=g)).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("W,rows_,stride", [(2048, 7, None), (512, 9, 576),
+                                            (16, 1, None), (64, 5, 72)])
+@pytest.mark.parametrize("with_delta,keep_sum", [(True, True), (True, False),
+                                                 (False, True)])
+def test_add_rms_norm_twin_matches_todays_composition(
+        dtype, W, rows_, stride, with_delta, keep_sum):
+    """The twin is ``x + delta`` then the model's RMSNorm (``rms_norm``),
+    bit for bit, and within its two roundings of RMSNorm's definition in
+    float64; x may be the latent's slice of a wider row (read in place);
+    without delta the stream comes back as it was, itself."""
+    g = torch.Generator().manual_seed(W + rows_)
+    wide = (3 * torch.randn(2, rows_, stride or W, generator=g)).to(dtype)
+    x = wide[..., :W]
+    if stride is None:
+        assert x.is_contiguous()
+    delta = torch.randn(2, rows_, W, generator=g).to(dtype) \
+        if with_delta else None
+    scale = _scale(W, dtype, seed=W)
+    before = dict(glue.LAUNCHES)
+    total, normed = glue.add_rms_norm(x, delta, scale, 1e-6, keep_sum)
+    s = x if delta is None else x + delta
+    assert torch.equal(normed, glue.rms_norm(s, scale, 1e-6))
+    torch.testing.assert_close(normed.double(),
+                               float64_rms_norm(s, scale, 1e-6),
+                               rtol=ROUNDING[dtype], atol=1e-30)
+    assert normed.dtype == dtype and normed.shape == x.shape
+    if keep_sum:
+        assert torch.equal(total, s)
+        if delta is None:
+            assert total is x
+    else:
+        assert total is None
+    assert glue.LAUNCHES == before  # the twin launches nothing
+
+
+def _rope_args(B=2, S=6, N=3, nope=16, rope=8, v=24, dtype=torch.bfloat16,
+               positions=None, seed=0, **change):
+    """q, kv_b, the RoPE key as a slice of kv_a's output (latent 32 wide)
+    and the tables of ``positions`` (B, S) (default arange(S))."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(B, S, N, nope + rope, generator=g).to(dtype)
+    kv_b = torch.randn(B, S, N, nope + v, generator=g).to(dtype)
+    kv = torch.randn(B, S, 32 + rope, generator=g).to(dtype)
+    c = dsv2.DeepseekV2Config(qk_rope_head_dim=rope, qk_nope_head_dim=nope,
+                              rope_scaling=(("factor", 4.0), (
+                                  "original_max_position_embeddings", 8),
+                                  ("mscale", 0.707),
+                                  ("mscale_all_dim", 0.707)))
+    if positions is None:
+        positions = torch.arange(S).expand(B, S)
+    cos, sin = dsv2.rope_tables(positions, c)
+    args = {"q": q, "kv_b": kv_b, "key": kv[..., 32:], "cos": cos,
+            "sin": sin}
+    args.update(change)
+    return args
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["packed", "padded"])
+@pytest.mark.parametrize("B,S,N,nope,rope,v", [(2, 11, 3, 16, 8, 24),
+                                               (1, 5, 16, 128, 64, 128)])
+def test_mla_rope_twin_matches_todays_assembly(dtype, layout, B, S, N, nope,
+                                               rope, v):
+    """The twin is the model's two strided copies into k and q's rotation
+    in place (``rotate``), bit for bit, and within a rounding of each pair
+    turned as a complex number in float64, at packed positions that
+    restart per segment and at the padded path's arange(S); k's RoPE part
+    is the one shared key."""
+    positions = None
+    if layout == "packed":
+        positions = torch.tensor([[0, 1, 2, 0, 1, 2, 3, 4, 0, 0, 1][:S]] * B)
+    args = _rope_args(B, S, N, nope, rope, v, dtype, positions, seed=S)
+    q0 = args["q"].clone()
+    before = dict(glue.LAUNCHES)
+    k = glue.mla_rope(**args)
+    cos, sin = args["cos"], args["sin"]
+    expected_k = torch.empty_like(q0)
+    expected_k[..., :nope] = args["kv_b"][..., :nope]
+    expected_k[..., nope:] = glue.rotate(args["key"][..., None, :], cos, sin)
+    expected_q = q0.clone()
+    expected_q[..., nope:] = glue.rotate(q0[..., nope:], cos, sin)
+    assert torch.equal(k, expected_k) and torch.equal(args["q"], expected_q)
+    for got, x in ((k[..., nope:], args["key"][..., None, :]),
+                   (args["q"][..., nope:], q0[..., nope:])):
+        turned = float64_rotate(x, cos, sin).expand_as(got)
+        torch.testing.assert_close(
+            got.double(), turned, rtol=ROUNDING[dtype],
+            atol=ROUNDING[dtype] * float(x.double().abs().max()))
+    assert k.dtype == dtype and k.shape == q0.shape
+    assert torch.equal(k[..., nope:], k[..., :1, nope:].expand_as(
+        k[..., nope:]))
+    assert torch.equal(args["q"][..., :nope], q0[..., :nope])
+    assert glue.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("path", ["padded", "packed"])
+def test_reshaped_layers_give_todays_hidden_states(dtype, path):
+    """``DecoderLayer`` and ``hidden`` with each residual add folded into
+    the next norm give the hidden states the model gave before, bit for
+    bit, on both paths and in both dtypes."""
+    model = port_model(dtype=dtype)
+    c = model.config
+    scale = dsv2.yarn(c)[2]
+    ids, mask = rows(seed=9, lengths=(5, 20, 11, 1, 14, 8))
+    if path == "padded":
+        positions = torch.arange(ids.shape[1]).expand(ids.shape)
+        valid = mask > 0
+
+        def attend(q, k, v):
+            return fa.attention_padding(q, k, v, mask, causal=True,
+                                        scale=scale)
+    else:
+        lengths = mask.sum(1).tolist()
+        packed = pack_sequences([ids[i, :n].tolist()
+                                 for i, n in enumerate(lengths)],
+                                seq_len=32, row_buckets=[4])
+        ids, segments, positions = (torch.from_numpy(a) for a in (
+            packed.input_ids, packed.segment_ids, packed.positions))
+        valid = segments > 0
+
+        def attend(q, k, v):
+            return fa.attention_segment(q, k, v, segments, causal=True,
+                                        scale=scale)
+    with torch.inference_mode():
+        got = model.hidden(ids, positions, valid, attend)
+        expected = todays_hidden(model, ids, positions, valid, attend)
+    assert got.dtype == dtype and torch.equal(got, expected)
+
+
+def _norm_case(x=None, delta=None, scale=None, W=16):
+    x = torch.zeros(3, W, dtype=torch.bfloat16) if x is None else x
+    return x, delta, _scale(W) if scale is None else scale
+
+
+@pytest.mark.parametrize("case,match", [
+    (lambda: _norm_case(torch.zeros(3, 16)), "x must be bf16"),
+    (lambda: _norm_case(torch.zeros(3, 16, dtype=torch.float16)),
+     "x must be bf16"),
+    (lambda: _norm_case(torch.zeros(3, 12, dtype=torch.bfloat16), W=12),
+     "multiple"),
+    (lambda: _norm_case(torch.zeros(0, 16, dtype=torch.bfloat16)), "rows"),
+    (lambda: _norm_case(torch.zeros(1, glue.MAX_WIDTH + 8,
+                                    dtype=torch.bfloat16),
+                        W=glue.MAX_WIDTH + 8), "up to"),
+    (lambda: _norm_case(torch.zeros(16, 3, dtype=torch.bfloat16).T),
+     "contiguous last axis"),
+    # rows 20 values apart: not a multiple of 8
+    (lambda: _norm_case(torch.zeros(3, 20, dtype=torch.bfloat16)[:, :16]),
+     "evenly strided"),
+    # leading axes that do not collapse into evenly strided rows
+    (lambda: _norm_case(torch.zeros(4, 3, 16, dtype=torch.bfloat16)
+                        .transpose(0, 1)), "evenly strided"),
+    (lambda: _norm_case(torch.zeros(3 * 16 + 1, dtype=torch.bfloat16)[1:]
+                        .view(3, 16)), "aligned"),
+    (lambda: _norm_case(delta=torch.zeros(3, 16)), "delta must be bf16"),
+    (lambda: _norm_case(delta=torch.zeros(3, 8, dtype=torch.bfloat16)),
+     "delta must be"),
+    (lambda: _norm_case(delta=torch.zeros(16, 3, dtype=torch.bfloat16).T),
+     "delta must be contiguous"),
+    (lambda: _norm_case(scale=torch.zeros(16)), "scale must be bf16"),
+    (lambda: _norm_case(scale=torch.zeros(8, dtype=torch.bfloat16)),
+     "scale must be"),
+    (lambda: _norm_case(scale=torch.zeros(17, dtype=torch.bfloat16)[1:]),
+     "scale must be contiguous and 16-byte aligned"),
+])
+def test_add_rms_norm_refuses_what_the_kernel_does_not_take(case, match):
+    with pytest.raises(ValueError, match=match):
+        glue.check_add_rms_norm_inputs(*case())
+
+
+@pytest.mark.parametrize("change,match", [
+    ({"dtype": torch.float32}, "q must be torch.bfloat16"),
+    ({"dtype": torch.float16}, "q must be torch.bfloat16"),
+    ({"cos": torch.zeros(2, 6, 1, 4, dtype=torch.bfloat16)},
+     "cos must be torch.float32"),
+    ({"kv_b": torch.zeros(2, 6, 4, 40, dtype=torch.bfloat16)},
+     "kv_b's shape"),
+    ({"key": torch.zeros(2, 5, 8, dtype=torch.bfloat16)}, "key's shape"),
+    ({"sin": torch.zeros(2, 6, 4)}, "sin's shape"),
+    ({"nope": 12, "v": 28}, "multiples"),
+    ({"rope": 4}, "rope >= 8"),
+    ({"rope": 136}, "<= 128"),
+    ({"kv_b": torch.zeros(2, 6, 3, 8, dtype=torch.bfloat16)},
+     "width >= nope"),
+    ({"key": torch.zeros(2, 6, 12, dtype=torch.bfloat16)[..., 4:]},
+     "evenly strided"),
+    ({"q": torch.zeros(2, 6, 24, 3, dtype=torch.bfloat16).transpose(2, 3)},
+     "contiguous"),
+    ({"cos": torch.zeros(6, 2, 1, 4).permute(1, 0, 2, 3)}, "contiguous"),
+    ({"key": torch.zeros(2 * 6 * 8 + 1, dtype=torch.bfloat16)[1:]
+      .view(2, 6, 8)}, "aligned"),
+])
+def test_mla_rope_refuses_what_the_kernel_does_not_take(change, match):
+    args = _rope_args(**{k: v for k, v in change.items()
+                         if k in ("dtype", "nope", "rope", "v")})
+    args.update({k: v for k, v in change.items()
+                 if k not in ("dtype", "nope", "rope", "v")})
+    with pytest.raises(ValueError, match=match):
+        glue.check_mla_rope_inputs(**args)
 
 
 # --- the model class: dispatch, loading, graphs, counters ---------------------------

@@ -3,8 +3,9 @@ latent attention's widths (q/k 192, v 128) against their twin, the
 grouped expert GEMM against its twin at the bulk-ingest cell's token
 counts, a small model at the kernels' widths through the graphed path
 against the float32 reference, the expert layer's SwiGLU and combine
-passes (csrc/moe_glue.cu) against their twins at the cell's shapes, and
-B1's existing padding and segment times at the encoders' shape against
+passes (csrc/moe_glue.cu) against their twins at the cell's shapes, the
+norm and RoPE passes (csrc/decoder_glue.cu) against theirs, and B1's
+existing padding and segment times at the encoders' shape against
 PERF.md's kernel table. Skips
 without an sm_90 CUDA device and nvcc; on a Hopper host run
 
@@ -22,7 +23,13 @@ exp may round a value to either side), and against the twin, which rounds
 twice, two; the gate and up halves swapped must fail. The combine pass against
 the fp32-weighted sum: its one rounding (2^-8 of the value) plus 1e-5 of
 the terms' magnitudes (fp32 sums in another order); each token's weights
-rotated by one expert must fail.
+rotated by one expert must fail. The norm pass: its sum bit for bit as
+``x + delta`` rounds it, its normed rows within two bf16 ulps of the twin
+(fp32 sums of squares in another order and rsqrt's rounding, each then
+rounded twice); the scale shifted by one column must fail. The RoPE pass
+bit for bit (each fp32 product, sum and difference rounded on its own, as
+the twin's separate kernels round them); the rotation reversed must
+differ.
 """
 
 import os
@@ -35,8 +42,9 @@ from chip_smoke import (DSV2_SCALE, SCALE_CONTROL, attention_excess,
                         attention_inputs, check_attention, mla_inputs,
                         queued_ms)
 from marqo_tpu_torch.ops import _build
+from marqo_tpu_torch.ops import decoder_glue as glue
 from marqo_tpu_torch.ops import flash_attention as fa
-from marqo_tpu_torch.ops import moe
+from marqo_tpu_torch.ops import launches, moe
 
 pytestmark = pytest.mark.cuda
 
@@ -326,6 +334,185 @@ def test_passes_refuse_what_the_kernels_do_not_take(card):
         moe.combine(y, back.cpu(), weights, valid)
 
 
+# --- the norm and RoPE passes (csrc/decoder_glue.cu) -------------------------------
+
+LATENT, ROPE, HEADS, NOPE, V = 512, 64, 16, 128, 128
+
+
+def norm_inputs(rows, W, delta, seed, stride=None):
+    """x (rows, W) bf16, as a slice of (rows, stride) where given; delta
+    or None; a bf16 scale near 1."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (3 * torch.randn(rows, stride or W, generator=g, device="cuda")).to(
+        torch.bfloat16)[:, :W]
+    d = torch.randn(rows, W, generator=g, device="cuda").to(torch.bfloat16) \
+        if delta else None
+    scale = (1 + 0.1 * torch.randn(W, generator=g, device="cuda")).to(
+        torch.bfloat16)
+    return x, d, scale
+
+
+@pytest.mark.parametrize("rows,W,delta,keep,stride,case", [
+    (SLOTS, HIDDEN, True, True, None, "residual"),   # a residual add kept
+    (SLOTS, HIDDEN, False, True, None, "plain"),     # layer 0's input norm
+    (SLOTS, HIDDEN, True, False, None, "nosum"),     # the final norm
+    (SLOTS, LATENT, False, True, LATENT + ROPE, "strided"),  # the latent
+    (1, HIDDEN, True, True, None, "residual"),
+    (5, 16, True, True, None, "residual"),           # one vector a row
+    (300, 1024, True, True, None, "residual")])      # four vectors a lane
+def test_add_rms_norm_kernel_matches_twin(card, rows, W, delta, keep,
+                                          stride, case):
+    """The sum bit for bit as ``x + delta`` rounds it; the normed rows
+    within two bf16 ulps of the twin (fp32 sums of squares in another
+    order, rsqrt's rounding, then two roundings); the scale shifted by one
+    column must fail. The launch counted under its case's name."""
+    x, d, scale = norm_inputs(rows, W, delta, seed=rows + W, stride=stride)
+    before = glue.LAUNCHES["add_rms_norm"]
+    with launches.recording() as log:
+        total, normed = glue.add_rms_norm(x, d, scale, 1e-6, keep)
+    launches.add(log)
+    torch.cuda.synchronize()
+    assert glue.LAUNCHES["add_rms_norm"] == before + 1
+    assert [(launch.name, launch.shape) for launch in log] == [
+        (f"add_rms_norm_{case}", (rows, W, stride or W))]
+    assert normed.shape == x.shape and normed.dtype == torch.bfloat16
+    twin_sum, twin = glue.add_rms_norm_reference(x, d, scale, 1e-6, keep)
+    if not keep:
+        assert total is None
+    elif d is None:
+        assert total is x
+    else:
+        assert torch.equal(total, twin_sum)
+    assert bool(torch.isfinite(normed).all())
+    assert ulp_excess(normed, twin, 2) <= 0
+    _, shifted = glue.add_rms_norm_reference(x, d, scale.roll(1), 1e-6)
+    assert ulp_excess(normed, shifted, 2) > 0
+
+
+def rope_inputs(B, S, positions, seed):
+    """q and kv_b at the cell's widths, the shared RoPE key as a slice of
+    kv_a's (B, S, 576) output, and the tables of ``positions``."""
+    from tests.deepseek_v2_checkpoint import TINY
+
+    from marqo_tpu_torch.models import deepseek_v2 as dsv2
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, S, HEADS, NOPE + ROPE, generator=g,
+                    device="cuda").to(torch.bfloat16)
+    kv_b = torch.randn(B, S, HEADS, NOPE + V, generator=g,
+                       device="cuda").to(torch.bfloat16)
+    key = torch.randn(B, S, LATENT + ROPE, generator=g, device="cuda").to(
+        torch.bfloat16)[..., LATENT:]
+    c = dsv2.config_from_hf(dict(TINY, qk_nope_head_dim=NOPE,
+                                 qk_rope_head_dim=ROPE))
+    cos, sin = dsv2.rope_tables(positions.cuda(), c)
+    return q, kv_b, key, cos, sin
+
+
+def segment_positions(B, S, seed):
+    """Positions that restart at segment starts (~110 tokens apart)."""
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.arange(S).expand(B, S)
+    start = torch.rand(B, S, generator=g) < 1 / 110
+    start[:, 0] = True
+    return idx - torch.cummax(torch.where(start, idx, 0), dim=1).values
+
+
+@pytest.mark.parametrize("B,S,layout", [(64, 256, "packed"),
+                                        (1, 128, "padded"),
+                                        (3, 5, "packed")])
+def test_mla_rope_kernel_matches_twin(card, B, S, layout):
+    """q rotated in place and k assembled, bit for bit the twin's (each
+    product, sum and difference rounded in fp32, then once to bf16);
+    the rotation reversed must differ."""
+    positions = segment_positions(B, S, seed=S) if layout == "packed" else \
+        torch.arange(S).expand(B, S)
+    q, kv_b, key, cos, sin = rope_inputs(B, S, positions, seed=B + S)
+    q_twin, q_reversed = q.clone(), q.clone()
+    before = glue.LAUNCHES["mla_rope"]
+    k = glue.mla_rope(q, kv_b, key, cos, sin)
+    torch.cuda.synchronize()
+    assert glue.LAUNCHES["mla_rope"] == before + 1
+    assert k.shape == q.shape and k.dtype == torch.bfloat16
+    k_twin = glue.mla_rope_reference(q_twin, kv_b, key, cos, sin)
+    assert torch.equal(k, k_twin) and torch.equal(q, q_twin)
+    k_reversed = glue.mla_rope_reference(q_reversed, kv_b, key, cos, -sin)
+    assert not torch.equal(k, k_reversed) and not torch.equal(q, q_reversed)
+
+
+def test_graphed_passes_read_new_inputs_at_each_replay(card):
+    """One capture of a residual add + norm, the latent norm and RoPE; the
+    inputs changed in place between replays; each replay computes the
+    twins' values of the inputs it finds."""
+    T, B, S = 2048, 8, 256
+    x, d, scale = norm_inputs(T, HIDDEN, True, seed=1)
+    kv = torch.zeros(T, LATENT + ROPE, dtype=torch.bfloat16, device="cuda")
+    kv_scale = norm_inputs(1, LATENT, False, seed=2)[2]
+    q, kv_b, key, cos, sin = rope_inputs(B, S, segment_positions(B, S, 3),
+                                         seed=3)
+    q_in = q.clone()
+
+    def forward():
+        total, normed = glue.add_rms_norm(x, d, scale, 1e-6)
+        _, latent = glue.add_rms_norm(kv[:, :LATENT], None, kv_scale, 1e-6)
+        q.copy_(q_in)
+        return total, normed, latent, glue.mla_rope(q, kv_b, key, cos, sin)
+
+    graph, out = _captured(forward)
+    for seed in (4, 5):
+        new_x, new_d, _ = norm_inputs(T, HIDDEN, True, seed=seed)
+        x.copy_(new_x)
+        d.copy_(new_d)
+        kv.copy_(torch.randn(T, LATENT + ROPE, device="cuda"))
+        new = rope_inputs(B, S, segment_positions(B, S, seed), seed=seed)
+        for static, fresh in zip((q_in, kv_b, key, cos, sin), new):
+            static.copy_(fresh)
+        graph.replay()
+        torch.cuda.synchronize()
+        total, normed, latent, k = out
+        twin_sum, twin = glue.add_rms_norm_reference(x, d, scale, 1e-6)
+        assert torch.equal(total, twin_sum)
+        assert ulp_excess(normed, twin, 2) <= 0
+        assert ulp_excess(latent, glue.add_rms_norm_reference(
+            kv[:, :LATENT], None, kv_scale, 1e-6)[1], 2) <= 0
+        q_twin = q_in.clone()
+        assert torch.equal(k, glue.mla_rope_reference(q_twin, kv_b, key,
+                                                      cos, sin))
+        assert torch.equal(q, q_twin)
+
+
+def test_norm_and_rope_refuse_what_the_kernels_do_not_take(card):
+    x, d, scale = norm_inputs(64, HIDDEN, True, seed=0)
+    for dtype in (torch.float16, torch.float32):
+        with pytest.raises(ValueError, match="x must be bf16"):
+            glue.add_rms_norm(x.to(dtype), None, scale, 1e-6)
+        with pytest.raises(ValueError, match="delta must be bf16"):
+            glue.add_rms_norm(x, d.to(dtype), scale, 1e-6)
+    with pytest.raises(ValueError, match="contiguous last axis"):
+        glue.add_rms_norm(x.T.contiguous().T, None, scale, 1e-6)
+    with pytest.raises(ValueError, match="aligned"):
+        glue.add_rms_norm(x.reshape(-1)[1:1 + 63 * HIDDEN].view(63, HIDDEN),
+                          None, scale, 1e-6)
+    with pytest.raises(ValueError, match="delta must be contiguous"):
+        glue.add_rms_norm(x, d.T.contiguous().T, scale, 1e-6)
+    with pytest.raises(ValueError, match="share a device"):
+        glue.add_rms_norm(x, d, scale.cpu(), 1e-6)
+    q, kv_b, key, cos, sin = rope_inputs(2, 8, torch.arange(8).expand(2, 8),
+                                         seed=0)
+    with pytest.raises(ValueError, match="q must be torch.bfloat16"):
+        glue.mla_rope(q.float(), kv_b, key, cos, sin)
+    with pytest.raises(ValueError, match="cos must be torch.float32"):
+        glue.mla_rope(q, kv_b, key, cos.to(torch.bfloat16), sin)
+    with pytest.raises(ValueError, match="contiguous"):
+        glue.mla_rope(q.transpose(0, 1).contiguous().transpose(0, 1), kv_b,
+                      key, cos, sin)
+    with pytest.raises(ValueError, match="aligned"):
+        flat = torch.zeros(2 * 8 * ROPE + 1, dtype=torch.bfloat16,
+                           device="cuda")
+        glue.mla_rope(q, kv_b, flat[1:].view(2, 8, ROPE), cos, sin)
+    with pytest.raises(ValueError, match="share a device"):
+        glue.mla_rope(q, kv_b, key, cos.cpu(), sin)
+
+
 SMALL = {"hidden_size": 256, "num_attention_heads": 4,
          "num_key_value_heads": 4, "qk_nope_head_dim": 128,
          "qk_rope_head_dim": 64, "v_head_dim": 128, "kv_lora_rank": 64,
@@ -352,9 +539,16 @@ def test_small_model_graphed_matches_reference(card, tmp_path):
     texts = ["".join(chr(97 + int(c)) for c in rng.integers(0, 26, n))
              for n in rng.integers(3, 300, 40)]
     first = model.encode(texts)
+    before = dict(glue.LAUNCHES)
     again = model.encode(texts)
     single = model.encode(texts[:1])
     assert len(model.graphs.graphs) == 2
+    # the replays ran the norm and RoPE passes: per forward 3 L + 1 norms
+    # (input, post and latent norms, the final norm) and L RoPE passes
+    L = config["num_hidden_layers"]
+    norms = glue.LAUNCHES["add_rms_norm"] - before["add_rms_norm"]
+    ropes = glue.LAUNCHES["mla_rope"] - before["mla_rope"]
+    assert ropes > 0 and ropes % L == 0 and norms * L == ropes * (3 * L + 1)
     np.testing.assert_allclose(first, again, atol=2e-3)
     weights = ref.Weights(directory, "cuda")
     ref.float32_only()

@@ -31,6 +31,7 @@ PORTED = {
     "models/languagebind.py", "ops/audio_ops.py", "inference/types.py",
     "inference/batching.py", "inference/loaders.py", "inference/graphs.py",
     "ops/launches.py", "models/deepseek_v2.py", "ops/moe.py",
+    "ops/decoder_glue.py",
     "engine/torch_scorer.py", "models/dino_vit.py", "models/yolox.py",
     "models/frcnn.py", "models/owl_vit.py", "parallel/__init__.py",
     "parallel/mesh.py", "parallel/serving.py", "parallel/encode.py",
